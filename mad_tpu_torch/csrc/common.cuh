@@ -1,0 +1,21 @@
+// Shared helpers of the hand-written kernels (plain C interface, no
+// PyTorch headers; each exported launcher returns cudaGetLastError()).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+#define MAD_EXPORT extern "C" __attribute__((visibility("default")))
+
+// Rounded multiply / add that nvcc may not contract into an FMA: the
+// kernels sum in the same order, with the same roundings, as the plain
+// PyTorch versions beside them (separate elementwise multiply and add).
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+
+// float32 of 2*pi, as the JAX and PyTorch code adds it to atan2 angles.
+#define MAD_TWO_PI_F 6.28318530717958647692f

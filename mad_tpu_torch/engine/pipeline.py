@@ -1,0 +1,160 @@
+"""Describe pipeline: density grid -> descriptor set (port of
+mad_tpu/engine/pipeline.py, single device).
+
+Per octave: LoG -> anchors (K4 + Newton) -> gradient field -> orientation
+-> descriptors (K7) -> kept rows; then the rows of all octaves concatenate
+and L2-normalize (mad/MaD.py:358-368). Every buffer is sized from the real
+counts of the run, so there are no static frames, overflow redos or
+approximate-peak guards.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.config import MadConfig
+from ..core.grid import DensityGrid
+from ..core.structure import Structure
+from ..ops.describe import describe_anchors
+from ..ops.detect import detect_anchors
+from ..ops.orient import orient_anchors
+from ..ops.scalespace import gradient, iter_octaves
+from ..ops.simulate import simulate_density
+
+
+@dataclass
+class DescriptorSet:
+    """Dense descriptor table for one structure.
+
+    ``desc`` and ``desc_norm`` stay on the device; the per-row metadata is
+    host numpy. ``info`` layout of the reference h5 schema
+    (mad/MaD.py:848-859): ``desc`` is (N, subregions*subeqsp) int16 counts.
+    """
+
+    desc: torch.Tensor        # (N, D) int16 counts
+    desc_norm: torch.Tensor   # (N, D) float32 unit rows
+    coords: np.ndarray        # (N, 3) float32 voxel coords in own octave
+    map_coords: np.ndarray    # (N, 3) float64 on-lattice coords (A)
+    subv_coords: np.ndarray   # (N, 3) float64 subvoxel coords (A)
+    rfinal: np.ndarray        # (N, 3, 3) float32
+    octave: np.ndarray        # (N,) int32
+    anchor_id: np.ndarray     # (N,) int32 global anchor index
+    main_bin: np.ndarray      # (N,) int32
+    sec_bin: np.ndarray       # (N,) int32
+    eqsp_size: int = 112
+    subeqsp_size: int = 16
+    name: str = ""
+    n_rows: Optional[int] = None   # real row count (== desc.shape[0] here)
+
+    @property
+    def n(self) -> int:
+        return self.desc.shape[0]
+
+
+@dataclass
+class OctaveLanes:
+    """An octave's gradient field and its oriented lanes, one lane per
+    valid (anchor, main bin, secondary bin), in (anchor, main, sec) order:
+    the input of the descriptor kernel."""
+
+    grad: torch.Tensor        # (X, Y, Z, 3) gradient of the smoothed octave
+    coords: torch.Tensor      # (L, 3) int64 anchor voxel coords
+    rfinal: torch.Tensor      # (L, 3, 3) float32 frames
+    slot: torch.Tensor        # (L,) detection slot of the lane's anchor
+    subvox: torch.Tensor      # (L, 3) subvoxel anchor coords
+    main: torch.Tensor        # (L,) main bin
+    sec: torch.Tensor         # (L,) secondary bin
+
+
+def octave_lanes(octv, cfg: MadConfig) -> OctaveLanes:
+    """LoG -> anchors (K4 + Newton) -> gradient field -> orientation."""
+    real = octv.real_shape
+    log_vol, gauss = octv.log_gauss()
+    anch = detect_anchors(log_vol, real, cfg.detect)
+    del log_vol
+    grad = gradient(gauss, octv.grad_dtype())
+    del gauss
+    vidx = torch.nonzero(anch.valid).reshape(-1)     # slots of valid anchors
+    coords_v = anch.coords[vidx]
+    mains, secs, rfin, ok = orient_anchors(
+        grad, coords_v, torch.ones_like(vidx, dtype=torch.bool), real,
+        octv.upsampled, cfg.orient)
+    M, S = cfg.orient.max_main, cfg.orient.max_sec
+    lanes = torch.nonzero(ok.reshape(-1)).reshape(-1)  # (anchor, main, sec)
+    la, lm, ls = lanes // (M * S), (lanes // S) % M, lanes % S
+    return OctaveLanes(grad=grad, coords=coords_v[la],
+                       rfinal=rfin.reshape(-1, 3, 3)[lanes], slot=vidx[la],
+                       subvox=anch.subvox[vidx[la]], main=mains[la, lm],
+                       sec=secs[la, lm, ls])
+
+
+def _describe_octave(octv, cfg: MadConfig):
+    """One octave: returns the kept rows' device descriptors and host
+    metadata, with anchor ids local to the octave's detection order."""
+    lanes = octave_lanes(octv, cfg)
+    descs, dok = describe_anchors(
+        lanes.grad, lanes.coords, lanes.rfinal,
+        torch.ones(lanes.coords.shape[0], dtype=torch.bool,
+                   device=lanes.coords.device),
+        octv.real_shape, octv.upsampled, cfg.describe)
+    keep = torch.nonzero(dok).reshape(-1)[: cfg.describe.max_descriptors]
+    host = {k: getattr(lanes, k)[keep].cpu().numpy()
+            for k in ("coords", "rfinal", "slot", "subvox", "main", "sec")}
+    return descs[keep], host
+
+
+def describe_grid(grid: DensityGrid, cfg: MadConfig, name: str = "",
+                  device=None) -> DescriptorSet:
+    """Anchor / orientation / descriptor chain of a density grid, run on
+    ``device`` (default: the grid's own device)."""
+    device = torch.device(device) if device is not None else grid.device
+    if grid.device != device:
+        grid = grid.to(device)
+    rows, descs = [], []
+    for oi, (origin, octv) in enumerate(iter_octaves(grid, cfg.scalespace)):
+        d, h = _describe_octave(octv, cfg)
+        n = h["coords"].shape[0]
+        descs.append(d)
+        rows.append(dict(
+            coords=h["coords"].astype(np.float32),
+            map_coords=h["coords"] * octv.voxsp + origin,
+            subv_coords=(h["subvox"].astype(np.float64) * octv.voxsp
+                         + origin),
+            rfinal=h["rfinal"],
+            octave=np.full(n, oi, dtype=np.int32),
+            anchor_id=(oi * cfg.detect.max_anchors + h["slot"]).astype(
+                np.int32),
+            main_bin=h["main"].astype(np.int32),
+            sec_bin=h["sec"].astype(np.int32),
+        ))
+    cat = {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
+    desc = torch.cat(descs).to(torch.int16)
+    return DescriptorSet(
+        desc=desc, desc_norm=normalize_rows(desc), n_rows=desc.shape[0],
+        eqsp_size=cfg.orient.eqsp_size,
+        subeqsp_size=cfg.describe.subeqsp_size, name=name or grid.name,
+        **cat)
+
+
+def normalize_rows(desc: torch.Tensor) -> torch.Tensor:
+    """Unit rows in float32, zero rows kept (the normalization of
+    mad_tpu/engine/pipeline.py:229-257). Squared counts sum exactly."""
+    norm = desc.to(torch.float32)
+    lens = torch.sqrt((norm * norm).sum(dim=1, keepdim=True))
+    return torch.where(lens > 0, norm / torch.where(lens > 0, lens,
+                                                    torch.ones_like(lens)),
+                       norm)
+
+
+def describe_structure(struct: Structure, resolution: float, voxsp: float,
+                       cfg: MadConfig, isovalue: float = 0.0, name: str = "",
+                       *, device) -> DescriptorSet:
+    """PDB path of the describe pipeline: simulate the density on
+    ``device`` first (parity: MapSpace PDB_mode, mad/MapSpace.py:73-75)."""
+    grid = simulate_density(struct, resolution, voxsp, device,
+                            isovalue=isovalue, shape_bucket=cfg.shape_bucket)
+    return describe_grid(grid, cfg, name=name or struct.source, device=device)

@@ -1,0 +1,31 @@
+"""Hand-written CUDA kernels of the port, one wrapper module each.
+
+Each module holds the kernel's wrapper, its plain PyTorch version and a
+``launches`` counter; the wrapper runs the plain version for CPU tensors
+and the kernel for CUDA tensors (no fallback between the two). The CUDA
+sources are in ``mad_tpu_torch/csrc`` and build on first use
+(:mod:`.build`).
+"""
+
+from . import conv1d, describe, peaks, repeat
+
+# name -> (wrapper module, CUDA source, the mad_tpu body it replaces)
+KERNELS = {
+    "conv1d": (conv1d, "mad_tpu_torch/csrc/conv1d.cu",
+               "mad_tpu/ops/convolve.py:79"),
+    "peak_mask_compact": (peaks, "mad_tpu_torch/csrc/peaks.cu",
+                          "mad_tpu/ops/detect.py:190"),
+    "descriptor_hist": (describe, "mad_tpu_torch/csrc/describe.cu",
+                        "mad_tpu/ops/describe.py:79"),
+    "exact_repeat": (repeat, "mad_tpu_torch/csrc/repeat.cu",
+                     "mad_tpu/engine/match.py:176"),
+}
+
+
+def reset_launches() -> None:
+    for mod, _src, _rep in KERNELS.values():
+        mod.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: mod.launches for name, (mod, _s, _r) in KERNELS.items()}

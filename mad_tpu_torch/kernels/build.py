@@ -1,0 +1,122 @@
+"""Build and load the hand-written CUDA kernels of ``mad_tpu_torch/csrc``.
+
+All ``csrc/*.cu`` files compile in ONE ``nvcc`` call into a shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds),
+loaded with ``ctypes``. The library goes to ``mad_tpu_torch/_build/``
+(git-ignored), named by a hash of the sources and flags, so an unchanged
+checkout builds once and a changed source rebuilds. Nothing here runs at
+import time: the first CUDA call of a kernel wrapper triggers the build,
+and a failed build raises.
+
+Every exported function launches on the stream it is given and returns
+``cudaGetLastError()`` after the launch; :func:`check` raises on a
+non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signatures of the exported launchers (csrc/*.cu, extern "C").
+SIGNATURES = {
+    "mad_conv1d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mad_peak_mask_compact": [_P, _I, _I, _I, _I, _I, _I, _I, _F,
+                              _P, _P, _P, _I, _P],
+    "mad_descriptor_hist": [_P, _I, _I, _I, _I, _I, _I, _I,
+                            _P, _P, _P, _I, _P, _P, _I, _P, _I, _I,
+                            _F, _F, _P, _P, _P],
+    "mad_exact_repeat": [_P, _I, _P, _I, _P, _P, _P, _I, _F, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None      # wall time of the build this process ran (or 0)
+build_log = ""            # nvcc's output (ptxas register / smem report)
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("CUDA toolkit not found (CUDA_HOME unset, no nvcc)")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib, build_seconds, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        srcs, hdrs = _sources()
+        h = hashlib.sha1()
+        for f in srcs + hdrs:
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+        h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        so = BUILD_DIR / f"libmad_kernels_{h.hexdigest()[:16]}.so"
+        t0 = time.perf_counter()
+        if not so.exists():
+            tmp = so.with_suffix(f".tmp{os.getpid()}")
+            cmd = ([_nvcc()] + ARCH_FLAGS + NVCC_FLAGS
+                   + ["-o", str(tmp)] + [str(s) for s in srcs])
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_log = proc.stdout + proc.stderr
+            (BUILD_DIR / "nvcc.log").write_text(build_log)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (exit {proc.returncode}):\n{build_log}")
+            os.replace(tmp, so)
+        build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(so))
+        for name, args in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        lib.mad_error_string.argtypes = [_I]
+        lib.mad_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return _lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        msg = _lib.mad_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({code})")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one card."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: all inputs must be on one CUDA "
+                             f"device, got {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")

@@ -1,0 +1,128 @@
+"""Copied from mad_tpu/testing.py (``make_protein``, ``make_assembly``) and
+mad_tpu/api.py (``_decoy_transform``, ``_np_axis_angle_mat``), numpy only.
+
+Synthetic pseudo-proteins (ideal alpha-helix backbones bent by a random
+walk) and homomultimer assemblies for tests and the chip smoke run, plus
+the self-fit decoy transform.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .core.structure import ATOMIC_MASS, Structure
+
+# Ideal helix parameters: rise 1.5 A / residue, 100 deg twist, radius 2.3 A.
+_HELIX_RISE = 1.5
+_HELIX_TWIST = np.deg2rad(100.0)
+_HELIX_RADIUS = 2.3
+
+
+def make_protein(n_res: int = 120, seed: int = 0, n_segments: int = 4
+                 ) -> Structure:
+    """Pseudo-protein: n_segments helical segments with random orientations.
+
+    Backbone atoms (N, CA, C, O) per residue -> 4*n_res atoms.
+    """
+    rng = np.random.default_rng(seed)
+    res_per_seg = max(4, n_res // n_segments)
+    coords = []
+    origin = np.zeros(3)
+    for s in range(n_segments):
+        # Random segment direction, mild continuation bias.
+        d = rng.normal(size=3)
+        d /= np.linalg.norm(d)
+        # Build helix along +z then rotate onto d.
+        t = np.arange(res_per_seg) * _HELIX_TWIST
+        z = np.arange(res_per_seg) * _HELIX_RISE
+        ca = np.stack([_HELIX_RADIUS * np.cos(t),
+                       _HELIX_RADIUS * np.sin(t), z], axis=-1)
+        axis = np.cross([0.0, 0.0, 1.0], d)
+        na = np.linalg.norm(axis)
+        if na > 1e-8:
+            axis = axis / na
+            ang = np.arccos(np.clip(d[2], -1, 1))
+            K = np.array([[0, -axis[2], axis[1]],
+                          [axis[2], 0, -axis[0]],
+                          [-axis[1], axis[0], 0]])
+            R = np.eye(3) + np.sin(ang) * K + (1 - np.cos(ang)) * (K @ K)
+        else:
+            R = np.eye(3)
+        ca = ca @ R.T + origin
+        origin = ca[-1] + d * 3.0
+        for c in ca:
+            jitter = rng.normal(scale=0.3, size=(3, 3))
+            coords.append(("N", c + np.array([-1.3, 0.2, -0.6]) + jitter[0]))
+            coords.append(("CA", c))
+            coords.append(("C", c + np.array([1.2, 0.4, 0.5]) + jitter[1]))
+            coords.append(("O", c + np.array([1.6, 1.4, 0.3]) + jitter[2]))
+
+    names = [n for n, _ in coords]
+    xyz = np.array([p for _, p in coords], dtype=np.float64)
+    elems = [n[0] for n in names]
+    masses = np.array([ATOMIC_MASS[e] for e in elems], dtype=np.float32)
+    ca_idx = np.array([i for i, n in enumerate(names) if n == "CA"])
+    bb_idx = np.arange(len(names))
+    info = [[i + 1, n, "ALA", "A", i // 4 + 1, n[0], "ATOM"]
+            for i, n in enumerate(names)]
+    return Structure(coords=xyz, masses=masses, ca_idx=ca_idx, bb_idx=bb_idx,
+                     info=info, source=f"synthetic_seed{seed}")
+
+
+def make_assembly(n_copies: int = 3, n_res: int = 100, seed: int = 0,
+                  spread: float = 28.0, shell: bool = False):
+    """One subunit replicated at n_copies random poses -> (subunit, copies).
+
+    Poses sit on a ring (default) or a Fibonacci spherical shell
+    (shell=True, fills a 3D volume) so copies touch but do not overlap,
+    mimicking a homomultimer assembly.
+    """
+    rng = np.random.default_rng(seed)
+    sub = make_protein(n_res=n_res, seed=seed)
+    sub = sub.with_coords(sub.coords - sub.center())
+    copies = []
+    golden = np.pi * (3.0 - np.sqrt(5.0))
+    for i in range(n_copies):
+        # Rotate each copy by a distinct random rotation.
+        q = rng.normal(size=4)
+        q /= np.linalg.norm(q)
+        w, x, y, z = q
+        R = np.array([
+            [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+            [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+            [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+        ])
+        if shell:
+            zc = 1.0 - 2.0 * (i + 0.5) / n_copies
+            r = np.sqrt(max(0.0, 1.0 - zc * zc))
+            ang = golden * i
+            t = spread * np.array([r * np.cos(ang), r * np.sin(ang), zc])
+        else:
+            ang = 2 * np.pi * i / n_copies
+            t = spread * np.array([np.cos(ang), np.sin(ang),
+                                   0.1 * rng.normal()])
+        copies.append(sub.transformed(R, t))
+    return sub, copies
+
+
+def _np_axis_angle_mat(axis, angle):
+    """Host-side Euler-Rodrigues matrix, same sign convention as
+    core.geometry.axis_angle_mat."""
+    axis = np.asarray(axis, dtype=np.float64)
+    a = np.cos(angle / 2.0)
+    b, c, d = -axis * np.sin(angle / 2.0)
+    return np.array([
+        [a*a + b*b - c*c - d*d, 2*(b*c + a*d), 2*(b*d - a*c)],
+        [2*(b*c - a*d), a*a + c*c - b*b - d*d, 2*(c*d + a*b)],
+        [2*(b*d + a*c), 2*(c*d - a*b), a*a + d*d - b*b - c*c]])
+
+
+def decoy_transform(struct: Structure, t=(150.0, 0.0, 0.0), a=0.375,
+                    b=1.735, c=2.452) -> Structure:
+    """Move a pre-fitted subunit away from its deposited pose
+    (parity: structure_utils.move_copy_structure, mad/structure_utils.py:30-56)."""
+    coords = struct.coords @ _np_axis_angle_mat([1.0, 0, 0], a)
+    coords = coords @ _np_axis_angle_mat([0.0, 1, 0], b)
+    coords = coords @ _np_axis_angle_mat([0.0, 0, 1], c)
+    coords = coords - coords.mean(axis=0) + np.asarray(t)
+    return struct.with_coords(coords)

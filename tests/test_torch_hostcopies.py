@@ -1,0 +1,205 @@
+"""mad_tpu_torch's host-side copies equal their mad_tpu originals, the
+geometry and grid ports agree with the JAX versions, and the port imports
+neither JAX nor mad_tpu.
+
+The copies (core/config.py, core/eqsp.py, core/structure.py,
+core/mrc_io.py, testing.py, engine/cluster.py) are numpy code carried over
+without their JAX imports (and, for core/structure.py, without the native
+parser and the writers), so they are held to exact equality.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import mad_tpu.core.config as jconfig
+import mad_tpu.core.geometry as jgeo
+from mad_tpu.api import _decoy_transform
+from mad_tpu.core.eqsp import get_eqsp as jget_eqsp
+from mad_tpu.core.grid import read_map as jread_map
+from mad_tpu.core.grid import write_mrc as jwrite_mrc
+from mad_tpu.core.structure import _parse_pdb_python, write_pdb
+from mad_tpu.engine.cluster import filter_pairs as jfilter
+from mad_tpu.engine.match import MatchTable as JTable
+from mad_tpu.testing import make_assembly as jmake_assembly
+from mad_tpu.testing import make_protein as jmake_protein
+import mad_tpu_torch.core.config as tconfig
+import mad_tpu_torch.core.geometry as tgeo
+from mad_tpu_torch import testing as ttesting
+from mad_tpu_torch.convert import (descriptor_set_from_numpy,
+                                   grid_from_numpy, match_table_from_numpy)
+from mad_tpu_torch.core.eqsp import get_eqsp as tget_eqsp
+from mad_tpu_torch.core.grid import read_map
+from mad_tpu_torch.core.structure import parse_pdb
+from mad_tpu_torch.engine.cluster import filter_pairs as tfilter
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_neither_jax_nor_mad_tpu():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import mad_tpu_torch\n"
+        "for m in pkgutil.walk_packages(mad_tpu_torch.__path__,\n"
+        "                               'mad_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'mad_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len([k for k in sys.modules\n"
+        "           if k.startswith('mad_tpu_torch.')]))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+def test_config_defaults_are_the_same():
+    assert dataclasses.asdict(tconfig.MadConfig()) == \
+        dataclasses.asdict(jconfig.MadConfig())
+    kw = dict(detect_sigma=1.5, dsc_subregions=27, n_samples=30)
+    assert dataclasses.asdict(tconfig.MadConfig.from_run_kwargs(**kw)) == \
+        dataclasses.asdict(jconfig.MadConfig.from_run_kwargs(**kw))
+    assert tconfig.bucket(130, 32) == jconfig.bucket(130, 32) == 160
+
+
+@pytest.mark.parametrize("size", [16, 112, 30])
+def test_eqsp_is_the_same(size):
+    a, b = tget_eqsp(size), jget_eqsp(size)
+    for attr in ("bounds", "p_centers", "c_centers", "belt_of_zone",
+                 "belt_first_theta"):
+        np.testing.assert_array_equal(getattr(a, attr), getattr(b, attr))
+    for x, y in zip(a.zone_lookup_tables(), b.zone_lookup_tables()):
+        np.testing.assert_array_equal(x, y)
+    v = np.random.default_rng(size).normal(size=(200, 3))
+    np.testing.assert_array_equal(a.zone_of_vectors(v), b.zone_of_vectors(v))
+
+
+def test_synthetic_systems_are_the_same():
+    p, q = ttesting.make_protein(50, seed=4), jmake_protein(50, seed=4)
+    np.testing.assert_array_equal(p.coords, q.coords)
+    np.testing.assert_array_equal(p.masses, q.masses)
+    np.testing.assert_array_equal(p.ca_idx, q.ca_idx)
+    assert p.info == q.info
+    (s1, c1), (s2, c2) = (ttesting.make_assembly(4, 40, seed=1, shell=True),
+                          jmake_assembly(4, 40, seed=1, shell=True))
+    np.testing.assert_array_equal(s1.coords, s2.coords)
+    for a, b in zip(c1, c2):
+        np.testing.assert_array_equal(a.coords, b.coords)
+    np.testing.assert_array_equal(ttesting.decoy_transform(s1).coords,
+                                  _decoy_transform(s2).coords)
+
+
+def test_pdb_parser_is_the_same(tmp_path):
+    path = str(tmp_path / "p.pdb")
+    write_pdb(jmake_protein(30, seed=2), path)
+    a, b = parse_pdb(path), _parse_pdb_python(path)
+    np.testing.assert_array_equal(a.coords, b.coords)
+    np.testing.assert_array_equal(a.masses, b.masses)
+    np.testing.assert_array_equal(a.ca_idx, b.ca_idx)
+    np.testing.assert_array_equal(a.bb_idx, b.bb_idx)
+    assert a.info == b.info
+    assert a.rmsd_ca_with(a.with_coords(a.coords + 1.0)) == pytest.approx(
+        np.sqrt(3.0))
+
+
+def test_mrc_reader_is_the_same(tmp_path):
+    from mad_tpu.core.grid import DensityGrid
+    rng = np.random.default_rng(0)
+    g = DensityGrid(data=rng.random((12, 9, 7)).astype(np.float32),
+                    origin=np.array([3.0, -4.2, 10.5]), voxsp=1.4)
+    path = str(tmp_path / "m.mrc")
+    jwrite_mrc(g, path)
+    a, b = read_map(path, "cpu", isovalue=0.2), jread_map(path, isovalue=0.2)
+    np.testing.assert_array_equal(a.origin, b.origin)
+    assert a.voxsp == b.voxsp and a.name == b.name
+    np.testing.assert_array_equal(a.host(), np.asarray(b.data))
+
+
+def test_filter_pairs_copy_is_the_same():
+    rng = np.random.default_rng(2)
+    n = 200
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    rot = np.stack([jgeo.axis_angle_mat(jnp.asarray(v[1:] / np.linalg.norm(
+        v[1:])), 2 * np.arccos(v[0])) for v in q]).astype(np.float64)
+    rot[::3] = rot[0]                       # clusters of equal poses
+    cloud = rng.normal(size=(40, 3)) * 10
+    hi = cloud[rng.integers(0, 40, n)]
+    lo = rng.normal(size=(n, 3)) * 30
+    lo[::3] = lo[0] + rng.normal(scale=0.5, size=(len(lo[::3]), 3))
+    rep = np.sort(rng.uniform(0, 80, n))[::-1]
+    fields = dict(cc=rng.uniform(0.6, 1, n), repeat=rep,
+                  hi_idx=np.arange(n), lo_idx=np.arange(n), rot=rot,
+                  hi_coord=hi, lo_coord=lo, hi_cloud=cloud, lo_cloud=lo)
+    bins = np.arange(n) % 7
+    cj = jfilter(JTable(**fields), bins, bins, jconfig.FilterConfig(), 120)
+    ct = tfilter(match_table_from_numpy(**fields), bins, bins,
+                 tconfig.FilterConfig(), 120)
+    assert len(cj) == len(ct) > 0
+    for a, b in zip(ct, cj):
+        assert (a.weight, a.repeat, a.score) == (b.weight, b.repeat, b.score)
+        np.testing.assert_array_equal(a.rot, b.rot)
+        np.testing.assert_array_equal(np.asarray(a.members),
+                                      np.asarray(b.members))
+
+
+def test_geometry_matches_jax():
+    rng = np.random.default_rng(3)
+    axis = rng.normal(size=(20, 3)).astype(np.float32)
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    axis[0] = [0, 0, -1.0]
+    angle = rng.uniform(-3, 3, size=20).astype(np.float32)
+    tol = dict(rtol=0, atol=2e-6)
+    np.testing.assert_allclose(
+        tgeo.axis_angle_mat(torch.tensor(axis), torch.tensor(angle)).numpy(),
+        np.asarray(jgeo.axis_angle_mat(jnp.asarray(axis),
+                                       jnp.asarray(angle))), **tol)
+    np.testing.assert_allclose(
+        tgeo.rotation_to_pole(torch.tensor(axis)).numpy(),
+        np.asarray(jgeo.rotation_to_pole(jnp.asarray(axis))), **tol)
+    np.testing.assert_allclose(
+        tgeo.rotation_about_z(torch.tensor(angle)).numpy(),
+        np.asarray(jgeo.rotation_about_z(jnp.asarray(angle))), **tol)
+    for got, ref in zip(tgeo.spherical_angles(torch.tensor(axis)),
+                        jgeo.spherical_angles(jnp.asarray(axis))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **tol)
+    v = np.concatenate([axis * 3, np.zeros((1, 3), np.float32)])
+    np.testing.assert_allclose(tgeo.unit(torch.tensor(v)).numpy(),
+                               np.asarray(jgeo.unit(jnp.asarray(v))), **tol)
+    x = rng.normal(size=(2, 5, 3)).astype(np.float32)
+    R = np.asarray(jgeo.rotation_about_z(jnp.asarray([0.3, 1.2])))
+    T = rng.normal(size=(2, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        tgeo.apply_rigid(torch.tensor(x), torch.tensor(R),
+                         torch.tensor(T)).numpy(),
+        np.asarray(jgeo.apply_rigid(jnp.asarray(x), jnp.asarray(R),
+                                    jnp.asarray(T))), **tol)
+
+
+def test_convert_builds_stage_state():
+    rng = np.random.default_rng(4)
+    g = grid_from_numpy(rng.random((4, 5, 6)), [1, 2, 3], 1.4, name="g")
+    assert g.data.dtype == torch.float32 and g.shape == (4, 5, 6)
+    assert g.origin.dtype == np.float64 and g.voxsp == 1.4
+    n = 5
+    desc = rng.integers(0, 9, size=(n + 3, 1024))     # trailing padding rows
+    desc[1] = 0
+    ds = descriptor_set_from_numpy(
+        desc, rng.random((n, 3)), rng.random((n, 3)), rng.random((n, 3)),
+        np.tile(np.eye(3), (n, 1, 1)), np.zeros(n), np.arange(n),
+        np.arange(n), np.zeros(n), name="d")
+    assert ds.n == n and ds.desc.dtype == torch.int16
+    norms = ds.desc_norm.norm(dim=1).numpy()
+    np.testing.assert_allclose(norms[[0, 2, 3, 4]], 1.0, rtol=1e-6)
+    assert norms[1] == 0.0
