@@ -1,9 +1,9 @@
 """Build the port's stage state from numpy arrays and plain attributes.
 
-The stages pass a ``DensityGrid``, a ``DescriptorSet`` and a ``MatchTable``
-along; these constructors make them from host arrays (for example another
-implementation's output pulled to numpy), so any stage can be fed the
-exact upstream state it would see in a run.
+The stages pass a ``DensityGrid``, a ``DescriptorSet``, a ``MatchTable``
+and ``Structure``s along; these constructors make them from host arrays
+(for example another implementation's output pulled to numpy), so any
+stage can be fed the exact upstream state it would see in a run.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .core.grid import DensityGrid
+from .core.structure import Structure
 from .engine.match import MatchTable
 from .engine.pipeline import DescriptorSet, normalize_rows
 
@@ -57,3 +58,15 @@ def match_table_from_numpy(cc, repeat, hi_idx, lo_idx, rot, hi_coord,
         rot=np.asarray(rot), hi_coord=np.asarray(hi_coord),
         lo_coord=np.asarray(lo_coord), hi_cloud=np.asarray(hi_cloud),
         lo_cloud=np.asarray(lo_cloud))
+
+
+def structure_from_numpy(coords, masses, ca_idx, bb_idx, info=None,
+                         source: str = "") -> Structure:
+    """Atom arrays (for example another implementation's docking solution)
+    -> Structure: float64 coords, float32 masses, int64 index arrays."""
+    return Structure(
+        coords=np.asarray(coords, dtype=np.float64).copy(),
+        masses=np.asarray(masses, dtype=np.float32).copy(),
+        ca_idx=np.asarray(ca_idx, dtype=np.int64).copy(),
+        bb_idx=np.asarray(bb_idx, dtype=np.int64).copy(),
+        info=list(info) if info is not None else [], source=source)

@@ -7,7 +7,8 @@ sources are in ``mad_tpu_torch/csrc`` and build on first use
 (:mod:`.build`).
 """
 
-from . import conv1d, describe, peaks, repeat
+from . import (conv1d, describe, enumerate, hetero, overlap, peaks, repeat,
+               scatter)
 
 # name -> (wrapper module, CUDA source, the mad_tpu body it replaces)
 KERNELS = {
@@ -19,6 +20,14 @@ KERNELS = {
                         "mad_tpu/ops/describe.py:79"),
     "exact_repeat": (repeat, "mad_tpu_torch/csrc/repeat.cu",
                      "mad_tpu/engine/match.py:176"),
+    "scatter_atoms": (scatter, "mad_tpu_torch/csrc/scatter.cu",
+                      "mad_tpu/ops/simulate.py:78"),
+    "pack_overlap": (overlap, "mad_tpu_torch/csrc/overlap.cu",
+                     "mad_tpu/engine/assemble.py:123"),
+    "enumerate_head": (enumerate, "mad_tpu_torch/csrc/enumerate.cu",
+                       "mad_tpu/engine/assemble.py:338"),
+    "hetero_head": (hetero, "mad_tpu_torch/csrc/enumerate.cu",
+                    "mad_tpu/engine/assemble.py:500"),
 }
 
 

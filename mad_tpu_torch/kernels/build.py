@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels of ``mad_tpu_torch/csrc``.
 
-All ``csrc/*.cu`` files compile in ONE ``nvcc`` call into a shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds),
-loaded with ``ctypes``. The library goes to ``mad_tpu_torch/_build/``
-(git-ignored), named by a hash of the sources and flags, so an unchanged
-checkout builds once and a changed source rebuilds. Nothing here runs at
-import time: the first CUDA call of a kernel wrapper triggers the build,
-and a failed build raises.
+Every ``csrc/*.cu`` file compiles in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` call links the objects into a shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), loaded with ``ctypes``. The library goes to
+``mad_tpu_torch/_build/`` (git-ignored), named by a hash of the sources
+and flags, so an unchanged checkout builds once and a changed source
+rebuilds. Nothing here runs at import time: the first CUDA call of a
+kernel wrapper triggers the build, and a failed build raises.
 
 Every exported function launches on the stream it is given and returns
 ``cudaGetLastError()`` after the launch; :func:`check` raises on a
@@ -18,14 +19,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -33,6 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C signatures of the exported launchers (csrc/*.cu, extern "C").
 SIGNATURES = {
@@ -43,6 +45,12 @@ SIGNATURES = {
                             _P, _P, _P, _I, _P, _P, _I, _P, _I, _I,
                             _F, _F, _P, _P, _P],
     "mad_exact_repeat": [_P, _I, _P, _I, _P, _P, _P, _I, _F, _P, _P],
+    "mad_scatter_atoms": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P],
+    "mad_pack_overlap": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                         _P],
+    "mad_enumerate_head": [_P, _P, _I, _I, _L, _I, _I, _I, _P, _P, _P],
+    "mad_hetero_head": [_P, _I, _I, _P, _I, _P, _I, _L, _I, _I, _I, _P, _P,
+                        _P],
 }
 
 _lock = threading.Lock()
@@ -62,6 +70,43 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
+def _compile_and_link(srcs, so: Path) -> str:
+    """nvcc -c of every source in parallel, then one -shared link; the
+    library appears under its final name only when all steps passed."""
+    nvcc = _nvcc()
+    tmp = BUILD_DIR / f"{so.stem}.tmp{os.getpid()}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    objs = [tmp / f"{src.stem}.o" for src in srcs]
+    procs = [subprocess.Popen([nvcc] + ARCH_FLAGS + NVCC_FLAGS
+                              + ["-c", str(src), "-o", str(obj)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    logs, failed = [], []
+    for src, proc in zip(srcs, procs):
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if not failed:
+        lib_tmp = tmp / so.name
+        proc = subprocess.run([nvcc] + ARCH_FLAGS + ["-shared", "-o",
+                                                     str(lib_tmp)]
+                              + [str(o) for o in objs],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append("link")
+        else:
+            os.replace(lib_tmp, so)
+            shutil.rmtree(tmp, ignore_errors=True)
+    log = "".join(logs)
+    (BUILD_DIR / "nvcc.log").write_text(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
+    return log
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib, build_seconds, build_log
@@ -78,16 +123,7 @@ def library() -> ctypes.CDLL:
         so = BUILD_DIR / f"libmad_kernels_{h.hexdigest()[:16]}.so"
         t0 = time.perf_counter()
         if not so.exists():
-            tmp = so.with_suffix(f".tmp{os.getpid()}")
-            cmd = ([_nvcc()] + ARCH_FLAGS + NVCC_FLAGS
-                   + ["-o", str(tmp)] + [str(s) for s in srcs])
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            (BUILD_DIR / "nvcc.log").write_text(build_log)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed (exit {proc.returncode}):\n{build_log}")
-            os.replace(tmp, so)
+            build_log = _compile_and_link(srcs, so)
         build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(so))
         for name, args in SIGNATURES.items():

@@ -1,0 +1,135 @@
+"""K19: head of the C(n, k) homomultimer ranking by max pair overlap.
+
+Replaces mad_tpu/engine/assemble.py:336-402 (``_compiled_enumerate_head``).
+The CUDA source ``csrc/enumerate.cu`` takes one rank per thread: it decodes
+the combination from the binomial table into a uint64 membership mask,
+takes the largest ``sym[a][b]`` over the tuple's pairs and keeps the
+smallest ``head`` keys (score, rank) per block, then over the blocks;
+:func:`enumerate_head_plain` is the plain PyTorch version: the JAX body's
+scanned decode into occupancy masks and masked max, chunked, with a
+running merge of the same keys.
+
+A key is (float bits of the score, clamped at 0) << 32 | rank, so sorting
+keys sorts by (score, rank): the tie order of the JAX body's running
+``lax.top_k`` merge (earlier chunks and lower ranks first). The helpers
+here (keys, merge, block plan) serve K20 (:mod:`.hetero`) as well.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from . import build
+
+launches = 0            # kernel launches since the last reset
+
+SMEM_LIMIT = 232448     # bytes of shared memory a block may use (sm_90)
+MAX_RANKS = 2 ** 31 - 1
+
+
+def comb_table(n: int, k: int) -> np.ndarray:
+    """(n, k) int32 table tab[x, i] = C(n-1-x, k-1-i), each entry clamped
+    to C(n, k): the decode compares ranks below C(n, k) against it, so the
+    clamp changes no decision and keeps every entry in int32."""
+    total = math.comb(n, k)
+    if total > MAX_RANKS:
+        raise ValueError(f"C({n}, {k}) = {total} ranks do not fit int32")
+    tab = np.zeros((n, k), np.int32)
+    for x in range(n):
+        for i in range(k):
+            tab[x, i] = min(math.comb(n - 1 - x, k - 1 - i), total)
+    return tab
+
+
+def keys_of(scores: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
+    """int64 keys (bits of max(score, 0)) << 32 | rank."""
+    s = torch.where(scores > 0, scores, torch.zeros_like(scores))
+    bits = s.to(torch.float32).view(torch.int32).to(torch.int64)
+    return (bits << 32) | ranks.to(torch.int64)
+
+
+def merge_head(best: torch.Tensor, keys: torch.Tensor,
+               head: int) -> torch.Tensor:
+    return torch.sort(torch.cat([best, keys])).values[:head]
+
+
+def split_keys(keys: torch.Tensor):
+    """Sorted keys -> (ranks int64, scores float32) numpy arrays."""
+    k = keys.cpu().numpy().astype(np.int64)
+    scores = (k >> 32).astype(np.uint32).view(np.float32)
+    return k & 0xFFFFFFFF, scores
+
+
+def plan(total: int, head: int, fixed_smem: int, device):
+    """(S, blocks) of a head launch: S keys of shared memory per block, a
+    power of two >= 2 head, and at most two blocks per SM."""
+    if head < 1:
+        raise ValueError("head must be >= 1")
+    S = max(2048, 1 << (2 * head - 1).bit_length())
+    if S * 8 + fixed_smem > SMEM_LIMIT:
+        raise ValueError(f"head {head} needs {S * 8 + fixed_smem} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = max(1, min(-(-total // (S - head)), 2 * sms))
+    return S, blocks
+
+
+def head_buffers(blocks: int, head: int, device):
+    partial = torch.empty(blocks * head if blocks > 1 else 1,
+                          dtype=torch.int64, device=device)
+    out = torch.empty(head, dtype=torch.int64, device=device)
+    return partial, out
+
+
+def enumerate_head_plain(sym: torch.Tensor, tab: torch.Tensor, head: int,
+                         chunk: int = 1 << 14) -> torch.Tensor:
+    n, k = tab.shape
+    total = math.comb(n, k)
+    dev = sym.device
+    tab = tab.to(torch.int64)
+    chunk = max(1, min(chunk, (1 << 24) // max(n * n, 1)))
+    best = torch.empty(0, dtype=torch.int64, device=dev)
+    for c0 in range(0, total, chunk):
+        r = torch.arange(c0, min(c0 + chunk, total), device=dev)
+        rem, slot = r.clone(), torch.zeros_like(r)
+        m2 = torch.zeros((r.shape[0], n), dtype=torch.float32, device=dev)
+        for x in range(n):
+            c = torch.where(slot < k, tab[x][slot.clamp(max=k - 1)],
+                            torch.zeros_like(slot))
+            take = rem < c
+            m2[:, x] = take.to(torch.float32)
+            slot = slot + take.to(torch.int64)
+            rem = rem - torch.where(take, torch.zeros_like(c), c)
+        s = (sym[None] * m2[:, :, None] * m2[:, None, :]).amax(dim=(1, 2))
+        best = merge_head(best, keys_of(s, r), head)
+    return best
+
+
+def enumerate_head(sym: torch.Tensor, tab: torch.Tensor,
+                   head: int) -> torch.Tensor:
+    """The ``head`` smallest keys (max pair overlap, rank) over the C(n, k)
+    ranks, ascending; sym (n, n) float32 symmetric, tab = comb_table(n, k)
+    as int32 on the same device, n <= 64."""
+    if sym.device.type == "cpu":
+        return enumerate_head_plain(sym, tab, head)
+    global launches
+    sym = sym.to(torch.float32).contiguous()
+    tab = tab.to(torch.int32).contiguous()
+    build.require_cuda("enumerate_head", sym, tab)
+    n, k = tab.shape
+    if sym.shape != (n, n) or n > 64 or k < 1:
+        raise ValueError(f"enumerate_head: bad shapes {tuple(sym.shape)}, "
+                         f"{tuple(tab.shape)} (n <= 64)")
+    total = math.comb(n, k)
+    S, blocks = plan(total, head, 4 * n * (n + k), sym.device)
+    partial, out = head_buffers(blocks, head, sym.device)
+    lib = build.library()
+    code = lib.mad_enumerate_head(
+        sym.data_ptr(), tab.data_ptr(), n, k, total, head, S, blocks,
+        partial.data_ptr(), out.data_ptr(), build.stream_ptr(sym.device))
+    build.check(code, "mad_enumerate_head")
+    launches += 1
+    return out[out != -1]

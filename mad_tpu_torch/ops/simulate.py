@@ -7,7 +7,8 @@ Replaces PDB.structure_to_density (mad/PDB.py:131-208):
      at ceil(3*sigma), *full* convolution (the box grows by the radius),
      through kernel K1;
   3. normalize to max 1, clamp below the isovalue.
-The scatter is ``index_put_(accumulate=True)``, one call per cell corner.
+The scatter of a whole batch is one launch of kernel K9
+(:mod:`mad_tpu_torch.kernels.scatter`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from ..core.config import bucket
 from ..core.grid import DensityGrid
 from ..core.structure import Structure
+from ..kernels import scatter
 from .convolve import separable_conv3d
 
 
@@ -73,33 +75,19 @@ def _blur_taps(sigma: float, radius: int) -> np.ndarray:
     return (k1 / k1.sum()).astype(np.float32)
 
 
-def _scatter_blur(coords: torch.Tensor, masses: torch.Tensor,
-                  vox_min: torch.Tensor, box, margin: int, voxsp: float,
-                  taps: np.ndarray, isovalue: float) -> torch.Tensor:
-    """One structure: trilinear mass scatter, normalize, 'full' blur,
-    normalize, clamp (mad_tpu/ops/simulate.py:86-108)."""
-    g = margin + (coords - vox_min) / voxsp
-    g0 = torch.floor(g)
-    frac = g - g0
-    i0 = g0.to(torch.int64)
-    w1, w0 = frac, 1.0 - frac
-    grid = torch.zeros(box, dtype=torch.float32, device=coords.device)
-    dims = torch.as_tensor(box, device=coords.device)
-    for dx in (0, 1):
-        for dy in (0, 1):
-            for dz in (0, 1):
-                w = (masses
-                     * (w1[:, 0] if dx else w0[:, 0])
-                     * (w1[:, 1] if dy else w0[:, 1])
-                     * (w1[:, 2] if dz else w0[:, 2]))
-                idx = i0 + torch.as_tensor([dx, dy, dz], device=i0.device)
-                keep = ((idx >= 0) & (idx < dims)).all(dim=1)
-                idx, w = idx[keep], w[keep]
-                grid.index_put_((idx[:, 0], idx[:, 1], idx[:, 2]), w,
-                                accumulate=True)
-    grid = grid / torch.clamp(grid.max(), min=1e-30)
-    dens = separable_conv3d(grid, (taps, taps, taps), mode="full")
-    dens = dens / torch.clamp(dens.max(), min=1e-30)
+def _simulate_batch(coords: torch.Tensor, masses: torch.Tensor,
+                    vox_min: torch.Tensor, box, margin: int, voxsp: float,
+                    taps: np.ndarray, isovalue: float) -> torch.Tensor:
+    """M structures: one trilinear mass scatter (K9), then per structure
+    normalize, 'full' blur (K1), normalize, clamp
+    (mad_tpu/ops/simulate.py:86-108)."""
+    grids = scatter.scatter_atoms(coords, masses, vox_min, box, margin, voxsp)
+    grids = grids / torch.clamp(grids.amax(dim=(1, 2, 3), keepdim=True),
+                                min=1e-30)
+    dens = torch.stack([separable_conv3d(g, (taps, taps, taps), mode="full")
+                        for g in grids])
+    dens = dens / torch.clamp(dens.amax(dim=(1, 2, 3), keepdim=True),
+                              min=1e-30)
     if isovalue:
         dens = torch.where(dens < isovalue, torch.zeros_like(dens), dens)
     return dens
@@ -121,14 +109,36 @@ def simulate_density(struct_or_coords, resolution: float, voxsp: float,
             masses = np.full(coords.shape[0], 12.011, dtype=np.float32)
     plan = plan_simulation(coords, resolution, voxsp, isovalue, pad,
                            shape_bucket)
-    dens = _scatter_blur(
-        torch.as_tensor(coords, dtype=torch.float32, device=device),
-        torch.as_tensor(masses, dtype=torch.float32, device=device),
-        torch.as_tensor(plan.vox_min, dtype=torch.float32, device=device),
+    dens = _simulate_batch(
+        torch.as_tensor(coords, dtype=torch.float32, device=device)[None],
+        torch.as_tensor(masses, dtype=torch.float32, device=device)[None],
+        torch.as_tensor(plan.vox_min, dtype=torch.float32,
+                        device=device)[None],
         plan.box, plan.margin, plan.voxsp,
         _blur_taps(plan.sigma, plan.radius), plan.isovalue)
-    return DensityGrid(data=dens, origin=plan.out_origin, voxsp=voxsp,
+    return DensityGrid(data=dens[0], origin=plan.out_origin, voxsp=voxsp,
                        name=name)
+
+
+def _batch_plan(coords: np.ndarray, voxsp: float, shape_bucket: int):
+    """Lattice-registered min corners (M, 3), the common scatter box and
+    the margin of a batch."""
+    mins = voxsp * np.floor(coords.min(axis=1) / voxsp)          # (M, 3)
+    maxs = voxsp * np.ceil(coords.max(axis=1) / voxsp)
+    margin = 2
+    dims = np.ceil((maxs - mins) / voxsp).astype(int) + 2 * margin + 1
+    box = tuple(bucket(int(d), shape_bucket) for d in dims.max(axis=0))
+    return mins, box, margin
+
+
+def scatter_args(coords: np.ndarray, masses: np.ndarray, voxsp: float,
+                 device, shape_bucket: int = 16):
+    """The arguments ``batched_simulate`` hands to K9 for this batch:
+    (coords, masses, vox_min tensors on ``device``, box, margin, voxsp)."""
+    mins, box, margin = _batch_plan(coords, voxsp, shape_bucket)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.as_tensor(coords, **f32), torch.as_tensor(masses, **f32),
+            torch.as_tensor(mins, **f32), box, margin, voxsp)
 
 
 def batched_simulate(coords: np.ndarray, masses: np.ndarray,
@@ -139,19 +149,11 @@ def batched_simulate(coords: np.ndarray, masses: np.ndarray,
     coords: (M, N, 3); masses: (M, N). Each structure keeps its own
     lattice-registered origin. Returns (density (M, X, Y, Z) tensor,
     origins (M, 3) numpy)."""
-    mins = voxsp * np.floor(coords.min(axis=1) / voxsp)          # (M, 3)
-    maxs = voxsp * np.ceil(coords.max(axis=1) / voxsp)
-    margin = 2
-    dims = np.ceil((maxs - mins) / voxsp).astype(int) + 2 * margin + 1
-    box = tuple(bucket(int(d), shape_bucket) for d in dims.max(axis=0))
+    mins, _box, margin = _batch_plan(coords, voxsp, shape_bucket)
     sigma = resolution / (math.pi * math.sqrt(2.0)) / voxsp
     radius = int(math.ceil(3.0 * sigma))
-    taps = _blur_taps(sigma, radius)
-    c = torch.as_tensor(coords, dtype=torch.float32, device=device)
-    w = torch.as_tensor(masses, dtype=torch.float32, device=device)
-    vm = torch.as_tensor(mins, dtype=torch.float32, device=device)
-    dens = torch.stack([
-        _scatter_blur(c[i], w[i], vm[i], box, margin, voxsp, taps, isovalue)
-        for i in range(coords.shape[0])])
+    dens = _simulate_batch(
+        *scatter_args(coords, masses, voxsp, device, shape_bucket),
+        _blur_taps(sigma, radius), isovalue)
     origins = mins - (radius + margin) * voxsp
     return dens, origins

@@ -3,7 +3,9 @@ mad_tpu/api.py (``_decoy_transform``, ``_np_axis_angle_mat``), numpy only.
 
 Synthetic pseudo-proteins (ideal alpha-helix backbones bent by a random
 walk) and homomultimer assemblies for tests and the chip smoke run, plus
-the self-fit decoy transform.
+the self-fit decoy transform. ``near_isovalue``, ``overlap_slack`` and
+``overlap_tolerance`` are the port's own: the bound that two computations
+of one solution set's overlap matrix are held to.
 """
 
 from __future__ import annotations
@@ -126,3 +128,36 @@ def decoy_transform(struct: Structure, t=(150.0, 0.0, 0.0), a=0.375,
     coords = coords @ _np_axis_angle_mat([0.0, 0, 1], c)
     coords = coords - coords.mean(axis=0) + np.asarray(t)
     return struct.with_coords(coords)
+
+
+def near_isovalue(structures, cfg, device, eps: float = 1e-5):
+    """Per solution: (voxels whose unclamped low-res density lies within
+    ``eps`` of the isovalue, voxels at or above it), as float64 arrays."""
+    from .engine.assemble import _solution_densities
+    dens, _ = _solution_densities(structures, cfg, device, 0.0)
+    near = ((dens - cfg.sim_isovalue).abs() <= eps).sum(dim=(1, 2, 3))
+    occ = (dens >= cfg.sim_isovalue).sum(dim=(1, 2, 3))
+    return (near.cpu().numpy().astype(np.float64),
+            occ.cpu().numpy().astype(np.float64))
+
+
+def overlap_slack(near: np.ndarray, occ: np.ndarray,
+                  atol: float = 1e-6) -> np.ndarray:
+    """(n, n) bound on |ov_a - ov_b| for two computations of
+    ``solution_overlap`` that may round the low-res densities differently.
+
+    Only voxels within rounding of the isovalue can change occupancy. With
+    near_i such voxels in solution i and occ_i occupied ones, count[i, j]
+    moves by at most near_i + near_j and count[i, i] by near_i, so
+    ov[i, j] moves by at most (2 near_i + near_j) / (occ_i - near_i); the
+    bound is that plus ``atol`` (``atol`` alone where no voxel is near).
+    """
+    return atol + (2 * near[:, None] + near[None, :]) / np.maximum(
+        occ - near, 1.0)[:, None]
+
+
+def overlap_tolerance(structures, cfg, device, eps: float = 1e-5,
+                      atol: float = 1e-6) -> np.ndarray:
+    """``overlap_slack`` of the solutions' densities simulated on
+    ``device``."""
+    return overlap_slack(*near_isovalue(structures, cfg, device, eps), atol)
