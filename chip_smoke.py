@@ -16,22 +16,34 @@ Phases, each of which raises (non-zero exit) when it fails:
      CC-scored, then the assembly step: solution overlap, the C(n, 10)
      homomultimer ranking, up to 10 models CC-scored at 4 A;
   4. each kernel against its plain PyTorch version on the same CUDA
-     tensors at the main path's shapes, with the tolerance of its tests,
-     and both timed with CUDA events;
+     tensors at the main path's shapes, with the tolerance of its tests
+     (K6 on every anchor of both octaves, and on the base octave also at
+     patch sizes 12 and 24 and with a Gaussian window, each launched
+     twice; K15 on the first-round candidates), both timed with CUDA events, beside the one PyTorch call
+     that computes the same function where there is one, and the kernel's
+     bound: the larger of the bytes it must move over 3.35 TB/s and the
+     operations it does over 67 TFLOP/s (float32, no tensor cores);
   5. timed pass of the main path (after one more warm pass) with every
      launch counter reset first;
      fails unless every kernel of the path launched, the solutions are
      finite, at least 9 of 10 copies are recovered (best CA-RMSD < 10 A)
      and at least one model comes back, with a finite CCC, its first
-     model made of 10 distinct solutions;
+     model made of 10 distinct solutions; then the fit once more with
+     K6 and K15's plain versions swapped in (stage seconds side by side);
   6. the same assembly on the same solutions with the plain versions
      swapped in on the card: the same tuples and model components, model
      CCCs within 1e-5, the overlap within its tolerance (K9's atomics
      round in another order: testing.overlap_tolerance);
-  7. a heteromer ranking (16^5 tuples over 80 solutions, seeded random
+  7. the MaD session: the bench map and subunit written to a fresh
+     workdir, add_map / add_subunit(n_copies=10) / run(transform_subunits)
+     / build_assembly on the card; K6 and K15 must launch, >= 9/10 copies
+     come back in the written sol_*.pdb files, one Solutions_refined CSV
+     row per solution, model artifacts; a second run() must load the
+     dsc_db and pose_db caches and give the same solutions;
+  8. a heteromer ranking (16^5 tuples over 80 solutions, seeded random
      overlap) with the counters reset first: K20 must launch, and the
      plain version on the card must give the same tuples;
-  8. a small two-copy fit through the card and through the CPU (plain
+  9. a small two-copy fit through the card and through the CPU (plain
      versions) must recover the same copies at the same poses, and the
      assembly of the card's solutions on the card and on the CPU must
      agree as in phase 6.
@@ -41,6 +53,7 @@ The last three lines are the kernel report (JSON), the nvidia-smi line and
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -56,6 +69,15 @@ MAX_MODELS, MAX_OVERLAP = 10, 0.1   # bench.py's score_models arguments
 CCC_TOL = 1e-5                  # model CCC, kernels vs plain / card vs CPU
 K9_REL = 1e-5                   # K9 vs plain, of the grid's max
 HETERO = dict(n_per=16, n_groups=5, seed=12)
+K6_AGREE, K6_RFINAL_TOL = 0.99, 1e-6   # anchors agreeing, frame max diff
+# K6 also at the smaller and larger patches users run (24 is the 5kuh
+# setting) and with a Gaussian window: (patch size, gw_sig)
+K6_SETTINGS = ((12, 0.0), (24, 0.0), (16, 3.0))
+K15_MEDIAN = 0.05               # A, median CA-RMSD kernel vs plain
+REFINE_FLOPS = 160              # K15 flops per atom and step (both passes)
+# NVIDIA H100 SXM at 700 W: HBM bytes/s and float32 flop/s outside the
+# tensor cores (NVIDIA's data sheet), the denominators of each bound.
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 ASSEMBLY_STAGES = ("overlap", "enumerate", "score_models")
 
 
@@ -168,18 +190,30 @@ def run_assembly(device, timings, cfg, structures, dmap, n_copies):
                 models=models)
 
 
-@contextlib.contextmanager
-def plain_versions():
-    """Swap the plain PyTorch versions in for the kernels the assembly
-    step launches (K1 blur, K9, K18, K19, K20), on whatever device."""
+def assembly_swaps():
+    """The plain PyTorch versions of the kernels the assembly step launches
+    (K1 blur, K9, K18, K19, K20), as (module, name, plain function)."""
     import mad_tpu_torch.ops.convolve as convolve
     from mad_tpu_torch.kernels import (conv1d, enumerate as k_enum, hetero,
                                        overlap, scatter)
-    swaps = [(convolve, "conv1d_along", conv1d.conv1d_along_plain),
-             (scatter, "scatter_atoms", scatter.scatter_atoms_plain),
-             (overlap, "pack_overlap", overlap.pack_overlap_plain),
-             (k_enum, "enumerate_head", k_enum.enumerate_head_plain),
-             (hetero, "hetero_head", hetero.hetero_head_plain)]
+    return [(convolve, "conv1d_along", conv1d.conv1d_along_plain),
+            (scatter, "scatter_atoms", scatter.scatter_atoms_plain),
+            (overlap, "pack_overlap", overlap.pack_overlap_plain),
+            (k_enum, "enumerate_head", k_enum.enumerate_head_plain),
+            (hetero, "hetero_head", hetero.hetero_head_plain)]
+
+
+def orient_refine_swaps():
+    """The plain PyTorch versions of K6 and K15."""
+    from mad_tpu_torch.kernels import orient as k6, refine as k15
+    return [(k6, "orient", k6.orient_plain),
+            (k15, "refine_loop", k15.refine_loop_plain)]
+
+
+@contextlib.contextmanager
+def plain_versions(swaps):
+    """Swap the given plain versions in for their kernels, on whatever
+    device."""
     saved = [(mod, name, getattr(mod, name)) for mod, name, _f in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -208,8 +242,9 @@ def compare_assemblies(a, b, tol, what):
     return float(err.max()), dccc
 
 
-def best_rmsds(sols, copies):
-    return [min((s.structure.rmsd_ca_with(c) for s in sols), default=np.inf)
+def best_rmsds(structs, copies):
+    """Per copy, the best CA-RMSD of any of the structures to it."""
+    return [min((s.rmsd_ca_with(c) for s in structs), default=np.inf)
             for c in copies]
 
 
@@ -229,10 +264,32 @@ def cuda_ms(fn, reps=3):
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes, ops):
+    """The least time the card could take: the larger of the bytes the
+    work must move over PEAK_BYTES_S and its operations over PEAK_F32_S,
+    in ms, with which of the two it is."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes=float(nbytes), ops=float(ops))
+
+
+def measure(err, kernel, plain, nbytes, ops, library=None):
+    """One kernel's report entry: its error against the plain version, the
+    times of the kernel, the plain version and the one PyTorch call that
+    computes the same function (None where there is none), and its
+    bound."""
+    return dict(max_abs_err=float(err), ms=cuda_ms(kernel),
+                plain_ms=cuda_ms(plain),
+                library_ms=None if library is None else cuda_ms(library),
+                **bound(nbytes, ops))
+
+
 def kernel_checks(fit, cfg, device):
     """Each kernel vs its plain version at main-path shapes; returns
-    {name: (max_abs_err, ms, plain_ms)}."""
+    {name: measure(...)}."""
     import torch
+    import torch.nn.functional as F
     from mad_tpu_torch.core.eqsp import get_eqsp
     from mad_tpu_torch.engine.match import match_descriptors
     from mad_tpu_torch.engine.pipeline import octave_lanes
@@ -247,10 +304,13 @@ def kernel_checks(fit, cfg, device):
     up_octave = next(o for _org, o in iter_octaves(fit["dmap"], ss)
                      if o.upsampled)
     vol = up_octave.volume()
+    V = vol.numel()
     say(f"kernels at the upsampled octave {tuple(vol.shape)}")
 
     # K1: the LoG's second-derivative taps along each axis. Tolerance
-    # 1e-5 * max|ref| (the kernel rounds as the shift-add does).
+    # 1e-5 * max|ref| (the kernel rounds as the shift-add does). Work: per
+    # axis a read and a write of the volume, 2 * taps flops a voxel; the
+    # library call is F.conv3d with the taps along the axis.
     g2 = gaussian_kernel1d(ss.detect_sigma, 2, ss.truncate)
     err, scale = 0.0, 0.0
     for axis in range(3):
@@ -261,10 +321,22 @@ def kernel_checks(fit, cfg, device):
         del a, b
     check(err <= 1e-5 * scale, f"K1 max error {err} > 1e-5 * {scale}")
     three = lambda f: [f(vol, g2, axis) for axis in range(3)]
-    out["conv1d"] = (err, cuda_ms(lambda: three(conv1d.conv1d_along)),
-                     cuda_ms(lambda: three(conv1d.conv1d_along_plain)))
+    taps = torch.as_tensor(g2, device=device)
+    k = len(g2)
+
+    def conv3d():
+        x = vol[None, None]
+        for axis in range(3):
+            shape, pad = [1, 1, 1, 1, 1], [0, 0, 0]
+            shape[2 + axis], pad[axis] = k, k // 2
+            F.conv3d(x, taps.view(shape), padding=tuple(pad))
+    out["conv1d"] = measure(err, lambda: three(conv1d.conv1d_along),
+                            lambda: three(conv1d.conv1d_along_plain),
+                            3 * 2 * 4 * V, 3 * 2 * k * V, conv3d)
+    del taps
 
     # K4: the octave's LoG; integer-exact (same peaks, values, order).
+    # Work: one read of the LoG, 27 compares a voxel, the peaks written.
     log_vol, _gauss = log_filter3d(vol, ss.detect_sigma, ss.truncate)
     del _gauss
     dc = cfg.detect
@@ -274,24 +346,27 @@ def kernel_checks(fit, cfg, device):
     v2, i2 = peaks.peak_topk_plain(*args)
     check(torch.equal(i1, i2) and torch.equal(v1, v2),
           f"K4 peaks differ ({len(i1)} vs {len(i2)})")
-    out["peak_mask_compact"] = (
+    out["peak_mask_compact"] = measure(
         float((v1 - v2).abs().max()) if len(v1) else 0.0,
-        cuda_ms(lambda: peaks.peak_topk(*args)),
-        cuda_ms(lambda: peaks.peak_topk_plain(*args)))
+        lambda: peaks.peak_topk(*args), lambda: peaks.peak_topk_plain(*args),
+        4 * V + 12 * len(v1), 27 * V)
     say(f"  K4: {len(i1)} peaks")
     del log_vol, vol
 
     # K7: the octave's lanes. Rows equal in >= 99 %, the rest within an L1
-    # of 8 counts (zone-bound ulps of atan2f / acosf).
+    # of 8 counts (zone-bound ulps of atan2f / acosf). Work per lattice
+    # sample: a 12 B gather, 15 flops to place it, 8 to normalize, 15 to
+    # rotate, ~40 for atan2 / acos, 6 compares a zone; the rows written.
     lanes = octave_lanes(up_octave, cfg)
     dcfg = cfg.describe
     radius = (dcfg.patch_size - dcfg.patch_size % 2) // 2
     valid = torch.ones(lanes.coords.shape[0], dtype=torch.bool,
                        device=device)
+    lattice = descriptor_lattice(radius, True)
+    bounds = ref_zone_bounds(get_eqsp(dcfg.subeqsp_size))
     args = (lanes.grad, lanes.coords, lanes.rfinal, valid,
-            up_octave.real_shape, descriptor_lattice(radius, True),
-            region_ids(radius, dcfg.subregions),
-            ref_zone_bounds(get_eqsp(dcfg.subeqsp_size)), dcfg.subregions,
+            up_octave.real_shape, lattice,
+            region_ids(radius, dcfg.subregions), bounds, dcfg.subregions,
             float(dcfg.cutoff_magn), float(dcfg.zero_magn))
     d1, ok1 = describe.descriptor_hist(*args)
     d2, ok2 = describe.descriptor_hist_plain(*args)
@@ -300,15 +375,19 @@ def kernel_checks(fit, cfg, device):
     check(torch.equal(ok1, ok2), "K7 in-bounds flags differ")
     check(same >= 0.99 and int(diff.sum(dim=1).max()) <= 8,
           f"K7 rows equal {same:.4f}, max row L1 {int(diff.sum(1).max())}")
-    out["descriptor_hist"] = (float(diff.max()),
-                              cuda_ms(lambda: describe.descriptor_hist(*args)),
-                              cuda_ms(lambda: describe.descriptor_hist_plain(
-                                  *args)))
-    say(f"  K7: {len(ok1)} lanes, rows equal {same:.5f}")
+    L, P, nz = len(ok1), len(lattice), len(bounds)
+    out["descriptor_hist"] = measure(
+        float(diff.max()), lambda: describe.descriptor_hist(*args),
+        lambda: describe.descriptor_hist_plain(*args),
+        L * P * 12 + L * (12 + 36 + 1) + d1.numel() * 2 + L,
+        L * P * (15 + 8 + 15 + 40 + 6 * nz))
+    say(f"  K7: {L} lanes, rows equal {same:.5f}")
     del lanes, args, d1, d2
 
     # K13: the head pairs that the match stage scores exactly. Equal except
-    # pairs with an anchor within 1e-4 A of the 4 A radius.
+    # pairs with an anchor within 1e-4 A of the 4 A radius. Work per pair:
+    # each subunit anchor moved (15 flops) and its distance to every map
+    # anchor (9 flops).
     m, s, dmap = fit["map_set"], fit["sub_set"], fit["dmap"]
     table = match_descriptors(m, s, dmap.shape, dmap.origin, dmap.voxsp,
                               cfg.match, min_exact=0, device=device)
@@ -322,13 +401,208 @@ def kernel_checks(fit, cfg, device):
     edge = _near_radius(*args)
     bad = (r1 != r2) & ~edge
     check(not bool(bad.any()), f"K13 differs on {int(bad.sum())} pairs")
-    out["exact_repeat"] = (float((r1 - r2).abs().max()),
-                           cuda_ms(lambda: repeat.exact_repeat(*args)),
-                           cuda_ms(lambda: repeat.exact_repeat_plain(*args)))
-    say(f"  K13: {n_head} pairs x {table.hi_cloud.shape[0]} x "
-        f"{table.lo_cloud.shape[0]} anchors, {int(edge.sum())} on the edge")
+    a_hi, a_lo = table.hi_cloud.shape[0], table.lo_cloud.shape[0]
+    out["exact_repeat"] = measure(
+        float((r1 - r2).abs().max()), lambda: repeat.exact_repeat(*args),
+        lambda: repeat.exact_repeat_plain(*args),
+        (a_hi + a_lo) * 12 + n_head * (36 + 24 + 4),
+        n_head * a_hi * (15 + 9 * a_lo))
+    say(f"  K13: {n_head} pairs x {a_hi} x {a_lo} anchors, "
+        f"{int(edge.sum())} on the edge")
     out.update(assembly_kernel_checks(fit, cfg, device))
+    out["orient"] = orient_check(fit, cfg, device)
+    out["refine"] = refine_check(fit, cfg, device)
     return out
+
+
+def orient_check(fit, cfg, device):
+    """K6 against orient_plain on every anchor of the bench map's two
+    octaves: lane validity, main and secondary bins equal on >= K6_AGREE
+    of the anchors, frames within K6_RFINAL_TOL on the agreeing anchors'
+    valid lanes. Times and work are the sums over the two octaves. On the
+    base octave also the other K6_SETTINGS, held to the same gate, each
+    launched twice to show that the kernel is deterministic."""
+    import dataclasses
+    import torch
+    from mad_tpu_torch.kernels import orient as k6
+    from mad_tpu_torch.ops.detect import detect_anchors
+    from mad_tpu_torch.ops.orient import _OrientTables
+    from mad_tpu_torch.ops.scalespace import gradient, iter_octaves
+    from mad_tpu_torch.testing import orient_agreement
+
+    def compare(oc, octv, grad, coords, valid, what):
+        radius = (oc.patch_size - oc.patch_size % 2) // 2
+        stride = 2 if octv.upsampled else 1
+        tab = _OrientTables(oc, radius, stride, device)
+        args = (grad, coords, valid, octv.real_shape, tab, radius, stride,
+                oc.max_main, oc.max_sec, oc.cutoff_magn)
+        got = k6.orient(*args)
+        again = k6.orient(*args)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"K6 {what}: two launches differ")
+        ref = k6.orient_plain(*args)
+        share, dmax, close = orient_agreement(got, ref, K6_RFINAL_TOL)
+        check(share >= K6_AGREE and close,
+              f"K6 {what}: agrees on {share:.5f} of the anchors, frames "
+              f"within {dmax:g}")
+        K = got[3].shape[0]
+        say(f"  K6 {what}: K {K} anchors, "
+            f"{int(got[3].any(dim=(1, 2)).sum())} oriented, "
+            f"{int(got[3].sum())} lanes; anchors agreeing {share:.5f}, "
+            f"frames max diff {dmax:g}, two launches equal")
+        return args, got, tab, radius, stride, dmax
+
+    oc = cfg.orient
+    total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0)
+    for _org, octv in iter_octaves(fit["dmap"], cfg.scalespace):
+        log_vol, gauss = octv.log_gauss()
+        anch = detect_anchors(log_vol, octv.real_shape, cfg.detect)
+        del log_vol
+        grad = gradient(gauss, octv.grad_dtype())
+        del gauss
+        coords = anch.coords[anch.valid]
+        valid = torch.ones(coords.shape[0], dtype=torch.bool, device=device)
+        name = "upsampled" if octv.upsampled else "base"
+        args, got, tab, radius, stride, dmax = compare(
+            oc, octv, grad, coords, valid, f"{name} octave")
+        nbytes, ops = orient_work(args, got)
+        r = measure(dmax, lambda: k6.orient(*args),
+                    lambda: k6.orient_plain(*args), nbytes, ops)
+        say(f"    kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        for key in ("ms", "plain_ms", "bytes", "ops"):
+            total[key] += r[key]
+        total["max_abs_err"] = max(total["max_abs_err"], dmax)
+        del args, got
+        if not octv.upsampled:
+            for patch, gw_sig in K6_SETTINGS:
+                compare(dataclasses.replace(oc, patch_size=patch,
+                                            gw_sig=gw_sig),
+                        octv, grad, coords, valid,
+                        f"base octave, patch {patch}, gw_sig {gw_sig}")
+        del grad
+    total.update(library_ms=None, **bound(total["bytes"], total["ops"]))
+    return total
+
+
+def orient_work(args, out, chunk=32):
+    """Bytes and operations the function K6 computes needs on these
+    anchors. Bytes: the distinct gradient voxels under the patches of the
+    anchors inside the border, read once; the mask, the coords and the
+    outputs. Operations: per sample of such a patch ~10 flops for its norm,
+    direction and weight; per sample of nonzero weight in each histogram
+    the anchor needs (its own, and one per main bin with a valid frame)
+    ~40 for atan2 / acos, 15 to rotate it (main-bin histograms), 2
+    compares per belt of zones (the phi range) and 4 per zone of the belts
+    whose phi range holds it (the theta ranges)."""
+    import torch
+    from mad_tpu_torch.core.geometry import norm3
+    grad, coords, valid, real_shape, tab, radius, stride = args[:7]
+    cutoff = args[9]
+    K, M, S = out[3].shape
+    P, X, Y, Z = tab.mask.numel(), *grad.shape[:3]
+    belts, per_belt = torch.unique(tab.bounds[:, [1, 3]], dim=0,
+                                   return_counts=True)
+    rs = torch.as_tensor(real_shape, device=coords.device)
+    half = radius * stride
+    inside = (valid & (coords - half >= 0).all(dim=1)
+              & (coords + half + 1 <= rs - 1).all(dim=1))
+    main_ok = out[3].any(dim=2)                               # (K, M)
+    ids, ops = [], 0
+    for s0 in range(0, K, chunk):
+        keep = inside[s0:s0 + chunk]
+        pts = coords[s0:s0 + chunk][keep][:, None, :] + tab.offsets[None]
+        ids.append(((pts[..., 0] * Y + pts[..., 1]) * Z
+                    + pts[..., 2]).reshape(-1))
+        g = grad[pts[..., 0], pts[..., 1], pts[..., 2]].to(torch.float32)
+        magn = norm3(g)
+        d = g / torch.clamp(magn, min=1e-30)[..., None]
+        w = (tab.mask > 0) & (magn >= cutoff)                 # (n, P)
+        Rm = tab.rot_to_pole[out[0][s0:s0 + chunk][keep].long()]
+        z = torch.cat([d[:, None, :, 2],                      # (n, 1+M, P)
+                       (d[:, None] * Rm[:, :, None, 2, :]).sum(-1)], 1)
+        use = torch.cat([torch.ones_like(keep[keep])[:, None],
+                         main_ok[s0:s0 + chunk][keep]], 1)    # (n, 1+M)
+        sel = w[:, None, :] & use[:, :, None]
+        phi = torch.arccos(torch.clamp(z, -1.0, 1.0))[..., None]
+        zones = ((phi > belts[:, 0]) & (phi < belts[:, 1])).to(
+            torch.float32) @ per_belt.to(torch.float32)       # (n, 1+M, P)
+        ops += (10 * P * int(keep.sum())
+                + int(sel.sum()) * (40 + 2 * belts.shape[0])
+                + 15 * int(sel[:, 1:].sum()) + 4 * float(zones[sel].sum()))
+    distinct = int(torch.unique(torch.cat(ids)).numel()) if ids else 0
+    nbytes = (distinct * 3 * grad.element_size() + P * 4 + K * 13
+              + K * M * 4 + K * M * S * (4 + 36 + 1))
+    return nbytes, ops
+
+
+def refine_check(fit, cfg, device):
+    """K15 against refine_loop_plain on the bench's first-round candidates
+    (the start poses that docking's first refinement takes): the same
+    failed flags, final CA-RMSD to the plain version <= SMALL_POSE_TOL for
+    every candidate and <= K15_MEDIAN in the median."""
+    from mad_tpu_torch.engine.cluster import filter_pairs
+    from mad_tpu_torch.engine.docking import start_poses
+    from mad_tpu_torch.engine.match import match_descriptors
+    from mad_tpu_torch.engine.refine import refine_inputs
+    from mad_tpu_torch.kernels import refine as k15
+    from mad_tpu_torch.testing import ca_rmsds
+    m, s, dmap, moved = (fit["map_set"], fit["sub_set"], fit["dmap"],
+                         fit["moved"])
+    n_samples = cfg.filter.n_samples * N_COPIES
+    table = match_descriptors(m, s, dmap.shape, dmap.origin, dmap.voxsp,
+                              cfg.match, min_exact=n_samples, device=device)
+    cands = filter_pairs(table, s.main_bin[table.hi_idx],
+                         m.main_bin[table.lo_idx], cfg.filter, n_samples)
+    args = refine_inputs(dmap, start_poses(cands, moved), device)
+    rc = cfg.refine
+    got = k15.refine_loop(*args, rc)
+    ref = k15.refine_loop_plain(*args, rc)
+    failed = ref[5].cpu().numpy()
+    check(np.array_equal(got[5].cpu().numpy(), failed),
+          "K15 failed flags differ")
+    d = ca_rmsds(got[2].cpu().numpy(), ref[2].cpu().numpy(),
+                 moved.ca_idx)[~failed]
+    check(len(d) and d.max() <= SMALL_POSE_TOL
+          and np.median(d) <= K15_MEDIAN,
+          f"K15 final CA-RMSD to plain: max {d.max():g}, median "
+          f"{np.median(d):g}")
+    steps = got[4].cpu().numpy()
+    C, N = args[1].shape[:2]
+    touched = field_voxels(args[1], got[2], args[4], dmap.shape)
+    nbytes = (touched * 12 + C * N * 12 * 2 + C * (12 + 4 + 36 + 12 + 6)
+              + 28)
+    r = measure(float((got[2] - ref[2]).abs().max()),
+                lambda: k15.refine_loop(*args, rc),
+                lambda: k15.refine_loop_plain(*args, rc), nbytes,
+                int(steps.sum()) * N * REFINE_FLOPS)
+    q = np.quantile(d, [0.0, 0.5, 0.9, 1.0])
+    say(f"  K15: C {C} candidates x N {N} atoms, {int(failed.sum())} "
+        f"failed, steps {int(steps.min())}-{int(steps.max())} "
+        f"(sum {int(steps.sum())}); CA-RMSD to plain min/median/p90/max "
+        f"{q[0]:.4f}/{q[1]:.4f}/{q[2]:.4f}/{q[3]:.4f} A, "
+        f"{int((d > K15_MEDIAN).sum())} above {K15_MEDIAN}; kernel "
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+    return r
+
+
+def field_voxels(y0, coords, bounds, shape):
+    """Distinct gradient-field voxels under the 8 interpolation corners of
+    every atom at its start and final pose: the field bytes K15 needs,
+    counted once."""
+    import torch
+    ids = []
+    dims = torch.as_tensor(shape, device=y0.device)
+    for x in (y0, coords):
+        v = (x.reshape(-1, 3) - bounds[0:3]) / bounds[6]
+        p0 = torch.minimum(torch.clamp(torch.floor(v).long(), min=0),
+                           dims - 2)
+        for dx in (0, 1):
+            for dy in (0, 1):
+                for dz in (0, 1):
+                    ids.append(((p0[:, 0] + dx) * shape[1] + p0[:, 1] + dy)
+                               * shape[2] + p0[:, 2] + dz)
+    return int(torch.unique(torch.cat(ids)).numel())
 
 
 def hetero_problem():
@@ -341,6 +615,40 @@ def hetero_problem():
     groups = {f"s{g}": list(range(g * n_per, (g + 1) * n_per))
               for g in range(n_groups)}
     return ov, groups
+
+
+def scatter_index_add(coords, masses, vox_min, box, margin, voxsp):
+    """The scatter of K9 as one index_add_ on the flattened grids (the
+    library yardstick): the flat corner indices and weights are computed
+    here, the returned call adds them."""
+    import torch
+    dev = coords.device
+    M = coords.shape[0]
+    g = margin + (coords - vox_min[:, None, :]) / torch.tensor(
+        voxsp, dtype=torch.float32, device=dev)
+    g0 = torch.floor(g)
+    w1 = g - g0
+    w0 = 1.0 - w1
+    i0 = g0.long()
+    dims = torch.as_tensor(box, device=dev)
+    sid = torch.arange(M, device=dev)[:, None].expand(-1, coords.shape[1])
+    idx, wts = [], []
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                w = (masses * (w1[..., 0] if dx else w0[..., 0])
+                     * (w1[..., 1] if dy else w0[..., 1])
+                     * (w1[..., 2] if dz else w0[..., 2]))
+                c = i0 + torch.as_tensor([dx, dy, dz], device=dev)
+                keep = ((c >= 0) & (c < dims)).all(dim=-1)
+                flat = ((sid * box[0] + c[..., 0]) * box[1]
+                        + c[..., 1]) * box[2] + c[..., 2]
+                idx.append(flat[keep])
+                wts.append(w[keep])
+    idx, wts = torch.cat(idx), torch.cat(wts)
+    grids = torch.zeros(M * box[0] * box[1] * box[2], dtype=torch.float32,
+                        device=dev)
+    return lambda: grids.zero_().index_add_(0, idx, wts)
 
 
 def assembly_kernel_checks(fit, cfg, device):
@@ -369,11 +677,17 @@ def assembly_kernel_checks(fit, cfg, device):
         err, scale = float((g1 - g2).abs().max()), float(g2.abs().max())
         check(err <= K9_REL * scale, f"K9 {label}: max error {err} > "
               f"{K9_REL} * {scale}")
-        res = (err, cuda_ms(lambda: scatter.scatter_atoms(*args)),
-               cuda_ms(lambda: scatter.scatter_atoms_plain(*args)))
+        # Work: each atom read (16 B) and 8 corners of ~5 flops and an
+        # atomic add; the grids written.
+        n_atoms = c.shape[0] * c.shape[1]
+        res = measure(err, lambda: scatter.scatter_atoms(*args),
+                      lambda: scatter.scatter_atoms_plain(*args),
+                      n_atoms * 16 + g1.numel() * 4, n_atoms * (6 + 8 * 5),
+                      scatter_index_add(*args))
         say(f"  K9 {label}: {c.shape[0]} x {c.shape[1]} atoms into "
             f"{tuple(g1.shape[1:])}, max abs err {err:g} of {scale:g}, "
-            f"kernel {res[1]:.3f} ms, plain {res[2]:.3f} ms")
+            f"kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
+            f"index_add_ {res['library_ms']:.3f} ms")
         if label == "models":
             out["scatter_atoms"] = res
         del g1, g2
@@ -382,11 +696,15 @@ def assembly_kernel_checks(fit, cfg, device):
     o1 = overlap.pack_overlap(dens, off, frame)
     o2 = overlap.pack_overlap_plain(dens, off, frame)
     check(torch.equal(o1, o2), "K18 overlap differs from the plain version")
-    out["pack_overlap"] = (float((o1 - o2).abs().max()),
-                           cuda_ms(lambda: overlap.pack_overlap(
-                               dens, off, frame)),
-                           cuda_ms(lambda: overlap.pack_overlap_plain(
-                               dens, off, frame)))
+    # Work: the boxes read once, one compare a voxel to pack, and per pair
+    # an AND and a popcount per 32-voxel word of the frame.
+    words = int(np.prod(frame)) // 32
+    out["pack_overlap"] = measure(
+        float((o1 - o2).abs().max()),
+        lambda: overlap.pack_overlap(dens, off, frame),
+        lambda: overlap.pack_overlap_plain(dens, off, frame),
+        dens.numel() * 4 + n * 12 + n * n * 4,
+        dens.numel() + n * (n + 1) // 2 * words * 2)
     say(f"  K18: {n} solutions, boxes {tuple(dens.shape[1:])}, frame "
         f"{frame}")
 
@@ -396,11 +714,15 @@ def assembly_kernel_checks(fit, cfg, device):
     e1 = k_enum.enumerate_head(sym, tab, 256)
     e2 = k_enum.enumerate_head_plain(sym, tab, 256)
     check(torch.equal(e1, e2), "K19 head differs from the plain version")
-    out["enumerate_head"] = (
+    # Work per rank: a k-step decode and the max over k(k-1)/2 pairs.
+    ranks = math.comb(n, k)
+    out["enumerate_head"] = measure(
         float(np.abs(k_enum.split_keys(e1)[1]
                      - k_enum.split_keys(e2)[1]).max()),
-        cuda_ms(lambda: k_enum.enumerate_head(sym, tab, 256)),
-        cuda_ms(lambda: k_enum.enumerate_head_plain(sym, tab, 256)))
+        lambda: k_enum.enumerate_head(sym, tab, 256),
+        lambda: k_enum.enumerate_head_plain(sym, tab, 256),
+        sym.numel() * 4 + tab.numel() * tab.element_size() + 256 * 8,
+        ranks * (2 * k + k * (k - 1) // 2))
     say(f"  K19: C({n}, {k}) ranks, head {len(e1)}")
 
     ov, groups = hetero_problem()
@@ -411,13 +733,17 @@ def assembly_kernel_checks(fit, cfg, device):
     h1 = hetero.hetero_head(sym, lists, sizes, 256)
     h2 = hetero.hetero_head_plain(sym, lists, sizes, 256)
     check(torch.equal(h1, h2), "K20 head differs from the plain version")
-    out["hetero_head"] = (
+    # Work per tuple: a g-digit mixed-radix decode and g(g-1)/2 adds.
+    n_g, tuples = len(sizes), int(np.prod(sizes))
+    out["hetero_head"] = measure(
         float(np.abs(k_enum.split_keys(h1)[1]
                      - k_enum.split_keys(h2)[1]).max()),
-        cuda_ms(lambda: hetero.hetero_head(sym, lists, sizes, 256)),
-        cuda_ms(lambda: hetero.hetero_head_plain(sym, lists, sizes, 256)))
-    say(f"  K20: {int(np.prod(sizes))} tuples over {ov.shape[0]} "
-        f"solutions, head {len(h1)}")
+        lambda: hetero.hetero_head(sym, lists, sizes, 256),
+        lambda: hetero.hetero_head_plain(sym, lists, sizes, 256),
+        sym.numel() * 4 + lists.numel() * 4 + 256 * 8,
+        tuples * (2 * n_g + n_g * (n_g - 1) // 2))
+    say(f"  K20: {tuples} tuples over {ov.shape[0]} solutions, head "
+        f"{len(h1)}")
     return out
 
 
@@ -437,7 +763,84 @@ def _near_radius(hi_cloud, lo_cloud, rot, hi, lo, thresh, chunk=4):
     return torch.cat(out)
 
 
-# -- phase 7: heteromer ranking ---------------------------------------------
+# -- phase 7: the MaD session -----------------------------------------------
+
+def session_phase(device, cfg, fit):
+    """The bench map and subunit through ``mad_tpu_torch.api.MaD`` in a
+    fresh workdir: add_map, add_subunit(n_copies=10), run with the decoy
+    transform, build_assembly; then a second run() in the same workdir,
+    which must load the dsc_db and pose_db caches and give the same
+    solutions. Returns the first run's launch counts."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import tempfile
+    import torch
+    from mad_tpu_torch.api import MaD
+    from mad_tpu_torch.core.grid import write_mrc
+    from mad_tpu_torch.core.structure import parse_pdb, write_pdb
+    from mad_tpu_torch.kernels import launch_counts, reset_launches
+    with tempfile.TemporaryDirectory(prefix="mad_session_") as work:
+        map_path = os.path.join(work, "bench_map.mrc")
+        sub_path = os.path.join(work, "bench_sub.pdb")
+        write_mrc(fit["dmap"], map_path)
+        write_pdb(fit["copies"][0], sub_path)
+        secs, logs = [], []
+        for attempt in range(2):
+            log = io.StringIO()
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                mad = MaD(workdir=work, config=cfg, device=device)
+                mad.add_map(map_path, resolution=RES)
+                mad.add_subunit(sub_path, n_copies=N_COPIES)
+                mad.run(transform_subunits=True)
+                if attempt == 0:
+                    t_run = time.perf_counter() - t0
+                    mad.build_assembly()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            logs.append(log.getvalue())
+            if attempt == 0:
+                first, counts = mad, launch_counts()
+        out = first.out_folder
+        files = sorted(glob.glob(os.path.join(
+            out, "individual_solutions", "sol_bench_sub_*.pdb")))
+        sols = [parse_pdb(f) for f in files]
+        rmsds = best_rmsds(sols, fit["copies"])
+        found = int(np.sum(np.asarray(rmsds) < RECOVER_RMSD))
+        with open(os.path.join(out, "Solutions_refined_bench_sub.csv")) as fh:
+            rows = fh.read().strip().splitlines()[1:]
+        models = glob.glob(os.path.join(out, "assembly_models",
+                                        "Model_*.pdb"))
+        say(f"session: run {t_run:.3f} s, run + build_assembly "
+            f"{secs[0]:.3f} s, cached run {secs[1]:.3f} s; "
+            f"{len(files)} sol_*.pdb, {found}/{N_COPIES} recovered (median "
+            f"best CA-RMSD {np.median(rmsds):.3f} A), {len(rows)} CSV rows, "
+            f"{len(models)} models; launches orient {counts['orient']}, "
+            f"refine {counts['refine']}")
+        check(counts["orient"] > 0 and counts["refine"] > 0,
+              f"session: K6 or K15 never launched: {counts}")
+        check(found >= MIN_RECOVERED,
+              f"session: only {found}/{N_COPIES} copies recovered")
+        check(len(rows) == len(files) == len(first.solutions["bench_sub"]),
+              "session: Solutions_refined CSV rows differ from solutions")
+        check(models and os.path.exists(os.path.join(
+            out, "complex_ranking.csv")), "session: no model artifacts")
+        check("found in database" in logs[1]
+              and "found in pose checkpoint" in logs[1]
+              and "Processing map" not in logs[1],
+              "session: the second run did not load both caches")
+        again = mad.solutions["bench_sub"]
+        check(len(again) == len(first.solutions["bench_sub"]) and all(
+            np.array_equal(a.structure.coords, b.structure.coords)
+            for a, b in zip(again, first.solutions["bench_sub"])),
+            "session: the cached run gave other solutions")
+    return counts
+
+
+# -- phase 8: heteromer ranking ---------------------------------------------
 
 def hetero_phase(device):
     """enumerate_heteromer on hetero_problem(), its counters reset just
@@ -454,7 +857,7 @@ def hetero_phase(device):
     dt = time.perf_counter() - t0
     count = launch_counts()["hetero_head"]
     check(count >= 1, "K20 never launched in the heteromer ranking")
-    with plain_versions():
+    with plain_versions(assembly_swaps()):
         t0 = time.perf_counter()
         ref = asm.enumerate_heteromer(groups, ov, device=device)
         torch.cuda.synchronize()
@@ -469,7 +872,7 @@ def hetero_phase(device):
     return count
 
 
-# -- phase 8: small reference ---------------------------------------------
+# -- phase 9: small reference ---------------------------------------------
 
 def small_reference(device, cfg):
     import dataclasses
@@ -481,8 +884,8 @@ def small_reference(device, cfg):
               voxsp=SMALL["voxsp"], shell=False)
     card = run_fit(device, None, small_cfg, **kw)
     host = run_fit("cpu", None, small_cfg, **kw)
-    rc = best_rmsds(card["sols"], card["copies"])
-    rh = best_rmsds(host["sols"], host["copies"])
+    rc = best_rmsds([s.structure for s in card["sols"]], card["copies"])
+    rh = best_rmsds([s.structure for s in host["sols"]], host["copies"])
     say(f"small reference: card {len(card['sols'])} solutions, best "
         f"CA-RMSD {np.round(rc, 3).tolist()}; CPU {len(host['sols'])}, "
         f"{np.round(rh, 3).tolist()}")
@@ -528,9 +931,14 @@ def main():
           f"bench map {fit['dmap'].shape}, expected {BENCH_MAP_SHAPE}")
 
     checks = kernel_checks(fit, cfg, device)
-    for name, (err, ms, pms) in checks.items():
-        say(f"  {name}: max abs err {err:g}, kernel {ms:.3f} ms, "
-            f"plain {pms:.3f} ms")
+    for name, r in checks.items():
+        lib = r["library_ms"]
+        say(f"  {name}: max abs err {r['max_abs_err']:g}, kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            + ("none" if lib is None else f"{lib:.4f} ms")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{r['bytes']:.4g} B, {r['ops']:.4g} ops; "
+            f"{r['bound_ms'] / r['ms']:.1%} of the kernel's time)")
     del fit
     torch.cuda.empty_cache()
     # Warm again: the plain versions of the checks leave the allocator
@@ -547,7 +955,7 @@ def main():
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     sols = fit["sols"]
-    rmsds = best_rmsds(sols, fit["copies"])
+    rmsds = best_rmsds([s.structure for s in sols], fit["copies"])
     found = int(np.sum(np.asarray(rmsds) < RECOVER_RMSD))
     say(f"timed pass: {total:.3f} s; stages (s): " + ", ".join(
         f"{k} {v:.4f}" for k, v in timings.items()))
@@ -574,10 +982,33 @@ def main():
     say(f"{len(models)} model(s); first {models[0].components}, CCC "
         f"{models[0].ccc:.6f}, max overlap {models[0].max_overlap:.6f}")
 
+    # The fit once more with K6 and K15's plain versions swapped in.
+    plain_fit_t = {}
+    before = launch_counts()
+    with plain_versions(orient_refine_swaps()):
+        t0 = time.perf_counter()
+        pf = run_fit(device, plain_fit_t, cfg)
+        torch.cuda.synchronize()
+        plain_total = time.perf_counter() - t0
+    after = launch_counts()
+    check(after["orient"] == before["orient"]
+          and after["refine"] == before["refine"],
+          "K6 or K15 launched with its plain version swapped in")
+    p_found = int(np.sum(np.asarray(best_rmsds(
+        [s.structure for s in pf["sols"]], pf["copies"])) < RECOVER_RMSD))
+    check(p_found >= MIN_RECOVERED,
+          f"with plain K6 / K15 only {p_found}/{N_COPIES} recovered")
+    say(f"fit with K6 / K15 kernels {total:.3f} s, with their plain "
+        f"versions {plain_total:.3f} s ({p_found}/{N_COPIES} recovered); "
+        "stages (s) kernel / plain: " + ", ".join(
+            f"{k} {timings[k]:.4f} / {plain_fit_t.get(k, 0.0):.4f}"
+            for k in timings))
+    del pf
+
     # Phase 6: the same assembly with the plain versions on the card.
     plain_t = {}
     before = launch_counts()
-    with plain_versions():
+    with plain_versions(assembly_swaps()):
         p = run_assembly(device, plain_t, cfg, a["structures"], fit["dmap"],
                          N_COPIES)
     check(launch_counts() == before,
@@ -589,16 +1020,20 @@ def main():
         + ", ".join(f"{k} {plain_t[k]:.4f}" for k in ASSEMBLY_STAGES)
         + f" s; same tuples and models (overlap max diff {e_ov:g}, CCC "
         f"max diff {e_ccc:g})")
-    del fit, a, p
+    del a, p
+    session_phase(device, cfg, fit)
+    del fit
     torch.cuda.empty_cache()
 
     counts["hetero_head"] = hetero_phase(device)
     small_reference(device, cfg)
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     say(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": checks[name][0],
-         "ms": checks[name][1], "plain_ms": checks[name][2]}
+        dict({"name": name, "route": "cuda", "source": src, "replaces": rep,
+              "launches": counts[name]},
+             **{k: checks[name][k] for k in keys})
         for name, (_mod, src, rep) in KERNELS.items()]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -13,16 +13,17 @@ import torch
 
 from .core.grid import DensityGrid
 from .core.structure import Structure
+from .device import resolve
 from .engine.match import MatchTable
 from .engine.pipeline import DescriptorSet, normalize_rows
 
 
 def grid_from_numpy(data, origin, voxsp: float, name: str = "",
-                    device="cpu") -> DensityGrid:
+                    device="cuda") -> DensityGrid:
     """(X, Y, Z) density -> DensityGrid with float32 data on ``device``."""
     return DensityGrid(
         data=torch.tensor(np.asarray(data, dtype=np.float32),
-                          device=device),
+                          device=resolve(device)),
         origin=np.asarray(origin, dtype=np.float64).copy(),
         voxsp=float(voxsp), name=name)
 
@@ -30,11 +31,12 @@ def grid_from_numpy(data, origin, voxsp: float, name: str = "",
 def descriptor_set_from_numpy(desc, coords, map_coords, subv_coords, rfinal,
                               octave, anchor_id, main_bin, sec_bin,
                               eqsp_size: int = 112, subeqsp_size: int = 16,
-                              name: str = "", device="cpu") -> DescriptorSet:
+                              name: str = "", device="cuda") -> DescriptorSet:
     """Rows of a descriptor table -> DescriptorSet. ``desc`` may carry
     trailing padding rows; the row count is that of ``coords``."""
     n = int(np.asarray(coords).shape[0])
-    d = torch.tensor(np.asarray(desc)[:n].astype(np.int16), device=device)
+    d = torch.tensor(np.asarray(desc)[:n].astype(np.int16),
+                     device=resolve(device))
     return DescriptorSet(
         desc=d, desc_norm=normalize_rows(d),
         coords=np.asarray(coords, dtype=np.float32),

@@ -70,6 +70,20 @@ def apply_rigid(coords: torch.Tensor, R: torch.Tensor, T: torch.Tensor
     return coords @ R + T[..., None, :]
 
 
+def rows_times(v: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """v @ R over the last two axes, summed over the inner index in order
+    (v (..., P, 3), R broadcastable to (..., 3, 3))."""
+    return (v[..., 0:1] * R[..., None, 0, :] + v[..., 1:2] * R[..., None, 1, :]
+            + v[..., 2:3] * R[..., None, 2, :])
+
+
+def matmul3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for batched 3x3 matrices, summed over the inner index in order."""
+    return (A[..., :, 0:1] * B[..., None, 0, :]
+            + A[..., :, 1:2] * B[..., None, 1, :]
+            + A[..., :, 2:3] * B[..., None, 2, :])
+
+
 def spherical_angles(vecs: torch.Tensor):
     """(theta in [0, 2pi), phi in [0, pi]) of vectors, reference convention
     (mad/Orientator.py:305-321)."""
@@ -77,3 +91,25 @@ def spherical_angles(vecs: torch.Tensor):
     theta = torch.where(theta < 0, theta + 2.0 * math.pi, theta)
     phi = torch.arccos(torch.clamp(vecs[..., 2], -1.0, 1.0))
     return theta, phi
+
+
+def zone_mask(dirs: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """(..., Z) bool: direction inside zone z by the reference's strict
+    bounds [theta_min, phi_min, theta_max, phi_max] on theta (or
+    theta + 2pi) and phi (mad/Orientator.py:323-335)."""
+    theta, phi = spherical_angles(dirs)
+    sth = theta + 2.0 * math.pi
+    t, s, p = theta[..., None], sth[..., None], phi[..., None]
+    b = bounds
+    return ((((t > b[:, 0]) & (t < b[:, 2])) | ((s > b[:, 0]) & (s < b[:, 2])))
+            & (p > b[:, 1]) & (p < b[:, 3]))
+
+
+def zone_assign(dirs: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """(...,) int64 zone per direction with the reference *descriptor*
+    semantics (mad/Descriptor.py:173-190): the LAST matching zone wins,
+    unmatched directions fall to zone 0."""
+    zidx = torch.arange(bounds.shape[0], device=dirs.device)
+    zid = torch.where(zone_mask(dirs, bounds), zidx,
+                      torch.full_like(zidx, -1)).amax(dim=-1)
+    return torch.clamp(zid, min=0)

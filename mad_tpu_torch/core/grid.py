@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from .mrc_io import read_mrc as _read_mrc_file
+from .mrc_io import write_mrc as _write_mrc_file
 
 
 @dataclass
@@ -78,7 +79,7 @@ class DensityGrid:
                        origin=self.origin + (lo - p) * self.voxsp)
 
 
-# -- file I/O (copied from mad_tpu/core/grid.py, numpy readers) ------------
+# -- file I/O (copied from mad_tpu/core/grid.py, numpy) --------------------
 
 def read_map(path: str, device, isovalue: float = 0.0,
              normalize: bool = True) -> DensityGrid:
@@ -126,3 +127,13 @@ def _read_mrc(path: str):
     data = np.ascontiguousarray(
         np.transpose(raw, axis_order[::-1]).astype(np.float32))
     return data, origin, voxsp
+
+
+def write_mrc(grid: DensityGrid, path: str) -> None:
+    """Write MRC with mapc/r/s = 1/2/3 and origin header
+    (parity: mad/Dmap.py:392-416)."""
+    # Contiguous before writing: ndarray.tofile of the transposed view
+    # writes element by element, several times slower for the same bytes.
+    _write_mrc_file(path, np.ascontiguousarray(
+        grid.host().astype(np.float32).transpose(2, 1, 0)),
+        grid.voxsp, grid.origin)

@@ -1,9 +1,8 @@
-"""Copied from mad_tpu/core/structure.py: the ``Structure`` container and
+"""Copied from mad_tpu/core/structure.py: the ``Structure`` container,
 the pure-Python PDB reader (not the native C parser,
-mad_tpu/native/fastio.c, and not the writers, which the port does not
-call yet).
+mad_tpu/native/fastio.c) and the PDB writers.
 
-Atomic structure container + PDB reader (host side, numpy).
+Atomic structure container + PDB reader / writers (host side, numpy).
 """
 
 from __future__ import annotations
@@ -119,3 +118,56 @@ def parse_pdb(path: str) -> Structure:
         source=path,
     )
 
+
+def _atom_line(rec, serial, name, res_name, chain, res_num, xyz, elem,
+               occ=1.0, bfac=0.0) -> str:
+    # 4-char atom names start one column earlier (mad/PDB.py:85-90).
+    if len(name) == 4:
+        fmt = "%-6s%5i %-4s %3s%2s%4s    %8.3f%8.3f%8.3f%6.2f%6.2f          %-2s"
+    else:
+        fmt = "%-6s%5i  %-3s %3s%2s%4s    %8.3f%8.3f%8.3f%6.2f%6.2f          %-2s"
+    return fmt % (rec, serial, name, res_name, chain, res_num,
+                  xyz[0], xyz[1], xyz[2], occ, bfac, elem)
+
+
+def write_pdb(struct: Structure, path: str) -> None:
+    """Write structure in the same fixed-column layout as mad/PDB.py:80-94."""
+    with open(path, "w") as fh:
+        for i in range(struct.n_atoms):
+            at_num, at_name, res_name, chain_id, res_num, elem, rec = struct.info[i]
+            fh.write(
+                _atom_line(rec, at_num, at_name, res_name, chain_id, res_num,
+                           struct.coords[i], elem) + "\n"
+            )
+
+
+def write_complex(components: List[Structure], path: str) -> None:
+    """Write a multi-chain complex, relabelling chains A, B, ...
+    (parity with MaD._write_complex_from_components, mad/MaD.py:961-982)."""
+    chain_ord = ord("@")
+    with open(path, "w") as fh:
+        for comp in components:
+            for i in range(comp.n_atoms):
+                at_num, at_name, res_name, _, res_num, elem, rec = comp.info[i]
+                if at_num == 1:
+                    chain_ord += 1
+                    if chr(chain_ord) != "A":
+                        fh.write("TER\n")
+                fh.write(
+                    _atom_line(rec, at_num, at_name, res_name, chr(chain_ord),
+                               res_num, comp.coords[i], elem) + "\n"
+                )
+
+
+def write_pseudo_pdb(coords: np.ndarray, path: str, res_name: str = "ANC",
+                     chain: str = "A", bfactors: Optional[np.ndarray] = None,
+                     elem: str = "O") -> None:
+    """Dump bare coordinates as dummy atoms for visualization
+    (anchor/correspondence dumps, mad/MaD.py:985-1014, Detector.py:145-189)."""
+    with open(path, "w") as fh:
+        for i, xyz in enumerate(np.asarray(coords)):
+            b = 0.0 if bfactors is None else float(bfactors[i])
+            fh.write(
+                _atom_line("ATOM", i + 1, elem, res_name, chain, i + 1, xyz,
+                           elem, occ=1.0, bfac=b) + "\n"
+            )

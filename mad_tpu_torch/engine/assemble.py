@@ -34,6 +34,7 @@ import torch
 from ..core.config import AssemblyConfig, bucket
 from ..core.grid import DensityGrid
 from ..core.structure import Structure
+from ..device import resolve
 from ..kernels import enumerate as k_enum
 from ..kernels import hetero as k_hetero
 from ..kernels import overlap as k_overlap
@@ -204,7 +205,7 @@ def _sym(overlap: np.ndarray, n: int, device) -> torch.Tensor:
 def enumerate_homomultimer(n_solutions: int, n_copies: int,
                            overlap: np.ndarray,
                            max_combinations: int = 5_000_000,
-                           head: int = 256, device="cpu"):
+                           head: int = 256, device="cuda"):
     """Head of the candidate-tuple ranking for a homomultimer
     (mad/MaD.py:686-694: all C(n, k) tuples sorted by max pairwise overlap).
 
@@ -216,6 +217,7 @@ def enumerate_homomultimer(n_solutions: int, n_copies: int,
     solutions (they arrive sorted by RWmCC) and says so (every restriction
     prints + records a note, pop_enum_notes).
     """
+    device = resolve(device)
     n_orig = n_solutions
     n_copies = min(n_copies, n_solutions)
     while (n_solutions > n_copies
@@ -270,7 +272,7 @@ def _hetero_scores(gather: np.ndarray, overlap: np.ndarray):
 
 def enumerate_heteromer(groups: Dict[str, List[int]], overlap: np.ndarray,
                         max_combinations: int = 50_000_000, head: int = 256,
-                        device="cpu"):
+                        device="cuda"):
     """Cartesian product of per-subunit candidate lists (mad/MaD.py:799-805).
 
     groups maps subunit key -> list of global solution indices (or of
@@ -283,6 +285,7 @@ def enumerate_heteromer(groups: Dict[str, List[int]], overlap: np.ndarray,
     ``max_combinations`` the largest groups trim to their best-ranked
     entries (lists arrive ranking-sorted) and the trim is announced
     (printed + recorded, pop_enum_notes)."""
+    device = resolve(device)
     lists = [np.asarray(v) for v in groups.values()]
     sizes = [len(v) for v in lists]
     sizes0 = list(sizes)

@@ -42,6 +42,15 @@ class Solution:
     score: float = 0.0             # RWmCC = repeat * weight * ccc
 
 
+def start_poses(candidates: List[Candidate], sub_struct: Structure
+                ) -> np.ndarray:
+    """(C, N, 3) float32 start coords of the candidates' poses."""
+    x0 = sub_struct.coords
+    return np.stack([
+        (x0 - c.hi_coord) @ c.rot.T + c.lo_coord for c in candidates
+    ]).astype(np.float32)
+
+
 def _refine_and_merge(candidates: List[Candidate], solutions: List[Solution],
                       sub_struct: Structure, dmap: DensityGrid,
                       table: MatchTable, cfg: MadConfig, device,
@@ -49,10 +58,7 @@ def _refine_and_merge(candidates: List[Candidate], solutions: List[Solution],
     """Refine candidate poses and merge them into ``solutions`` (CA-RMSD
     dedup with weight merging, mad/MaD.py:592-620). Returns the number of
     genuinely new solutions appended."""
-    x0 = sub_struct.coords
-    starts = np.stack([
-        (x0 - c.hi_coord) @ c.rot.T + c.lo_coord for c in candidates
-    ]).astype(np.float32)
+    starts = start_poses(candidates, sub_struct)
     with stage(timings, "refine", device):
         res = refine_candidates(dmap, starts, cfg.refine, device=device)
     return _merge_refined(res, candidates, solutions, sub_struct, dmap,
@@ -130,10 +136,14 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
                    sub_struct: Structure, dmap: DensityGrid,
                    resolution: float, cfg: MadConfig, n_copies: int = 1,
                    verbose: bool = False, device=None,
-                   timings: Optional[dict] = None) -> List[Solution]:
+                   timings: Optional[dict] = None,
+                   on_filtered=None) -> List[Solution]:
     """Dock one subunit into the map on ``device`` (default: the map's);
     returns scored unique solutions, best first. ``timings``: optional
-    dict that collects seconds per stage (match, cluster, refine, score)."""
+    dict that collects seconds per stage (match, cluster, refine, score).
+    ``on_filtered``: optional callback receiving the first round's filtered
+    pre-refinement Candidate list (the reference's pre_solutions hook,
+    mad/MaD.py:404-405, 891-921)."""
     device = torch.device(device) if device is not None else dmap.device
     n_samples = cfg.filter.n_samples * n_copies
     with stage(timings, "match", device):
@@ -156,6 +166,8 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
         print(f"MaD> {len(candidates)} filtered pose candidates")
     if not candidates:
         return []
+    if on_filtered is not None:
+        on_filtered(candidates)
 
     solutions: List[Solution] = []
     _refine_and_merge(candidates, solutions, sub_struct, dmap, table, cfg,

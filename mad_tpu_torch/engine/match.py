@@ -23,8 +23,8 @@ import numpy as np
 import torch
 
 from ..core.config import MatchConfig, bucket
+from ..core.geometry import rows_times
 from ..kernels.repeat import exact_repeat
-from ..ops.orient import rows_times
 from .pipeline import DescriptorSet
 
 

@@ -7,8 +7,8 @@ sources are in ``mad_tpu_torch/csrc`` and build on first use
 (:mod:`.build`).
 """
 
-from . import (conv1d, describe, enumerate, hetero, overlap, peaks, repeat,
-               scatter)
+from . import (conv1d, describe, enumerate, hetero, orient, overlap, peaks,
+               refine, repeat, scatter)
 
 # name -> (wrapper module, CUDA source, the mad_tpu body it replaces)
 KERNELS = {
@@ -28,6 +28,10 @@ KERNELS = {
                        "mad_tpu/engine/assemble.py:338"),
     "hetero_head": (hetero, "mad_tpu_torch/csrc/enumerate.cu",
                     "mad_tpu/engine/assemble.py:500"),
+    "orient": (orient, "mad_tpu_torch/csrc/orient.cu",
+               "mad_tpu/ops/orient.py:212"),
+    "refine": (refine, "mad_tpu_torch/csrc/refine.cu",
+               "mad_tpu/engine/refine.py:63"),
 }
 
 

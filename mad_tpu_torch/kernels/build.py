@@ -51,6 +51,10 @@ SIGNATURES = {
     "mad_enumerate_head": [_P, _P, _I, _I, _L, _I, _I, _I, _P, _P, _P],
     "mad_hetero_head": [_P, _I, _I, _P, _I, _P, _I, _L, _I, _I, _I, _P, _P,
                         _P],
+    "mad_orient": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P,
+                   _P, _I, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
+    "mad_refine": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _F,
+                   _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -2,10 +2,11 @@
 
 Replaces mad_tpu/ops/describe.py:79-152 (``one_descriptor``) together
 with the zone assignment of mad_tpu/ops/orient.py:141-160
-(``zone_assign_fn``, here ``ops.orient.zone_assign``). The CUDA kernel ``csrc/describe.cu`` runs one block
-per lane with the histogram in shared memory (its note says what bounds
-it); :func:`descriptor_hist_plain` is the plain PyTorch version, chunked
-over lanes, with the same per-element arithmetic order.
+(``zone_assign_fn``, here ``core.geometry.zone_assign``). The CUDA
+kernel ``csrc/describe.cu`` runs one block per lane with the histogram in
+shared memory (its note says what bounds it);
+:func:`descriptor_hist_plain` is the plain PyTorch version, chunked over
+lanes, with the same per-element arithmetic order.
 """
 
 from __future__ import annotations
@@ -15,8 +16,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..core.geometry import rows_times, zone_assign
 from ..ops.interp import nearest
-from ..ops.orient import rows_times, zone_assign
 from . import build
 
 launches = 0            # kernel launches since the last reset

@@ -161,3 +161,30 @@ def overlap_tolerance(structures, cfg, device, eps: float = 1e-5,
     """``overlap_slack`` of the solutions' densities simulated on
     ``device``."""
     return overlap_slack(*near_isovalue(structures, cfg, device, eps), atol)
+
+
+def orient_agreement(got, ref, tol: float = 1e-6):
+    """How far two computations of K6's output agree, per anchor: the same
+    lane validity and, on the valid lanes, the same main and secondary
+    bins. Returns (share of agreeing anchors, max |rfinal difference| over
+    the agreeing anchors' valid lanes, whether that max is within
+    ``tol``). Only valid lanes are defined (kernels/orient.py)."""
+    import torch
+    mg, sg, rg, og = got
+    mr, sr, rr, orr = ref
+    K, M, S = orr.shape
+    main_eq = (mg == mr)[:, :, None].expand(-1, -1, S) | ~orr
+    sec_eq = (sg == sr) | ~orr
+    agree = ((og == orr) & main_eq & sec_eq).reshape(K, -1).all(dim=1)
+    d = (rg - rr).abs().amax(dim=(-1, -2))
+    d = torch.where(orr & agree[:, None, None], d, torch.zeros_like(d))
+    dmax = float(d.max()) if d.numel() else 0.0
+    share = float(agree.float().mean()) if K else 1.0
+    return share, dmax, dmax <= tol
+
+
+def ca_rmsds(a: np.ndarray, b: np.ndarray, ca_idx) -> np.ndarray:
+    """Per candidate CA-RMSD between two (C, N, 3) coordinate sets."""
+    d = np.asarray(a, np.float64)[:, ca_idx] - np.asarray(b, np.float64)[
+        :, ca_idx]
+    return np.sqrt((d * d).sum(-1).mean(-1))

@@ -116,7 +116,8 @@ def test_score_models(five):
     coords = np.concatenate([s.coords for s in five[:4]])
     masses = np.concatenate([s.masses for s in five[:4]])
     jmap = jsim.simulate_density(coords, 8.0, 2.0, masses=masses)
-    tmap = grid_from_numpy(np.asarray(jmap.data), jmap.origin, jmap.voxsp)
+    tmap = grid_from_numpy(np.asarray(jmap.data), jmap.origin, jmap.voxsp,
+                           device="cpu")
     ov = jasm.solution_overlap(five, cfg)
     tuples, sums, stds, maxs = jasm.enumerate_homomultimer(5, 4, ov)
     ref = jasm.score_models(tuples, sums, stds, maxs, five, jmap, cfg,
@@ -132,7 +133,8 @@ def test_assembly_step():
     coords = np.concatenate([c.coords for c in copies])
     masses = np.concatenate([c.masses for c in copies])
     jmap = jsim.simulate_density(coords, 8.0, 2.0, masses=masses)
-    tmap = grid_from_numpy(np.asarray(jmap.data), jmap.origin, jmap.voxsp)
+    tmap = grid_from_numpy(np.asarray(jmap.data), jmap.origin, jmap.voxsp,
+                           device="cpu")
     jcfg, tcfg = JAssembly(), TAssembly()
     jasm.pop_enum_notes()
     tasm.pop_enum_notes()
@@ -143,7 +145,7 @@ def test_assembly_step():
 
     tsols = _port(sols)
     tov = tasm.solution_overlap(tsols, tcfg, "cpu")
-    tt = tasm.enumerate_homomultimer(len(tsols), 8, tov)
+    tt = tasm.enumerate_homomultimer(len(tsols), 8, tov, device="cpu")
     got = tasm.score_models(*tt, tsols, tmap, tcfg, 10, 0.1)
 
     assert len(jt[0]) == 256                   # the device branch ran

@@ -55,7 +55,7 @@ def test_homomultimer(n, k, head, seed, ties):
     tasm.pop_enum_notes()
     ref = jasm.enumerate_homomultimer(n, k, ov, head=head)
     ref_notes = jasm.pop_enum_notes()
-    got = tasm.enumerate_homomultimer(n, k, ov, head=head)
+    got = tasm.enumerate_homomultimer(n, k, ov, head=head, device="cpu")
     _same(got, ref, tasm.pop_enum_notes(), ref_notes)
     device = n <= 64 and math.comb(n, k) > 4 * head
     assert bool(ref_notes) == device
@@ -82,7 +82,7 @@ def test_heteromer(n_per, n_groups, head, cap):
                                    head=head)
     ref_notes = jasm.pop_enum_notes()
     got = tasm.enumerate_heteromer(groups, ov, max_combinations=cap,
-                                   head=head)
+                                   head=head, device="cpu")
     _same(got, ref, tasm.pop_enum_notes(), ref_notes)
     if cap == 1000:
         assert len(ref[0]) == 1000

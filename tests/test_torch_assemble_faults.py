@@ -28,7 +28,7 @@ def test_binomial_table_above_int32():
     ov = np.triu(np.random.default_rng(3).random((n, n)) * 0.3, k=1)
     with pytest.raises(OverflowError):
         jasm.enumerate_homomultimer(n, k, ov)
-    got = tasm.enumerate_homomultimer(n, k, ov)
+    got = tasm.enumerate_homomultimer(n, k, ov, device="cpu")
     full = tasm._all_combinations(n, k)
     _s, _sd, mx = tasm._score_tuples(full, ov)
     order = np.argsort(mx, kind="stable")

@@ -3,9 +3,10 @@ geometry and grid ports agree with the JAX versions, and the port imports
 neither JAX nor mad_tpu.
 
 The copies (core/config.py, core/eqsp.py, core/structure.py,
-core/mrc_io.py, testing.py, engine/cluster.py) are numpy code carried over
-without their JAX imports (and, for core/structure.py, without the native
-parser and the writers), so they are held to exact equality.
+core/mrc_io.py, testing.py, engine/cluster.py, the writers of
+core/grid.py) are numpy code carried over without their JAX imports (and,
+for core/structure.py, without the native parser), so they are held to
+exact equality: the writers to byte-identical files.
 """
 
 import dataclasses
@@ -25,6 +26,8 @@ from mad_tpu.core.eqsp import get_eqsp as jget_eqsp
 from mad_tpu.core.grid import read_map as jread_map
 from mad_tpu.core.grid import write_mrc as jwrite_mrc
 from mad_tpu.core.structure import _parse_pdb_python, write_pdb
+from mad_tpu.core.structure import write_complex as jwrite_complex
+from mad_tpu.core.structure import write_pseudo_pdb as jwrite_pseudo_pdb
 from mad_tpu.engine.cluster import filter_pairs as jfilter
 from mad_tpu.engine.match import MatchTable as JTable
 from mad_tpu.testing import make_assembly as jmake_assembly
@@ -35,6 +38,8 @@ from mad_tpu_torch import testing as ttesting
 from mad_tpu_torch.convert import (descriptor_set_from_numpy,
                                    grid_from_numpy, match_table_from_numpy)
 from mad_tpu_torch.core.eqsp import get_eqsp as tget_eqsp
+from mad_tpu_torch.core import grid as tgrid
+from mad_tpu_torch.core import structure as tstructure
 from mad_tpu_torch.core.grid import read_map
 from mad_tpu_torch.core.structure import parse_pdb
 from mad_tpu_torch.engine.cluster import filter_pairs as tfilter
@@ -189,7 +194,8 @@ def test_geometry_matches_jax():
 
 def test_convert_builds_stage_state():
     rng = np.random.default_rng(4)
-    g = grid_from_numpy(rng.random((4, 5, 6)), [1, 2, 3], 1.4, name="g")
+    g = grid_from_numpy(rng.random((4, 5, 6)), [1, 2, 3], 1.4, name="g",
+                        device="cpu")
     assert g.data.dtype == torch.float32 and g.shape == (4, 5, 6)
     assert g.origin.dtype == np.float64 and g.voxsp == 1.4
     n = 5
@@ -198,8 +204,38 @@ def test_convert_builds_stage_state():
     ds = descriptor_set_from_numpy(
         desc, rng.random((n, 3)), rng.random((n, 3)), rng.random((n, 3)),
         np.tile(np.eye(3), (n, 1, 1)), np.zeros(n), np.arange(n),
-        np.arange(n), np.zeros(n), name="d")
+        np.arange(n), np.zeros(n), name="d", device="cpu")
     assert ds.n == n and ds.desc.dtype == torch.int16
     norms = ds.desc_norm.norm(dim=1).numpy()
     np.testing.assert_allclose(norms[[0, 2, 3, 4]], 1.0, rtol=1e-6)
     assert norms[1] == 0.0
+
+
+@pytest.mark.parametrize("writer", ["pdb", "complex", "pseudo", "mrc"])
+def test_writers_are_the_same(tmp_path, writer):
+    """The port's PDB and MRC writers write mad_tpu's bytes."""
+    from mad_tpu.core.grid import DensityGrid
+    _sub, copies = jmake_assembly(3, 30, seed=5)
+    rng = np.random.default_rng(6)
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    if writer == "pdb":
+        write_pdb(copies[1], a)
+        tstructure.write_pdb(parse_pdb(a), b)
+    elif writer == "complex":
+        jwrite_complex(copies, a)
+        tstructure.write_complex(copies, b)
+    elif writer == "pseudo":
+        xyz = rng.normal(size=(17, 3)) * 40
+        bf = np.arange(17) / 17
+        jwrite_pseudo_pdb(xyz, a, res_name="ANC", chain="A", bfactors=bf,
+                          elem="C")
+        tstructure.write_pseudo_pdb(xyz, b, res_name="ANC", chain="A",
+                                    bfactors=bf, elem="C")
+    else:
+        data = rng.random((9, 7, 5)).astype(np.float32)
+        origin = np.array([3.0, -4.2, 10.5])
+        jwrite_mrc(DensityGrid(data=data, origin=origin, voxsp=1.4), a)
+        tgrid.write_mrc(grid_from_numpy(data, origin, 1.4, device="cpu"), b)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        ba, bb = fa.read(), fb.read()
+    assert ba == bb and len(ba) > 100

@@ -60,7 +60,7 @@ def _sets(rng, n, name):
     norm = desc.astype(np.float32)
     norm /= np.linalg.norm(norm, axis=1, keepdims=True)
     return (JSet(desc_norm=norm, name=name, **fields),
-            descriptor_set_from_numpy(name=name, **fields))
+            descriptor_set_from_numpy(name=name, device="cpu", **fields))
 
 
 @pytest.fixture(scope="module")

@@ -49,7 +49,8 @@ def _ca_rmsd(a, b, ca):
 def test_refine_outcomes(refine_system, n_steps):
     p, dmap, starts = refine_system
     jr = jref.refine_candidates(dmap, starts, JRefine(n_steps=n_steps))
-    tmap = grid_from_numpy(np.asarray(dmap.data), dmap.origin, dmap.voxsp)
+    tmap = grid_from_numpy(np.asarray(dmap.data), dmap.origin, dmap.voxsp,
+                           device="cpu")
     tr = tref.refine_candidates(tmap, starts, TRefine(n_steps=n_steps),
                                 device="cpu")
     np.testing.assert_array_equal(tr.failed, jr.failed)

@@ -83,7 +83,7 @@ def test_batched_simulate(system):
 def test_reduce_void_normalized_padded_clamp(system):
     _sub, coords, masses = system
     j = jsim.simulate_density(coords, 8.0, 2.0, masses=masses)
-    t = grid_from_numpy(np.asarray(j.data), j.origin, j.voxsp)
+    t = grid_from_numpy(np.asarray(j.data), j.origin, j.voxsp, device="cpu")
     for jj, tt in [(j.reduce_void(), t.reduce_void()),
                    (j.reduce_void(4), t.reduce_void(4)),
                    (j.normalized(), t.normalized()),
@@ -104,7 +104,7 @@ def test_octaves_log_and_gradient(system, oct_mode):
     tcfg = tcfg.replace(scalespace=dataclasses.replace(tcfg.scalespace,
                                                        oct_mode=oct_mode))
     j = jsim.simulate_density(coords, 8.0, 2.0, masses=masses).reduce_void()
-    t = grid_from_numpy(np.asarray(j.data), j.origin, j.voxsp)
+    t = grid_from_numpy(np.asarray(j.data), j.origin, j.voxsp, device="cpu")
     jo = list(jss.iter_lazy_octaves(j, jcfg.scalespace, jcfg.shape_bucket))
     to = list(tss.iter_octaves(t, tcfg.scalespace))
     assert len(jo) == len(to) == 2

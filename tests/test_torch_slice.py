@@ -144,9 +144,10 @@ def test_docking_fed_mad_tpu_descriptors(both):
     """The dock stage alone, fed mad_tpu's own map, descriptor sets and
     decoy through mad_tpu_torch.convert: same solutions."""
     jmap = both["jmap"]
-    tmap = grid_from_numpy(np.asarray(jmap.data), jmap.origin, jmap.voxsp)
-    tm = descriptor_set_from_numpy(**_fields(both["jm"]))
-    ts = descriptor_set_from_numpy(**_fields(both["js"]))
+    tmap = grid_from_numpy(np.asarray(jmap.data), jmap.origin, jmap.voxsp,
+                           device="cpu")
+    tm = descriptor_set_from_numpy(device="cpu", **_fields(both["jm"]))
+    ts = descriptor_set_from_numpy(device="cpu", **_fields(both["js"]))
     sols = tdock.dock_structure(tm, ts, both["jmoved"], tmap, RES,
                                 both["tcfg"], n_copies=N_COPIES,
                                 device="cpu")
