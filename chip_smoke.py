@@ -19,17 +19,23 @@ Phases, each of which raises (non-zero exit) when it fails:
      tensors at the main path's shapes, with the tolerance of its tests
      (K6 on every anchor of both octaves, and on the base octave also at
      patch sizes 12 and 24 and with a Gaussian window, each launched
-     twice; K15 on the first-round candidates), both timed with CUDA events, beside the one PyTorch call
-     that computes the same function where there is one, and the kernel's
-     bound: the larger of the bytes it must move over 3.35 TB/s and the
-     operations it does over 67 TFLOP/s (float32, no tensor cores);
+     twice; K15 on the first-round candidates; the matching front on the
+     bench's pairs: K10's head, K11 and K14 equal, K12 equal except pairs
+     with a moved anchor within 1e-4 voxel of a .5 rounding edge, counted),
+     both timed with CUDA events, beside the one PyTorch call that computes
+     the same function where there is one (K10's head: torch.topk per row,
+     then over the flat heads), and the kernel's bound: the larger of the
+     bytes it must move over 3.35 TB/s and the operations it does over
+     67 TFLOP/s (float32, no tensor cores; K14's over 34 TFLOP/s, float64);
   5. timed pass of the main path (after one more warm pass) with every
      launch counter reset first;
      fails unless every kernel of the path launched, the solutions are
      finite, at least 9 of 10 copies are recovered (best CA-RMSD < 10 A)
      and at least one model comes back, with a finite CCC, its first
-     model made of 10 distinct solutions; then the fit once more with
-     K6 and K15's plain versions swapped in (stage seconds side by side);
+     model made of 10 distinct solutions; then the fit once more with the
+     plain versions of K6, K15 and the matching front (K10's head, K11,
+     K12, K14) swapped in (stage seconds side by side), which must recover
+     as many copies;
   6. the same assembly on the same solutions with the plain versions
      swapped in on the card: the same tuples and model components, model
      CCCs within 1e-5, the overlap within its tolerance (K9's atomics
@@ -75,9 +81,13 @@ K6_AGREE, K6_RFINAL_TOL = 0.99, 1e-6   # anchors agreeing, frame max diff
 K6_SETTINGS = ((12, 0.0), (24, 0.0), (16, 3.0))
 K15_MEDIAN = 0.05               # A, median CA-RMSD kernel vs plain
 REFINE_FLOPS = 160              # K15 flops per atom and step (both passes)
-# NVIDIA H100 SXM at 700 W: HBM bytes/s and float32 flop/s outside the
-# tensor cores (NVIDIA's data sheet), the denominators of each bound.
-PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+R2_FLOPS = 102                  # K14 float64 flops per (row, cluster) RMSD
+APPROX_FLOPS = 20               # K12 flops per moved, rounded anchor
+K12_EDGE = 1e-4                 # voxel, K12's .5 rounding edge
+# NVIDIA H100 SXM at 700 W: HBM bytes/s, and float32 and float64 flop/s
+# outside the tensor cores (NVIDIA's data sheet), the denominators of each
+# bound.
+PEAK_BYTES_S, PEAK_F32_S, PEAK_F64_S = 3.35e12, 67e12, 34e12
 ASSEMBLY_STAGES = ("overlap", "enumerate", "score_models")
 
 
@@ -210,6 +220,31 @@ def orient_refine_swaps():
             (k15, "refine_loop", k15.refine_loop_plain)]
 
 
+def match_swaps():
+    """The plain PyTorch versions of the matching front: K10's head, K11,
+    K12 (engine/match.py) and K14 (engine/docking.py)."""
+    from mad_tpu_torch.engine import docking, match
+    from mad_tpu_torch.kernels import approx, cluster, field, pairs
+    return [(match, "pair_head", pairs.pair_head_plain),
+            (match, "anchor_field", field.anchor_field_plain),
+            (match, "approx_repeat", approx.approx_repeat_plain),
+            (docking, "cluster_select", cluster.cluster_select_plain)]
+
+
+def fit_swaps():
+    """The plain versions that the fit-level comparison swaps in."""
+    return orient_refine_swaps() + match_swaps()
+
+
+def swapped_kernels(swaps):
+    """The KERNELS names whose wrapper module holds a swapped-in plain
+    version."""
+    from mad_tpu_torch.kernels import KERNELS
+    mods = {fn.__module__ for _mod, _name, fn in swaps}
+    return [name for name, (mod, _s, _r) in KERNELS.items()
+            if mod.__name__ in mods]
+
+
 @contextlib.contextmanager
 def plain_versions(swaps):
     """Swap the given plain versions in for their kernels, on whatever
@@ -264,17 +299,18 @@ def cuda_ms(fn, reps=3):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, peak_ops=PEAK_F32_S):
     """The least time the card could take: the larger of the bytes the
-    work must move over PEAK_BYTES_S and its operations over PEAK_F32_S,
-    in ms, with which of the two it is."""
-    by_bytes, by_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_S * 1e3
+    work must move over PEAK_BYTES_S and its operations over peak_ops
+    (float32 by default), in ms, with which of the two it is."""
+    by_bytes, by_ops = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations",
                 bytes=float(nbytes), ops=float(ops))
 
 
-def measure(err, kernel, plain, nbytes, ops, library=None):
+def measure(err, kernel, plain, nbytes, ops, library=None,
+            peak_ops=PEAK_F32_S):
     """One kernel's report entry: its error against the plain version, the
     times of the kernel, the plain version and the one PyTorch call that
     computes the same function (None where there is none), and its
@@ -282,7 +318,7 @@ def measure(err, kernel, plain, nbytes, ops, library=None):
     return dict(max_abs_err=float(err), ms=cuda_ms(kernel),
                 plain_ms=cuda_ms(plain),
                 library_ms=None if library is None else cuda_ms(library),
-                **bound(nbytes, ops))
+                **bound(nbytes, ops, peak_ops))
 
 
 def kernel_checks(fit, cfg, device):
@@ -409,10 +445,152 @@ def kernel_checks(fit, cfg, device):
         n_head * a_hi * (15 + 9 * a_lo))
     say(f"  K13: {n_head} pairs x {a_hi} x {a_lo} anchors, "
         f"{int(edge.sum())} on the edge")
+    out.update(match_kernel_checks(fit, cfg, device))
     out.update(assembly_kernel_checks(fit, cfg, device))
     out["orient"] = orient_check(fit, cfg, device)
     out["refine"] = refine_check(fit, cfg, device)
     return out
+
+
+def match_kernel_checks(fit, cfg, device):
+    """K10's head, K11, K12 and K14 against their plain versions on the
+    bench's matching inputs: the cosines of the fit's descriptor sets, the
+    map anchors' voxels, every pair's pose, and the first-round table's
+    n_scan rows."""
+    import torch
+    from mad_tpu_torch.engine import match as em
+    from mad_tpu_torch.engine.cluster import filter_pairs
+    from mad_tpu_torch.engine.docking import cluster_candidates
+    from mad_tpu_torch.kernels import approx, cluster, field, pairs
+    out = {}
+    m, s, dmap, mc = fit["map_set"], fit["sub_set"], fit["dmap"], cfg.match
+
+    # K10's head: equal keys. Work: the cosines read once, one compare
+    # each, the head written. Library: torch.topk per row, then over the
+    # flat row heads (mad_tpu's form), and the threshold.
+    sim = s.desc_norm @ m.desc_norm.T
+    dh, dl = sim.shape
+    thr = float(mc.cc_threshold)
+    args = (sim, mc.row_cap, mc.max_pairs, thr)
+    k1, k2 = pairs.pair_head(*args), pairs.pair_head_plain(*args)
+    check(torch.equal(k1, k2), "K10 head differs from the plain version")
+    n_pairs = int((k1 != -1).sum())
+    k = min(mc.row_cap, dl)
+
+    def topk_heads():
+        vals, _cols = torch.topk(sim, k, dim=1)
+        gv, _gi = torch.topk(vals.reshape(-1), min(mc.max_pairs, dh * k))
+        return gv > thr
+
+    out["pair_head"] = measure(0.0, lambda: pairs.pair_head(*args),
+                               lambda: pairs.pair_head_plain(*args),
+                               sim.numel() * 4 + k1.numel() * 8, sim.numel(),
+                               topk_heads)
+    say(f"  K10 head: {dh} x {dl} cosines, {n_pairs} pairs (head "
+        f"{k1.numel()})")
+    del sim, k1, k2
+
+    # K11: equal bytes. Work: the field written once, the anchors read.
+    p = em.match_pairs(m, s, mc)
+    lo_vox = torch.as_tensor(em.anchor_voxels(
+        p["lo_cloud"], dmap.origin, dmap.voxsp, dmap.shape), device=device)
+    r_vox = max(1, int(round(mc.anchor_dist / dmap.voxsp)))
+    args = (tuple(dmap.shape), lo_vox, r_vox)
+    f1, f2 = field.anchor_field(*args), field.anchor_field_plain(*args)
+    check(torch.equal(f1, f2), "K11 field differs from the plain version")
+    out["anchor_field"] = measure(
+        0.0, lambda: field.anchor_field(*args),
+        lambda: field.anchor_field_plain(*args),
+        f1.numel() + lo_vox.numel() * 4,
+        lo_vox.shape[0] * (2 * r_vox + 1) ** 3)
+    say(f"  K11: {lo_vox.shape[0]} anchors, radius {r_vox}, field "
+        f"{tuple(f1.shape)}, {int(f1.sum())} voxels set")
+    del f2
+
+    # K12: equal except pairs with a moved anchor within K12_EDGE voxel of
+    # a .5 rounding edge. Work: each pair's pose and the subunit cloud
+    # read, ~APPROX_FLOPS per moved anchor, the distinct in-grid voxels it
+    # looks up read once, the scores written.
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    args = (f1, f32(p["hi_cloud"]), f32(dmap.origin),
+            float(np.float32(1.0 / dmap.voxsp)), f32(p["rot"]),
+            f32(p["hi_coord"]), f32(p["lo_coord"]))
+    r1, r2 = approx.approx_repeat(*args), approx.approx_repeat_plain(*args)
+    edge, touched = approx_edges(*args)
+    bad = (r1 != r2) & ~edge
+    check(not bool(bad.any()), f"K12 differs on {int(bad.sum())} pairs")
+    P, a_hi = args[4].shape[0], args[1].shape[0]
+    out["approx_repeat"] = measure(
+        float((r1 - r2).abs().max()), lambda: approx.approx_repeat(*args),
+        lambda: approx.approx_repeat_plain(*args),
+        touched + a_hi * 12 + 12 + P * (36 + 24 + 4),
+        P * a_hi * APPROX_FLOPS)
+    say(f"  K12: {P} pairs x {a_hi} anchors, {int(edge.sum())} pairs on a "
+        f".5 edge, {int((r1 != r2).sum())} differ")
+    del args, r1, r2, f1
+
+    # K14: the first round's selection equal, and its candidates those of
+    # engine/cluster.filter_pairs. Work: per scanned row its RMSD to every
+    # cluster founded before it (R2_FLOPS float64 flops each); the rows
+    # read, the selection written.
+    n_samples = cfg.filter.n_samples * N_COPIES
+    table = em.match_descriptors(m, s, dmap.shape, dmap.origin, dmap.voxsp,
+                                 mc, min_exact=n_samples, device=device)
+    n = min(n_samples, table.n)
+    X = table.hi_cloud
+    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a, dtype=dt),
+                                        device=device)
+    fc = cfg.filter
+    args = (put(table.rot[:n], np.float32),
+            put(table.hi_coord[:n], np.float64),
+            put(table.lo_coord[:n], np.float64),
+            put(table.repeat[:n], np.float32), put(X.mean(axis=0), np.float64),
+            put((X.T @ X) / X.shape[0], np.float64), fc.rmsd_cloud,
+            fc.weight_threshold,
+            cluster.gate_threshold(table.repeat[0], fc.min_repeat,
+                                   fc.repeat_frac))
+    c1, c2 = cluster.cluster_select(*args), cluster.cluster_select_plain(*args)
+    check(torch.equal(c1, c2), "K14 selection differs from the plain version")
+    hb, lb = s.main_bin[table.hi_idx], m.main_bin[table.lo_idx]
+    got = cluster_candidates(table, hb, lb, fc, n_samples, device)
+    want = filter_pairs(table, hb, lb, fc, n_samples)
+    check([(c.weight, c.repeat, c.score) for c in got]
+          == [(c.weight, c.repeat, c.score) for c in want]
+          and all(np.array_equal(a.lo_coord, b.lo_coord)
+                  for a, b in zip(got, want)),
+          "K14 candidates differ from engine/cluster.filter_pairs")
+    _assign, found, _w, _c, n_cands = cluster.split_selection(
+        c1.cpu().numpy(), n)
+    founded_before = np.searchsorted(found, np.arange(n))   # found ascends
+    out["cluster_select"] = measure(
+        0.0, lambda: cluster.cluster_select(*args),
+        lambda: cluster.cluster_select_plain(*args),
+        n * (36 + 48 + 4) + 8 * 12 + (4 * n + 2) * 4,
+        int(founded_before.sum()) * R2_FLOPS, peak_ops=PEAK_F64_S)
+    say(f"  K14: {n} rows, {len(found)} clusters, {n_cands} candidates, "
+        f"equal to filter_pairs")
+    return out
+
+
+def approx_edges(field, hi_cloud, origin, inv, rot, hi, lo, chunk=1024):
+    """Per pair, whether a moved anchor lies within K12_EDGE voxel of a
+    .5 rounding edge (float64), and the number of distinct in-grid voxels
+    the pairs look up."""
+    import torch
+    dims = torch.as_tensor(field.shape, device=field.device)
+    seen = torch.zeros(field.numel(), dtype=torch.bool, device=field.device)
+    edge = []
+    for s0 in range(0, rot.shape[0], chunk):
+        x = hi_cloud.double()[None] - hi[s0:s0 + chunk, None].double()
+        y = (torch.einsum("pad,ped->pae", x, rot[s0:s0 + chunk].double())
+             + lo[s0:s0 + chunk, None].double())
+        v = (y - origin.double()) * inv
+        edge.append(((v - torch.floor(v) - 0.5).abs() < K12_EDGE)
+                    .any(dim=(1, 2)))
+        vox = torch.round(v).long().reshape(-1, 3)
+        vox = vox[((vox >= 0) & (vox < dims)).all(dim=1)]
+        seen[(vox[:, 0] * dims[1] + vox[:, 1]) * dims[2] + vox[:, 2]] = True
+    return torch.cat(edge), int(seen.sum())
 
 
 def orient_check(fit, cfg, device):
@@ -982,25 +1160,26 @@ def main():
     say(f"{len(models)} model(s); first {models[0].components}, CCC "
         f"{models[0].ccc:.6f}, max overlap {models[0].max_overlap:.6f}")
 
-    # The fit once more with K6 and K15's plain versions swapped in.
+    # The fit once more with the plain versions of K6, K15 and the
+    # matching front swapped in.
     plain_fit_t = {}
     before = launch_counts()
-    with plain_versions(orient_refine_swaps()):
+    swapped = swapped_kernels(fit_swaps())
+    with plain_versions(fit_swaps()):
         t0 = time.perf_counter()
         pf = run_fit(device, plain_fit_t, cfg)
         torch.cuda.synchronize()
         plain_total = time.perf_counter() - t0
     after = launch_counts()
-    check(after["orient"] == before["orient"]
-          and after["refine"] == before["refine"],
-          "K6 or K15 launched with its plain version swapped in")
+    check(all(after[k] == before[k] for k in swapped),
+          "a swapped kernel launched with its plain version swapped in")
     p_found = int(np.sum(np.asarray(best_rmsds(
         [s.structure for s in pf["sols"]], pf["copies"])) < RECOVER_RMSD))
     check(p_found >= MIN_RECOVERED,
-          f"with plain K6 / K15 only {p_found}/{N_COPIES} recovered")
-    say(f"fit with K6 / K15 kernels {total:.3f} s, with their plain "
-        f"versions {plain_total:.3f} s ({p_found}/{N_COPIES} recovered); "
-        "stages (s) kernel / plain: " + ", ".join(
+          f"with the plain versions only {p_found}/{N_COPIES} recovered")
+    say(f"fit with the kernels {total:.3f} s, with the plain versions of "
+        f"{', '.join(swapped)} {plain_total:.3f} s ({p_found}/{N_COPIES} "
+        "recovered); stages (s) kernel / plain: " + ", ".join(
             f"{k} {timings[k]:.4f} / {plain_fit_t.get(k, 0.0):.4f}"
             for k in timings))
     del pf

@@ -19,3 +19,25 @@ __device__ __forceinline__ float add_rn(float a, float b) {
 
 // float32 of 2*pi, as the JAX and PyTorch code adds it to atan2 angles.
 #define MAD_TWO_PI_F 6.28318530717958647692f
+
+// Ascending bitonic sort of S (a power of two) keys in shared memory by
+// the whole block; ends with a barrier.
+__device__ __forceinline__ void mad_bitonic_sort(unsigned long long* keys,
+                                                 int S) {
+  for (int size = 2; size <= S; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < S; i += blockDim.x) {
+        const int j = i ^ stride;
+        if (j > i) {
+          const unsigned long long a = keys[i], b = keys[j];
+          const bool up = (i & size) == 0;
+          if ((a > b) == up) {
+            keys[i] = b;
+            keys[j] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}

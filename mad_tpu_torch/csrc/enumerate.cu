@@ -40,26 +40,6 @@ __device__ __forceinline__ unsigned long long pack_key(float v, int r) {
          | static_cast<unsigned>(r);
 }
 
-// Ascending bitonic sort of S (a power of two) keys in shared memory.
-__device__ void bitonic_sort(unsigned long long* keys, int S) {
-  for (int size = 2; size <= S; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < S; i += blockDim.x) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const unsigned long long a = keys[i], b = keys[j];
-          const bool up = (i & size) == 0;
-          if ((a > b) == up) {
-            keys[i] = b;
-            keys[j] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
 // The block's smallest `head` keys of src(r), r in its share of [0, total),
 // written sorted to out (kNone where there are fewer).
 template <class Source>
@@ -75,7 +55,7 @@ __device__ void block_head(const Source& src, long long total, int head,
       keys[head + i] = r < total ? src(r) : kNone;
     }
     __syncthreads();
-    bitonic_sort(keys, S);
+    mad_bitonic_sort(keys, S);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < head; i += blockDim.x) out[i] = keys[i];

@@ -18,11 +18,12 @@ import numpy as np
 import torch
 from scipy.spatial import cKDTree
 
-from ..core.config import MadConfig
+from ..core.config import FilterConfig, MadConfig
 from ..core.grid import DensityGrid
 from ..core.structure import Structure
 from ..timing import stage
-from .cluster import Candidate, filter_pairs
+from ..kernels.cluster import cluster_select, gate_threshold, split_selection
+from .cluster import Candidate
 from .match import MatchTable, exact_rescore, match_descriptors
 from .pipeline import DescriptorSet
 from .refine import refine_candidates
@@ -49,6 +50,49 @@ def start_poses(candidates: List[Candidate], sub_struct: Structure
     return np.stack([
         (x0 - c.hi_coord) @ c.rot.T + c.lo_coord for c in candidates
     ]).astype(np.float32)
+
+
+def cluster_candidates(table: MatchTable, hi_bins: np.ndarray,
+                       lo_bins: np.ndarray, cfg: FilterConfig,
+                       n_samples: int, device,
+                       best_repeat: float = None) -> List[Candidate]:
+    """engine/cluster.filter_pairs with its scan, weights, gates and
+    candidate order on ``device`` (K14), one pull; the host builds the
+    candidates, members included, from the selection. Same arguments and
+    result as filter_pairs."""
+    if table.n == 0:
+        return []
+    n = min(n_samples, table.n)
+    X = table.hi_cloud
+    mu = X.mean(axis=0)
+    M = (X.T @ X) / X.shape[0]
+    if best_repeat is None:
+        best_repeat = table.repeat[0]
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype),
+                               device=device)
+
+    sel = cluster_select(
+        put(table.rot[:n], np.float32), put(table.hi_coord[:n], np.float64),
+        put(table.lo_coord[:n], np.float64),
+        put(table.repeat[:n], np.float32), put(mu, np.float64),
+        put(M, np.float64), cfg.rmsd_cloud, cfg.weight_threshold,
+        gate_threshold(best_repeat, cfg.min_repeat, cfg.repeat_frac))
+    assign, found, weights, cands, _n = split_selection(sel.cpu().numpy(), n)
+    # each member row: [hi_coord(3), lo_coord(3), hi_bin, lo_bin]
+    rows = np.concatenate([table.hi_coord[:n], table.lo_coord[:n],
+                           hi_bins[:n, None], lo_bins[:n, None]], axis=1)
+    out = []
+    for c in cands:
+        row, w = int(found[c]), int(weights[c])
+        rep = table.repeat[row]
+        out.append(Candidate(
+            hi_coord=table.hi_coord[row], lo_coord=table.lo_coord[row],
+            rot=table.rot[row], cc=float(table.cc[row]), weight=w,
+            repeat=float(rep), score=float(rep * w),
+            members=list(rows[assign == c])))
+    return out
 
 
 def _refine_and_merge(candidates: List[Candidate], solutions: List[Solution],
@@ -159,9 +203,9 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
         return []
 
     with stage(timings, "cluster", device):
-        candidates = filter_pairs(table, sub_set.main_bin[table.hi_idx],
-                                  map_set.main_bin[table.lo_idx], cfg.filter,
-                                  n_samples)
+        candidates = cluster_candidates(
+            table, sub_set.main_bin[table.hi_idx],
+            map_set.main_bin[table.lo_idx], cfg.filter, n_samples, device)
     if verbose:
         print(f"MaD> {len(candidates)} filtered pose candidates")
     if not candidates:
@@ -195,10 +239,10 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
         order = np.argsort(-erep, kind="stable")
         sub_table = table.take(top[order], repeat=erep[order])
         with stage(timings, "cluster", device):
-            cands = filter_pairs(
+            cands = cluster_candidates(
                 sub_table, sub_set.main_bin[sub_table.hi_idx],
                 map_set.main_bin[sub_table.lo_idx], cfg.filter, n_samples,
-                best_repeat=best_repeat)
+                device, best_repeat=best_repeat)
         if not cands:
             break
         n_new = _refine_and_merge(cands, solutions, sub_struct, dmap, table,

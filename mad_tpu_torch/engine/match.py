@@ -6,12 +6,14 @@ Replaces MaD._match_dsc (mad/MaD.py:414-453):
     matrix product;
   * pairs above cc_threshold, at most ``row_cap`` per subunit row and
     ``max_pairs`` overall, in the order of mad_tpu's per-row + global
-    top_k (value descending, ties by subunit row then map column);
+    top_k (value descending, ties by subunit row then map column): K10's
+    head;
   * per pair, relative pose R = R_lo^T @ R_hi and repeatability = % of the
     subunit's unique anchor cloud landing within ``anchor_dist`` of a map
     anchor after the pose: an approximate score for every pair from a
-    dilated occupancy field of the map anchors, then exact nearest-neighbour
-    scores (kernel K13) for the top pairs the clustering consumes.
+    dilated occupancy field of the map anchors (K11, K12), then exact
+    nearest-neighbour scores (K13) for the top pairs the clustering
+    consumes.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ import numpy as np
 import torch
 
 from ..core.config import MatchConfig, bucket
-from ..core.geometry import rows_times
+from ..kernels.approx import approx_repeat
+from ..kernels.field import anchor_field
+from ..kernels.pairs import pair_head, split_pair_keys
 from ..kernels.repeat import exact_repeat
 from .pipeline import DescriptorSet
 
@@ -59,34 +63,15 @@ class MatchTable:
             hi_cloud=self.hi_cloud, lo_cloud=self.lo_cloud)
 
 
-def similarity_pairs(hi: torch.Tensor, lo: torch.Tensor, row_cap: int,
-                     max_pairs: int, threshold: float):
-    """Pairs (ccs, rows, cols) with cosine > threshold, as mad_tpu's
-    per-row top-``row_cap`` then global top-``max_pairs`` selects them:
-    ordered by value descending, ties by (row, column)."""
-    sim = hi @ lo.T
-    r, c = torch.nonzero(sim > threshold, as_tuple=True)   # row-major
-    v = sim[r, c]
-    # rank within each row by (value desc, column asc)
-    o = torch.sort(v, descending=True, stable=True).indices
-    o = o[torch.sort(r[o], stable=True).indices]
-    rr = r[o]
-    start = torch.searchsorted(rr, rr, right=False)
-    rank = torch.arange(rr.shape[0], device=rr.device) - start
-    sel = o[rank < min(row_cap, lo.shape[0])]      # (row, rank) order
-    g = torch.sort(v[sel], descending=True, stable=True).indices[:max_pairs]
-    sel = sel[g]
-    return (v[sel].cpu().numpy(), r[sel].cpu().numpy(),
-            c[sel].cpu().numpy())
-
-
 def match_pairs(map_set: DescriptorSet, sub_set: DescriptorSet,
                 cfg: MatchConfig) -> Optional[dict]:
-    """Similarity stage + host pose data (mad/MaD.py:414-438); None when
-    no pair clears the threshold."""
-    ccs, rows, cols = similarity_pairs(
-        sub_set.desc_norm, map_set.desc_norm, cfg.row_cap, cfg.max_pairs,
-        float(cfg.cc_threshold))
+    """Similarity stage + host pose data (mad/MaD.py:414-438): the cosine
+    product (torch.matmul), the pair head (K10's head) and its one pull;
+    None when no pair clears the threshold."""
+    sim = sub_set.desc_norm @ map_set.desc_norm.T
+    keys = pair_head(sim, cfg.row_cap, cfg.max_pairs,
+                     float(cfg.cc_threshold))
+    ccs, rows, cols = split_pair_keys(keys.cpu().numpy(), sim.shape[1])
     if len(rows) == 0:
         return None
     hi_cloud = np.unique(sub_set.subv_coords[rows], axis=0)
@@ -100,46 +85,14 @@ def match_pairs(map_set: DescriptorSet, sub_set: DescriptorSet,
                 hi_cloud=hi_cloud, lo_cloud=lo_cloud)
 
 
-def sphere_offsets(r: int) -> np.ndarray:
-    g = np.mgrid[-r:r + 1, -r:r + 1, -r:r + 1]
-    return np.argwhere(np.sum(g * g, axis=0) <= r * r) - r
-
-
-def anchor_field(shape, lo_vox: torch.Tensor, radius_vox: int
-                 ) -> torch.Tensor:
-    """int8 occupancy of the map anchors dilated by a voxel sphere
-    (mad_tpu/engine/match.py:94-117): one sphere scattered per anchor."""
-    offs = torch.as_tensor(sphere_offsets(radius_vox), device=lo_vox.device)
-    pts = (lo_vox[:, None, :] + offs[None]).reshape(-1, 3)
-    dims = torch.as_tensor(shape, device=lo_vox.device)
-    pts = pts[((pts >= 0) & (pts < dims)).all(dim=1)]
-    field = torch.zeros(tuple(shape), dtype=torch.int8, device=lo_vox.device)
-    field[pts[:, 0], pts[:, 1], pts[:, 2]] = 1
-    return field
-
-
-def approx_repeat(field: torch.Tensor, hi_cloud: torch.Tensor,
-                  origin: torch.Tensor, inv_voxsp: float, rot: torch.Tensor,
-                  hi: torch.Tensor, lo: torch.Tensor, chunk: int = 256
-                  ) -> torch.Tensor:
-    """Per pair: % of the moved subunit cloud whose nearest voxel is in
-    the dilated field (mad_tpu/engine/match.py:126-155)."""
-    shape = torch.as_tensor(field.shape, device=field.device)
-    denom = max(hi_cloud.shape[0], 1)
-    inv = torch.tensor(inv_voxsp, dtype=torch.float32, device=field.device)
-    out = torch.empty(rot.shape[0], dtype=torch.float32, device=field.device)
-    for s in range(0, rot.shape[0], chunk):
-        R, h, l = rot[s:s + chunk], hi[s:s + chunk], lo[s:s + chunk]
-        # (x - h) @ R^T + l, the pose convention of the start coordinates
-        pts = rows_times(hi_cloud[None] - h[:, None],
-                         R.transpose(1, 2)) + l[:, None]
-        vox = torch.round((pts - origin) * inv).to(torch.int64)
-        inb = ((vox >= 0) & (vox < shape)).all(dim=-1)
-        vox = torch.minimum(torch.clamp(vox, min=0), shape - 1)
-        hit = field[vox[..., 0], vox[..., 1], vox[..., 2]] > 0
-        cnt = (hit & inb).sum(dim=-1).to(torch.float32)
-        out[s:s + chunk] = 100.0 * cnt / torch.full_like(cnt, denom)
-    return out
+def anchor_voxels(lo_cloud: np.ndarray, grid_origin, voxsp: float,
+                  grid_shape) -> np.ndarray:
+    """(A_lo, 3) int32 voxel of each map anchor, clipped to the grid (the
+    field's input, mad_tpu/engine/match.py:366-368)."""
+    origin32 = np.asarray(grid_origin, dtype=np.float32)
+    return np.clip(np.round(
+        (lo_cloud.astype(np.float32) - origin32) / voxsp).astype(np.int64),
+        0, np.asarray(grid_shape) - 1).astype(np.int32)
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -173,18 +126,14 @@ def match_descriptors(map_set: DescriptorSet, sub_set: DescriptorSet,
                                pairs["lo_coord"])
     hi_cloud, lo_cloud = pairs["hi_cloud"], pairs["lo_cloud"]
 
-    # Stage A: approximate repeatability of every pair.
-    origin32 = np.asarray(grid_origin, dtype=np.float32)
+    # Stage A: approximate repeatability of every pair (K11, K12).
     r_vox = max(1, int(round(cfg.anchor_dist / voxsp)))
-    lo_vox = np.clip(np.round(
-        (lo_cloud.astype(np.float32) - origin32) / voxsp).astype(np.int64),
-        0, np.asarray(grid_shape) - 1)
-    field = anchor_field(tuple(grid_shape), torch.as_tensor(
-        lo_vox, device=device), r_vox)
+    field = anchor_field(tuple(grid_shape), torch.as_tensor(anchor_voxels(
+        lo_cloud, grid_origin, voxsp, grid_shape), device=device), r_vox)
     hi_cloud_d, lo_cloud_d = _f32(hi_cloud, device), _f32(lo_cloud, device)
     rot_d, hc_d, lc_d = (_f32(rot, device), _f32(hi_coord, device),
                          _f32(lo_coord, device))
-    rep = approx_repeat(field, hi_cloud_d, _f32(origin32, device),
+    rep = approx_repeat(field, hi_cloud_d, _f32(grid_origin, device),
                         float(np.float32(1.0 / voxsp)), rot_d, hc_d,
                         lc_d).cpu().numpy()
 

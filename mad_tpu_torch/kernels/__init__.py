@@ -7,8 +7,8 @@ sources are in ``mad_tpu_torch/csrc`` and build on first use
 (:mod:`.build`).
 """
 
-from . import (conv1d, describe, enumerate, hetero, orient, overlap, peaks,
-               refine, repeat, scatter)
+from . import (approx, cluster, conv1d, describe, enumerate, field, hetero,
+               orient, overlap, pairs, peaks, refine, repeat, scatter)
 
 # name -> (wrapper module, CUDA source, the mad_tpu body it replaces)
 KERNELS = {
@@ -18,8 +18,16 @@ KERNELS = {
                           "mad_tpu/ops/detect.py:190"),
     "descriptor_hist": (describe, "mad_tpu_torch/csrc/describe.cu",
                         "mad_tpu/ops/describe.py:79"),
+    "pair_head": (pairs, "mad_tpu_torch/csrc/pairs.cu",
+                  "mad_tpu/engine/match.py:74"),
+    "anchor_field": (field, "mad_tpu_torch/csrc/field.cu",
+                     "mad_tpu/engine/match.py:94"),
+    "approx_repeat": (approx, "mad_tpu_torch/csrc/approx.cu",
+                      "mad_tpu/engine/match.py:126"),
     "exact_repeat": (repeat, "mad_tpu_torch/csrc/repeat.cu",
                      "mad_tpu/engine/match.py:176"),
+    "cluster_select": (cluster, "mad_tpu_torch/csrc/cluster.cu",
+                       "mad_tpu/engine/dock_fused.py:50"),
     "scatter_atoms": (scatter, "mad_tpu_torch/csrc/scatter.cu",
                       "mad_tpu/ops/simulate.py:78"),
     "pack_overlap": (overlap, "mad_tpu_torch/csrc/overlap.cu",

@@ -26,6 +26,7 @@ import time
 from pathlib import Path
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+SMEM_LIMIT = 232448     # bytes of shared memory a block may use (sm_90)
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -34,6 +35,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 _L = ctypes.c_longlong
 
 # C signatures of the exported launchers (csrc/*.cu, extern "C").
@@ -55,6 +57,12 @@ SIGNATURES = {
                    _P, _I, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
     "mad_refine": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _F,
                    _P, _P, _P, _P, _P, _P, _P],
+    "mad_pair_head": [_P, _I, _I, _I, _F, _L, _P, _P, _P, _P],
+    "mad_anchor_field": [_P, _I, _I, _I, _I, _I, _P, _P],
+    "mad_approx_repeat": [_P, _I, _I, _I, _P, _I, _P, _F, _P, _P, _P, _I,
+                          _P, _P],
+    "mad_cluster_select": [_P, _P, _P, _P, _P, _P, _I, _D, _I, _D, _I, _P,
+                           _P, _P, _P],
 }
 
 _lock = threading.Lock()

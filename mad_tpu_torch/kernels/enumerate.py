@@ -26,7 +26,6 @@ from . import build
 
 launches = 0            # kernel launches since the last reset
 
-SMEM_LIMIT = 232448     # bytes of shared memory a block may use (sm_90)
 MAX_RANKS = 2 ** 31 - 1
 
 
@@ -69,9 +68,9 @@ def plan(total: int, head: int, fixed_smem: int, device):
     if head < 1:
         raise ValueError("head must be >= 1")
     S = max(2048, 1 << (2 * head - 1).bit_length())
-    if S * 8 + fixed_smem > SMEM_LIMIT:
+    if S * 8 + fixed_smem > build.SMEM_LIMIT:
         raise ValueError(f"head {head} needs {S * 8 + fixed_smem} bytes of "
-                         f"shared memory, more than {SMEM_LIMIT}")
+                         f"shared memory, more than {build.SMEM_LIMIT}")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     blocks = max(1, min(-(-total // (S - head)), 2 * sms))
     return S, blocks

@@ -5,7 +5,8 @@ Synthetic pseudo-proteins (ideal alpha-helix backbones bent by a random
 walk) and homomultimer assemblies for tests and the chip smoke run, plus
 the self-fit decoy transform. ``near_isovalue``, ``overlap_slack`` and
 ``overlap_tolerance`` are the port's own: the bound that two computations
-of one solution set's overlap matrix are held to.
+of one solution set's overlap matrix are held to; so is ``pose_table``, a
+synthetic match table for the pose clustering.
 """
 
 from __future__ import annotations
@@ -188,3 +189,48 @@ def ca_rmsds(a: np.ndarray, b: np.ndarray, ca_idx) -> np.ndarray:
     d = np.asarray(a, np.float64)[:, ca_idx] - np.asarray(b, np.float64)[
         :, ca_idx]
     return np.sqrt((d * d).sum(-1).mean(-1))
+
+
+def _rotations(rng, n: int) -> np.ndarray:
+    """(n, 3, 3) float64 rotations from random unit quaternions."""
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    return np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+        2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+        2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+        -1).reshape(n, 3, 3)
+
+
+def pose_table(n: int, n_centers: int, seed: int, a_hi: int = 32,
+               spread: float = 40.0, noise: float = 0.05) -> dict:
+    """A repeat-ordered match table of n pairs whose poses scatter around
+    n_centers centre poses: pair k moves the subunit cloud by
+    x -> (x - h_k) @ R_k^T + l_k with R_k a centre rotation turned by a
+    random rotation of about ``noise`` rad and l_k chosen so that the
+    moved cloud lies near the centre's translation (within ~``noise`` *
+    10 A). Anchors sit on a 0.25 A lattice; repeats are 100 k / a_hi,
+    descending. Returns the MatchTable fields as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    hi_cloud = np.unique(np.round(rng.normal(size=(a_hi, 3)) * 32) / 4,
+                         axis=0)
+    Rc = _rotations(rng, n_centers)
+    tc = rng.normal(size=(n_centers, 3)) * spread
+    k = rng.integers(0, n_centers, n)
+    tilt = _rotations(rng, n)
+    # a small turn: the identity pulled toward a random rotation
+    small = np.eye(3) + noise * (tilt - np.transpose(tilt, (0, 2, 1))) / 2
+    u, _s, vt = np.linalg.svd(small)
+    rot = (Rc[k] @ (u @ vt)).astype(np.float32)
+    hi = hi_cloud[rng.integers(0, hi_cloud.shape[0], n)]
+    lo = (np.einsum("pd,ped->pe", hi, rot.astype(np.float64)) + tc[k]
+          + rng.normal(size=(n, 3)) * noise * 10)
+    lo = np.round(lo * 4) / 4
+    counts = np.sort(rng.integers(1, hi_cloud.shape[0] + 1, n))[::-1]
+    repeat = (100.0 * counts / hi_cloud.shape[0]).astype(np.float32)
+    lo_cloud = np.unique(lo, axis=0)
+    return dict(cc=rng.uniform(0.6, 1.0, n).astype(np.float32),
+                repeat=repeat, hi_idx=np.arange(n), lo_idx=np.arange(n),
+                rot=rot, hi_coord=hi, lo_coord=lo, hi_cloud=hi_cloud,
+                lo_cloud=lo_cloud)
