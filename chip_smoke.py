@@ -21,28 +21,38 @@ Phases, each of which raises (non-zero exit) when it fails:
      patch sizes 12 and 24 and with a Gaussian window, each launched
      twice; K15 on the first-round candidates; the matching front on the
      bench's pairs: K10's head, K11 and K14 equal, K12 equal except pairs
-     with a moved anchor within 1e-4 voxel of a .5 rounding edge, counted),
-     both timed with CUDA events, beside the one PyTorch call that computes
-     the same function where there is one (K10's head: torch.topk per row,
-     then over the flat heads), and the kernel's bound: the larger of the
-     bytes it must move over 3.35 TB/s and the operations it does over
-     67 TFLOP/s (float32, no tensor cores; K14's over 34 TFLOP/s, float64);
+     with a moved anchor within 1e-4 voxel of a .5 rounding edge, counted;
+     the describe stage's K2 (the three axes of the upsample), K3 (the
+     upsampled Gaussian volume, float32 and bfloat16), K5 (the LoG volumes
+     of both map octaves with K4's seeds) and K8 (the map's two octave
+     tables and keep indices) bit for bit, at the inputs a describe_grid
+     of the bench map gives them), both timed with CUDA events, beside the
+     one PyTorch call that computes the same function where there is one
+     (K10's head: torch.topk per row, then over the flat heads; K3:
+     torch.gradient; K8: F.normalize of the gathered rows), and the
+     kernel's bound: the larger of the bytes it must move over 3.35 TB/s
+     and the operations it does over 67 TFLOP/s (float32, no tensor cores;
+     K14's over 34 TFLOP/s, float64); then describe_grid on the bench map
+     with the kernels and with the plain versions of K2, K3, K5 and K8
+     must give the same DescriptorSet (desc, desc_norm, coords,
+     subv_coords, rfinal) bit for bit;
   5. timed pass of the main path (after one more warm pass) with every
      launch counter reset first;
      fails unless every kernel of the path launched, the solutions are
      finite, at least 9 of 10 copies are recovered (best CA-RMSD < 10 A)
      and at least one model comes back, with a finite CCC, its first
      model made of 10 distinct solutions; then the fit once more with the
-     plain versions of K6, K15 and the matching front (K10's head, K11,
-     K12, K14) swapped in (stage seconds side by side), which must recover
-     as many copies;
+     plain versions of K2, K3, K5, K6, K8, K15 and the matching front
+     (K10's head, K11, K12, K14) swapped in (stage seconds side by side),
+     which must recover as many copies;
   6. the same assembly on the same solutions with the plain versions
      swapped in on the card: the same tuples and model components, model
      CCCs within 1e-5, the overlap within its tolerance (K9's atomics
      round in another order: testing.overlap_tolerance);
   7. the MaD session: the bench map and subunit written to a fresh
      workdir, add_map / add_subunit(n_copies=10) / run(transform_subunits)
-     / build_assembly on the card; K6 and K15 must launch, >= 9/10 copies
+     / build_assembly on the card; K2, K3, K5, K6, K8 and K15 must
+     launch in its first run, >= 9/10 copies
      come back in the written sol_*.pdb files, one Solutions_refined CSV
      row per solution, model artifacts; a second run() must load the
      dsc_db and pose_db caches and give the same solutions;
@@ -81,6 +91,8 @@ K6_AGREE, K6_RFINAL_TOL = 0.99, 1e-6   # anchors agreeing, frame max diff
 K6_SETTINGS = ((12, 0.0), (24, 0.0), (16, 3.0))
 K15_MEDIAN = 0.05               # A, median CA-RMSD kernel vs plain
 REFINE_FLOPS = 160              # K15 flops per atom and step (both passes)
+NEWTON_FLOPS = 120              # K5 flops per peak and active Newton step
+SADDLE_FLOPS = 30               # K5 flops per peak of the saddle test
 R2_FLOPS = 102                  # K14 float64 flops per (row, cluster) RMSD
 APPROX_FLOPS = 20               # K12 flops per moved, rounded anchor
 K12_EDGE = 1e-4                 # voxel, K12's .5 rounding edge
@@ -89,6 +101,9 @@ K12_EDGE = 1e-4                 # voxel, K12's .5 rounding edge
 # bound.
 PEAK_BYTES_S, PEAK_F32_S, PEAK_F64_S = 3.35e12, 67e12, 34e12
 ASSEMBLY_STAGES = ("overlap", "enumerate", "score_models")
+# kernels the session's first run must launch (K2, K3, K5, K6, K8, K15)
+SESSION_KERNELS = ("upsample_axis", "gradient", "localize", "orient",
+                   "gather_norm", "refine")
 
 
 class SmokeFailure(RuntimeError):
@@ -231,9 +246,26 @@ def match_swaps():
             (docking, "cluster_select", cluster.cluster_select_plain)]
 
 
+def describe_swaps():
+    """The plain PyTorch versions of the describe stage's K2, K3, K5 and K8
+    at each of their call sites (the refinement's map field and the cache
+    loader's unit rows included)."""
+    from mad_tpu_torch import convert
+    from mad_tpu_torch.engine import pipeline, refine
+    from mad_tpu_torch.kernels import (gather_norm as k8, gradient as k3,
+                                       localize as k5, upsample as k2)
+    from mad_tpu_torch.ops import convolve, detect
+    return [(convolve, "upsample_axis", k2.upsample_axis_plain),
+            (pipeline, "gradient", k3.gradient_plain),
+            (refine, "gradient", k3.gradient_plain),
+            (detect, "localize", k5.localize_plain),
+            (pipeline, "gather_norm", k8.gather_norm_plain),
+            (convert, "gather_norm", k8.gather_norm_plain)]
+
+
 def fit_swaps():
     """The plain versions that the fit-level comparison swaps in."""
-    return orient_refine_swaps() + match_swaps()
+    return orient_refine_swaps() + match_swaps() + describe_swaps()
 
 
 def swapped_kernels(swaps):
@@ -449,7 +481,169 @@ def kernel_checks(fit, cfg, device):
     out.update(assembly_kernel_checks(fit, cfg, device))
     out["orient"] = orient_check(fit, cfg, device)
     out["refine"] = refine_check(fit, cfg, device)
+    out.update(describe_checks(fit, cfg, device))
     return out
+
+
+def describe_checks(fit, cfg, device):
+    """K2, K3, K5 and K8 against their plain versions, bit for bit, at the
+    inputs that a describe_grid of the bench map gives them; then that
+    describe_grid with the kernels and with describe_swaps() must give the
+    same DescriptorSet."""
+    import torch
+    import torch.nn.functional as F
+    from mad_tpu_torch.engine import pipeline
+    from mad_tpu_torch.kernels import (gather_norm as k8, gradient as k3,
+                                       localize as k5, upsample as k2)
+    from mad_tpu_torch.ops import detect
+    from mad_tpu_torch.ops.scalespace import iter_octaves
+    from mad_tpu_torch.testing import recording
+    out = {}
+    dmap = fit["dmap"]
+    t0 = time.perf_counter()
+    with recording(pipeline, "gradient") as grads, \
+            recording(detect, "localize") as newton, \
+            recording(pipeline, "gather_norm") as gathers:
+        a = pipeline.describe_grid(dmap, cfg, name="bench_map",
+                                   device=device)
+        torch.cuda.synchronize()
+    t_kernels = time.perf_counter() - t0
+
+    # K2: the three axes of the upsample, each on the last one's output.
+    # Work per axis: the input read and the output written once, 7 flops
+    # per half sample.
+    up = next(o for _org, o in iter_octaves(dmap, cfg.scalespace)
+              if o.upsampled)
+    vols = [up.base]
+    for axis in range(3):
+        vols.append(k2.upsample_axis(vols[-1], axis))
+        check(torch.equal(vols[-1], k2.upsample_axis_plain(vols[-2], axis)),
+              f"K2 differs from the plain version on axis {axis}")
+    check(tuple(vols[-1].shape) == up.real_shape, "K2 output shape")
+    nbytes = sum(4 * (vols[i].numel() + vols[i + 1].numel())
+                 for i in range(3))
+    ops = sum(7 * (vols[i + 1].numel() - vols[i].numel()) for i in range(3))
+
+    def three(f):
+        v = up.base
+        for axis in range(3):
+            v = f(v, axis)
+    out["upsample_axis"] = measure(0.0, lambda: three(k2.upsample_axis),
+                                   lambda: three(k2.upsample_axis_plain),
+                                   nbytes, ops)
+    say(f"  K2: {tuple(up.base.shape)} -> {tuple(vols[-1].shape)}, equal")
+    del vols
+
+    # K3: the upsampled octave's Gaussian volume (the path's first call),
+    # float32 as on the bench path and bfloat16 as above the 250 M voxel
+    # gate. Work: the volume read once, the field written, 2 flops a
+    # component; library: torch.gradient, stacked (and cast).
+    gauss = grads[0][0]
+    V = gauss.numel()
+    for dtype in (torch.float32, torch.bfloat16):
+        check(torch.equal(k3.gradient(gauss, dtype),
+                          k3.gradient_plain(gauss, dtype)),
+              f"K3 {dtype} differs from the plain version")
+        r = measure(0.0, lambda: k3.gradient(gauss, dtype),
+                    lambda: k3.gradient_plain(gauss, dtype),
+                    4 * V + 3 * V * (4 if dtype == torch.float32 else 2),
+                    6 * V, lambda: torch.stack(torch.gradient(gauss),
+                                               -1).to(dtype))
+        say(f"  K3 {dtype}: {tuple(gauss.shape)}, equal; kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, torch.gradient "
+            f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms")
+        if dtype == torch.float32:
+            out["gradient"] = r
+    del grads, gauss
+
+    # K5: both octaves' LoG volumes with K4's seeds; times and work summed
+    # over the two. Work: the active Newton steps of this run's peaks and
+    # the distinct voxels their patches read (newton_work).
+    total = dict(ms=0.0, plain_ms=0.0)
+    nbytes = ops = 0
+    for args in newton:
+        got, ref = k5.localize(*args), k5.localize_plain(*args)
+        check(all(torch.equal(x, y) for x, y in zip(got, ref)),
+              "K5 differs from the plain version")
+        K = args[1].shape[0]
+        steps, voxels = newton_work(*args)
+        nbytes += 4 * voxels + K * (24 + 24 + 12 + 1)
+        ops += steps * NEWTON_FLOPS + K * SADDLE_FLOPS
+        r = measure(0.0, lambda: k5.localize(*args),
+                    lambda: k5.localize_plain(*args), 0, 0)
+        total["ms"] += r["ms"]
+        total["plain_ms"] += r["plain_ms"]
+        say(f"  K5: {K} peaks on {tuple(args[0].shape)}, {steps} Newton "
+            f"steps, {int(got[2].sum())} good, equal")
+    out["localize"] = dict(max_abs_err=0.0, library_ms=None,
+                           **total, **bound(nbytes, ops))
+    del newton
+
+    # K8: the map's two octave tables and keep indices. Work: the kept rows
+    # read, the int16 and float32 rows written, the indices read, 3 flops a
+    # bin; library: F.normalize of the gathered rows.
+    (tables, keeps), = gathers
+    got, ref = k8.gather_norm(tables, keeps), k8.gather_norm_plain(tables,
+                                                                   keeps)
+    check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+          "K8 rows differ from the plain version")
+    N, D = got[0].shape
+    out["gather_norm"] = measure(
+        0.0, lambda: k8.gather_norm(tables, keeps),
+        lambda: k8.gather_norm_plain(tables, keeps),
+        N * D * (2 + 2 + 4) + N * 8, 3 * N * D,
+        lambda: F.normalize(torch.cat([t[k] for t, k in zip(tables, keeps)])
+                            .float(), dim=1))
+    say(f"  K8: {N} rows of {D} from {[t.shape[0] for t in tables]} lanes, "
+        f"equal")
+    del gathers, tables, keeps, got, ref
+
+    t0 = time.perf_counter()
+    with plain_versions(describe_swaps()):
+        b = pipeline.describe_grid(dmap, cfg, name="bench_map",
+                                   device=device)
+        torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    check(a.n == b.n and torch.equal(a.desc, b.desc)
+          and torch.equal(a.desc_norm, b.desc_norm)
+          and all(np.array_equal(getattr(a, k), getattr(b, k))
+                  for k in ("coords", "subv_coords", "rfinal")),
+          "describe_grid differs with the plain versions of K2, K3, K5, K8")
+    say(f"  describe_grid of the bench map: {a.n} rows, the same with the "
+        f"kernels ({t_kernels:.4f} s) and with the plain versions of K2, "
+        f"K3, K5, K8 ({t_plain:.4f} s)")
+    return out
+
+
+def newton_work(vol, seeds, real_shape, max_offset, n_iter):
+    """The Newton steps that this run's peaks take (a peak stops once it
+    is accepted or bad) and the distinct voxels their patches read: the
+    work of K5's function on these peaks. Walks as localize_plain."""
+    import torch
+    from mad_tpu_torch.kernels.localize import _PATCH, _hessian_grad, _inv3
+    K = seeds.shape[0]
+    X, Y, Z = vol.shape
+    rs = torch.as_tensor(real_shape, device=vol.device)
+    pos = seeds.clone()
+    frozen = torch.zeros(K, dtype=torch.bool, device=vol.device)
+    steps, ids = 0, []
+    for _ in range(n_iter):
+        steps += int((~frozen).sum())
+        p = pos[:, None, :] + _PATCH.to(vol.device)[None]
+        ids.append((((p[..., 0] % X) * Y + p[..., 1] % Y) * Z
+                    + p[..., 2] % Z)[~frozen].reshape(-1))
+        Hn, G = _hessian_grad(vol[p[..., 0], p[..., 1], p[..., 2]]
+                              .reshape(K, 3, 3, 3))
+        Hinv, ok = _inv3(Hn)
+        off = -(Hinv[..., 0] * G[:, 0:1] + Hinv[..., 1] * G[:, 1:2]
+                + Hinv[..., 2] * G[:, 2:3])
+        acc = (torch.abs(off) < max_offset).all(dim=1) & ok
+        step = (((off < -max_offset) & (pos - 1 > 0)).long() * -1
+                + ((off > max_offset) & (pos + 1 < rs - 1)).long())
+        pos = torch.where((frozen | acc)[:, None], pos, pos + step)
+        frozen = frozen | acc | ~ok
+    distinct = int(torch.unique(torch.cat(ids)).numel()) if ids else 0
+    return steps, distinct
 
 
 def match_kernel_checks(fit, cfg, device):
@@ -996,10 +1190,11 @@ def session_phase(device, cfg, fit):
             f"{secs[0]:.3f} s, cached run {secs[1]:.3f} s; "
             f"{len(files)} sol_*.pdb, {found}/{N_COPIES} recovered (median "
             f"best CA-RMSD {np.median(rmsds):.3f} A), {len(rows)} CSV rows, "
-            f"{len(models)} models; launches orient {counts['orient']}, "
-            f"refine {counts['refine']}")
-        check(counts["orient"] > 0 and counts["refine"] > 0,
-              f"session: K6 or K15 never launched: {counts}")
+            f"{len(models)} models; launches " + ", ".join(
+                f"{k} {counts[k]}" for k in SESSION_KERNELS))
+        check(all(counts[k] > 0 for k in SESSION_KERNELS),
+              f"session: a kernel of {SESSION_KERNELS} never launched: "
+              f"{counts}")
         check(found >= MIN_RECOVERED,
               f"session: only {found}/{N_COPIES} copies recovered")
         check(len(rows) == len(files) == len(first.solutions["bench_sub"]),
@@ -1160,8 +1355,8 @@ def main():
     say(f"{len(models)} model(s); first {models[0].components}, CCC "
         f"{models[0].ccc:.6f}, max overlap {models[0].max_overlap:.6f}")
 
-    # The fit once more with the plain versions of K6, K15 and the
-    # matching front swapped in.
+    # The fit once more with the plain versions of K2, K3, K5, K6, K8, K15
+    # and the matching front swapped in.
     plain_fit_t = {}
     before = launch_counts()
     swapped = swapped_kernels(fit_swaps())

@@ -15,7 +15,8 @@ from .core.grid import DensityGrid
 from .core.structure import Structure
 from .device import resolve
 from .engine.match import MatchTable
-from .engine.pipeline import DescriptorSet, normalize_rows
+from .engine.pipeline import DescriptorSet
+from .kernels.gather_norm import gather_norm
 
 
 def grid_from_numpy(data, origin, voxsp: float, name: str = "",
@@ -33,12 +34,15 @@ def descriptor_set_from_numpy(desc, coords, map_coords, subv_coords, rfinal,
                               eqsp_size: int = 112, subeqsp_size: int = 16,
                               name: str = "", device="cuda") -> DescriptorSet:
     """Rows of a descriptor table -> DescriptorSet. ``desc`` may carry
-    trailing padding rows; the row count is that of ``coords``."""
+    trailing padding rows; the row count is that of ``coords``. The unit
+    rows come from K8, every row kept."""
     n = int(np.asarray(coords).shape[0])
-    d = torch.tensor(np.asarray(desc)[:n].astype(np.int16),
-                     device=resolve(device))
+    dev = resolve(device)
+    d, unit = gather_norm(
+        [torch.tensor(np.asarray(desc)[:n].astype(np.int16), device=dev)],
+        [torch.arange(n, device=dev)])
     return DescriptorSet(
-        desc=d, desc_norm=normalize_rows(d),
+        desc=d, desc_norm=unit,
         coords=np.asarray(coords, dtype=np.float32),
         map_coords=np.asarray(map_coords, dtype=np.float64),
         subv_coords=np.asarray(subv_coords, dtype=np.float64),

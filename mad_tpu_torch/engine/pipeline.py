@@ -1,9 +1,10 @@
 """Describe pipeline: density grid -> descriptor set (port of
 mad_tpu/engine/pipeline.py, single device).
 
-Per octave: LoG -> anchors (K4 + Newton) -> gradient field -> orientation
--> descriptors (K7) -> kept rows; then the rows of all octaves concatenate
-and L2-normalize (mad/MaD.py:358-368). Every buffer is sized from the real
+Per octave: LoG -> anchors (K4 + K5 Newton) -> gradient field (K3) ->
+orientation (K6) -> descriptors (K7) -> kept lanes; then the kept rows of
+all octaves are gathered, concatenated and L2-normalized in one launch of
+K8 (mad/MaD.py:358-368). Every buffer is sized from the real
 counts of the run, so there are no static frames, overflow redos or
 approximate-peak guards.
 """
@@ -19,6 +20,7 @@ import torch
 from ..core.config import MadConfig
 from ..core.grid import DensityGrid
 from ..core.structure import Structure
+from ..kernels.gather_norm import gather_norm
 from ..ops.describe import describe_anchors
 from ..ops.detect import detect_anchors
 from ..ops.orient import orient_anchors
@@ -71,7 +73,7 @@ class OctaveLanes:
 
 
 def octave_lanes(octv, cfg: MadConfig) -> OctaveLanes:
-    """LoG -> anchors (K4 + Newton) -> gradient field -> orientation."""
+    """LoG -> anchors (K4 + K5) -> gradient field (K3) -> orientation."""
     real = octv.real_shape
     log_vol, gauss = octv.log_gauss()
     anch = detect_anchors(log_vol, real, cfg.detect)
@@ -93,8 +95,9 @@ def octave_lanes(octv, cfg: MadConfig) -> OctaveLanes:
 
 
 def _describe_octave(octv, cfg: MadConfig):
-    """One octave: returns the kept rows' device descriptors and host
-    metadata, with anchor ids local to the octave's detection order."""
+    """One octave: returns its lanes' device descriptor table, the indices
+    of the kept lanes and their host metadata, with anchor ids local to the
+    octave's detection order."""
     lanes = octave_lanes(octv, cfg)
     descs, dok = describe_anchors(
         lanes.grad, lanes.coords, lanes.rfinal,
@@ -104,7 +107,7 @@ def _describe_octave(octv, cfg: MadConfig):
     keep = torch.nonzero(dok).reshape(-1)[: cfg.describe.max_descriptors]
     host = {k: getattr(lanes, k)[keep].cpu().numpy()
             for k in ("coords", "rfinal", "slot", "subvox", "main", "sec")}
-    return descs[keep], host
+    return descs, keep, host
 
 
 def describe_grid(grid: DensityGrid, cfg: MadConfig, name: str = "",
@@ -114,11 +117,12 @@ def describe_grid(grid: DensityGrid, cfg: MadConfig, name: str = "",
     device = torch.device(device) if device is not None else grid.device
     if grid.device != device:
         grid = grid.to(device)
-    rows, descs = [], []
+    rows, tables, keeps = [], [], []
     for oi, (origin, octv) in enumerate(iter_octaves(grid, cfg.scalespace)):
-        d, h = _describe_octave(octv, cfg)
+        table, keep, h = _describe_octave(octv, cfg)
         n = h["coords"].shape[0]
-        descs.append(d)
+        tables.append(table)
+        keeps.append(keep)
         rows.append(dict(
             coords=h["coords"].astype(np.float32),
             map_coords=h["coords"] * octv.voxsp + origin,
@@ -132,22 +136,12 @@ def describe_grid(grid: DensityGrid, cfg: MadConfig, name: str = "",
             sec_bin=h["sec"].astype(np.int32),
         ))
     cat = {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
-    desc = torch.cat(descs).to(torch.int16)
+    desc, desc_norm = gather_norm(tables, keeps)
     return DescriptorSet(
-        desc=desc, desc_norm=normalize_rows(desc), n_rows=desc.shape[0],
+        desc=desc, desc_norm=desc_norm, n_rows=desc.shape[0],
         eqsp_size=cfg.orient.eqsp_size,
         subeqsp_size=cfg.describe.subeqsp_size, name=name or grid.name,
         **cat)
-
-
-def normalize_rows(desc: torch.Tensor) -> torch.Tensor:
-    """Unit rows in float32, zero rows kept (the normalization of
-    mad_tpu/engine/pipeline.py:229-257). Squared counts sum exactly."""
-    norm = desc.to(torch.float32)
-    lens = torch.sqrt((norm * norm).sum(dim=1, keepdim=True))
-    return torch.where(lens > 0, norm / torch.where(lens > 0, lens,
-                                                    torch.ones_like(lens)),
-                       norm)
 
 
 def describe_structure(struct: Structure, resolution: float, voxsp: float,

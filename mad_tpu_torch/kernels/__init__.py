@@ -7,17 +7,31 @@ sources are in ``mad_tpu_torch/csrc`` and build on first use
 (:mod:`.build`).
 """
 
-from . import (approx, cluster, conv1d, describe, enumerate, field, hetero,
-               orient, overlap, pairs, peaks, refine, repeat, scatter)
+from . import (approx, cluster, conv1d, describe, enumerate, field,
+               gather_norm, gradient, hetero, localize, orient, overlap,
+               pairs, peaks, refine, repeat, scatter, upsample)
 
-# name -> (wrapper module, CUDA source, the mad_tpu body it replaces)
+# name -> (wrapper module, CUDA source, the mad_tpu body it replaces), in
+# the order of the bodies' K numbers (ROADMAP Queue 2)
 KERNELS = {
     "conv1d": (conv1d, "mad_tpu_torch/csrc/conv1d.cu",
                "mad_tpu/ops/convolve.py:79"),
+    "upsample_axis": (upsample, "mad_tpu_torch/csrc/upsample.cu",
+                      "mad_tpu/ops/convolve.py:184"),
+    "gradient": (gradient, "mad_tpu_torch/csrc/gradient.cu",
+                 "mad_tpu/ops/scalespace.py:238"),
     "peak_mask_compact": (peaks, "mad_tpu_torch/csrc/peaks.cu",
                           "mad_tpu/ops/detect.py:190"),
+    "localize": (localize, "mad_tpu_torch/csrc/localize.cu",
+                 "mad_tpu/ops/detect.py:125"),
+    "orient": (orient, "mad_tpu_torch/csrc/orient.cu",
+               "mad_tpu/ops/orient.py:212"),
     "descriptor_hist": (describe, "mad_tpu_torch/csrc/describe.cu",
                         "mad_tpu/ops/describe.py:79"),
+    "gather_norm": (gather_norm, "mad_tpu_torch/csrc/gather_norm.cu",
+                    "mad_tpu/engine/pipeline.py:229"),
+    "scatter_atoms": (scatter, "mad_tpu_torch/csrc/scatter.cu",
+                      "mad_tpu/ops/simulate.py:78"),
     "pair_head": (pairs, "mad_tpu_torch/csrc/pairs.cu",
                   "mad_tpu/engine/match.py:74"),
     "anchor_field": (field, "mad_tpu_torch/csrc/field.cu",
@@ -28,18 +42,14 @@ KERNELS = {
                      "mad_tpu/engine/match.py:176"),
     "cluster_select": (cluster, "mad_tpu_torch/csrc/cluster.cu",
                        "mad_tpu/engine/dock_fused.py:50"),
-    "scatter_atoms": (scatter, "mad_tpu_torch/csrc/scatter.cu",
-                      "mad_tpu/ops/simulate.py:78"),
+    "refine": (refine, "mad_tpu_torch/csrc/refine.cu",
+               "mad_tpu/engine/refine.py:63"),
     "pack_overlap": (overlap, "mad_tpu_torch/csrc/overlap.cu",
                      "mad_tpu/engine/assemble.py:123"),
     "enumerate_head": (enumerate, "mad_tpu_torch/csrc/enumerate.cu",
                        "mad_tpu/engine/assemble.py:338"),
     "hetero_head": (hetero, "mad_tpu_torch/csrc/enumerate.cu",
                     "mad_tpu/engine/assemble.py:500"),
-    "orient": (orient, "mad_tpu_torch/csrc/orient.cu",
-               "mad_tpu/ops/orient.py:212"),
-    "refine": (refine, "mad_tpu_torch/csrc/refine.cu",
-               "mad_tpu/engine/refine.py:63"),
 }
 
 

@@ -63,6 +63,11 @@ SIGNATURES = {
                           _P, _P],
     "mad_cluster_select": [_P, _P, _P, _P, _P, _P, _I, _D, _I, _D, _I, _P,
                            _P, _P, _P],
+    "mad_upsample_axis": [_P, _P, _L, _L, _L, _P],
+    "mad_gradient": [_P, _I, _I, _I, _I, _P, _P],
+    "mad_localize": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P,
+                     _P],
+    "mad_gather_norm": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,161 @@
+"""K5: Newton subvoxel localization of LoG peaks, with saddle rejection.
+
+Replaces mad_tpu/ops/detect.py:125-163 (``localize``, with
+``_hessian_grad`` :54-70, ``_inv3`` :73-88 and ``_neg_semidefinite``
+:91-103; parity: mad/Detector.py:66-107). Each peak runs up to ``n_iter``
+Newton steps on the finite-difference Hessian and gradient of the 3x3x3
+patch at its position: an offset component beyond ``max_offset`` walks
+one voxel that way (clamped to the interior of the real extent), all
+components within it accept the peak, a singular Hessian (|det| <= 1e-20)
+marks it bad; an accepted or bad peak is frozen. Accepted peaks whose last
+Hessian has a positive eigenvalue (a saddle) are rejected.
+
+The CUDA kernel ``csrc/localize.cu`` gives one thread to each peak, which
+stops once frozen (nothing it holds changes after that), and rounds every
+product, sum and quotient as :func:`localize_plain` (the batched torch-op
+walk) does, so the two agree bit for bit: one launch in place of ~60 small
+launches per Newton step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+launches = 0            # kernel launches since the last reset
+
+
+def _det3(a: torch.Tensor) -> torch.Tensor:
+    """Cofactor determinant of (..., 3, 3), jnp.linalg.det's 3x3 formula."""
+    return (a[..., 0, 0] * a[..., 1, 1] * a[..., 2, 2]
+            + a[..., 0, 1] * a[..., 1, 2] * a[..., 2, 0]
+            + a[..., 0, 2] * a[..., 1, 0] * a[..., 2, 1]
+            - a[..., 0, 2] * a[..., 1, 1] * a[..., 2, 0]
+            - a[..., 0, 0] * a[..., 1, 2] * a[..., 2, 1]
+            - a[..., 0, 1] * a[..., 1, 0] * a[..., 2, 2])
+
+
+def _hessian_grad(p: torch.Tensor):
+    """Finite-difference Hessian + gradient from (K, 3, 3, 3) patches
+    (parity: mad/Detector.py:66-79)."""
+    c = p[:, 1, 1, 1]
+    xx = p[:, 0, 1, 1] + p[:, 2, 1, 1] - 2 * c
+    yy = p[:, 1, 0, 1] + p[:, 1, 2, 1] - 2 * c
+    zz = p[:, 1, 1, 0] + p[:, 1, 1, 2] - 2 * c
+    xy = 0.25 * ((p[:, 2, 2, 1] - p[:, 2, 0, 1]) - (p[:, 0, 2, 1] - p[:, 0, 0, 1]))
+    xz = 0.25 * ((p[:, 2, 1, 2] - p[:, 2, 1, 0]) - (p[:, 0, 1, 2] - p[:, 0, 1, 0]))
+    yz = 0.25 * ((p[:, 1, 2, 2] - p[:, 1, 2, 0]) - (p[:, 1, 0, 2] - p[:, 1, 0, 0]))
+    H = torch.stack([torch.stack([xx, xy, xz], -1),
+                     torch.stack([xy, yy, yz], -1),
+                     torch.stack([xz, yz, zz], -1)], -2)
+    G = 0.5 * torch.stack([p[:, 2, 1, 1] - p[:, 0, 1, 1],
+                           p[:, 1, 2, 1] - p[:, 1, 0, 1],
+                           p[:, 1, 1, 2] - p[:, 1, 1, 0]], -1)
+    return H, G
+
+
+def _inv3(H: torch.Tensor):
+    """Adjugate-based 3x3 inverse; returns (inv, ok)."""
+    det = _det3(H)
+    ok = torch.abs(det) > 1e-20
+    h = lambda i, j: H[:, i, j]
+    adj = torch.stack([
+        torch.stack([h(1, 1) * h(2, 2) - h(1, 2) * h(2, 1),
+                     h(0, 2) * h(2, 1) - h(0, 1) * h(2, 2),
+                     h(0, 1) * h(1, 2) - h(0, 2) * h(1, 1)], -1),
+        torch.stack([h(1, 2) * h(2, 0) - h(1, 0) * h(2, 2),
+                     h(0, 0) * h(2, 2) - h(0, 2) * h(2, 0),
+                     h(0, 2) * h(1, 0) - h(0, 0) * h(1, 2)], -1),
+        torch.stack([h(1, 0) * h(2, 1) - h(1, 1) * h(2, 0),
+                     h(0, 1) * h(2, 0) - h(0, 0) * h(2, 1),
+                     h(0, 0) * h(1, 1) - h(0, 1) * h(1, 0)], -1),
+    ], -2)
+    return adj / torch.where(ok, det, torch.ones_like(det))[:, None, None], ok
+
+
+def _neg_semidefinite(H: torch.Tensor) -> torch.Tensor:
+    """No positive eigenvalue of symmetric H: trace <= 0, sum of principal
+    2x2 minors >= 0, det <= 0 (saddle rejection, mad/Detector.py:103-107)."""
+    i1 = H[:, 0, 0] + H[:, 1, 1] + H[:, 2, 2]
+    i2 = (H[:, 0, 0] * H[:, 1, 1] - H[:, 0, 1] * H[:, 1, 0]
+          + H[:, 0, 0] * H[:, 2, 2] - H[:, 0, 2] * H[:, 2, 0]
+          + H[:, 1, 1] * H[:, 2, 2] - H[:, 1, 2] * H[:, 2, 1])
+    i3 = _det3(H)
+    return (i1 <= 0) & (i2 >= 0) & (i3 <= 0)
+
+
+_PATCH = torch.stack(torch.meshgrid(
+    *([torch.arange(-1, 2)] * 3), indexing="ij"), -1).reshape(27, 3)
+
+
+def localize_plain(vol: torch.Tensor, seeds: torch.Tensor, real_shape,
+                   max_offset: float, n_iter: int):
+    """Newton walk from each seed (K, 3) int64; returns (coords, subvox,
+    accepted & not a saddle)."""
+    K = seeds.shape[0]
+    dev = vol.device
+    rs = torch.as_tensor(real_shape, device=dev)
+    patch_off = _PATCH.to(dev)
+    pos = seeds.clone()
+    offset = torch.zeros((K, 3), dtype=vol.dtype, device=dev)
+    H = torch.zeros((K, 3, 3), dtype=vol.dtype, device=dev)
+    accepted = torch.zeros(K, dtype=torch.bool, device=dev)
+    bad = torch.zeros(K, dtype=torch.bool, device=dev)
+    for _ in range(n_iter):
+        p = pos[:, None, :] + patch_off[None]
+        patch = vol[p[..., 0], p[..., 1], p[..., 2]].reshape(K, 3, 3, 3)
+        Hn, G = _hessian_grad(patch)
+        Hinv, ok = _inv3(Hn)
+        off = -(Hinv[..., 0] * G[:, 0:1] + Hinv[..., 1] * G[:, 1:2]
+                + Hinv[..., 2] * G[:, 2:3])
+        acc_now = (torch.abs(off) < max_offset).all(dim=1) & ok
+        # Voxel walk toward the offset, clamped to the interior
+        # (mad/Detector.py:92-97; bounds use the real extent).
+        lo_ok = pos - 1 > 0
+        hi_ok = pos + 1 < rs - 1
+        step = (((off < -max_offset) & lo_ok).to(pos.dtype) * -1
+                + ((off > max_offset) & hi_ok).to(pos.dtype))
+        frozen = accepted | bad
+        pos = torch.where((frozen | acc_now)[:, None], pos, pos + step)
+        offset = torch.where(frozen[:, None], offset, off)
+        H = torch.where(frozen[:, None, None], H, Hn)
+        accepted, bad = accepted | (acc_now & ~bad), bad | (~ok & ~accepted)
+    good = accepted & _neg_semidefinite(H)
+    return pos, pos.to(vol.dtype) + offset, good
+
+
+def localize(vol: torch.Tensor, seeds: torch.Tensor, real_shape,
+             max_offset: float, n_iter: int):
+    """Newton walk from each seed of ``seeds`` (K, 3) int64 on the float32
+    volume ``vol``; ``real_shape`` bounds the walk. Returns (coords (K, 3)
+    int64, subvox (K, 3) float32, good (K,) bool: accepted and not a
+    saddle)."""
+    if vol.device.type == "cpu":
+        return localize_plain(vol, seeds, real_shape, max_offset, n_iter)
+    global launches
+    if vol.dim() != 3 or vol.dtype != torch.float32:
+        raise ValueError(f"localize: need a 3D float32 volume, got "
+                         f"{tuple(vol.shape)} {vol.dtype}")
+    if seeds.dim() != 2 or seeds.shape[1] != 3 or seeds.dtype != torch.int64:
+        raise ValueError(f"localize: seeds must be (K, 3) int64, got "
+                         f"{tuple(seeds.shape)} {seeds.dtype}")
+    vol, seeds = vol.contiguous(), seeds.contiguous()
+    build.require_cuda("localize", vol, seeds)
+    K = seeds.shape[0]
+    pos = torch.empty((K, 3), dtype=torch.int64, device=vol.device)
+    subvox = torch.empty((K, 3), dtype=torch.float32, device=vol.device)
+    good = torch.empty(K, dtype=torch.bool, device=vol.device)
+    if K == 0:
+        return pos, subvox, good
+    rx, ry, rz = (int(s) for s in real_shape)
+    lib = build.library()
+    # max_offset goes over as a C float: the plain version compares the
+    # float32 offsets with the Python float in float32.
+    code = lib.mad_localize(vol.data_ptr(), *vol.shape, seeds.data_ptr(), K,
+                            rx, ry, rz, float(max_offset), int(n_iter),
+                            pos.data_ptr(), subvox.data_ptr(),
+                            good.data_ptr(), build.stream_ptr(vol.device))
+    build.check(code, "mad_localize")
+    launches += 1
+    return pos, subvox, good

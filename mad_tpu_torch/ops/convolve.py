@@ -2,8 +2,8 @@
 
 Gaussian smoothing, the scale-normalized LoG and the simulator's blur are
 1D convolutions along each axis, all through kernel K1
-(:mod:`mad_tpu_torch.kernels.conv1d`); the x2 Catmull-Rom upsampling is a
-4-tap shift-add in plain tensor ops.
+(:mod:`mad_tpu_torch.kernels.conv1d`); the x2 Catmull-Rom upsampling goes
+axis by axis through kernel K2 (:mod:`mad_tpu_torch.kernels.upsample`).
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..kernels.conv1d import conv1d_along
+from ..kernels.upsample import upsample_axis
 
 
 def gaussian_kernel1d(sigma: float, order: int = 0, truncate: float = 4.0
@@ -76,37 +77,9 @@ def log_filter3d(vol: torch.Tensor, sigma: float, truncate: float = 4.0):
     return log_resp, gauss
 
 
-# Catmull-Rom weights for the half-sample points of a x2 upsampling.
-_CR_HALF = np.array([-1.0 / 16, 9.0 / 16, 9.0 / 16, -1.0 / 16],
-                    dtype=np.float32)
-
-
-def _upsample_axis(vol: torch.Tensor, axis: int) -> torch.Tensor:
-    """x2 upsample along one axis: n -> 2n-1 (original samples on even
-    indices, Catmull-Rom half samples with edge replication on odd ones)."""
-    n = vol.shape[axis]
-    padded = torch.cat([vol.narrow(axis, 0, 1), vol,
-                        vol.narrow(axis, n - 1, 1)], dim=axis)
-    half = None
-    for m in range(4):
-        term = padded.narrow(axis, m, n - 1) * float(_CR_HALF[3 - m])
-        half = term if half is None else half.add_(term)
-    del padded
-    shape = list(vol.shape)
-    shape[axis] = 2 * n - 1
-    out = vol.new_empty(shape)
-    idx = [slice(None)] * vol.dim()
-    idx[axis] = slice(0, None, 2)
-    out[tuple(idx)] = vol
-    idx[axis] = slice(1, None, 2)
-    if half is not None:
-        out[tuple(idx)] = half
-    return out
-
-
 def upsample2(vol: torch.Tensor) -> torch.Tensor:
     """Separable x2 cubic upsampling: (X,Y,Z) -> (2X-1, 2Y-1, 2Z-1)."""
     out = vol
     for axis in range(3):
-        out = _upsample_axis(out, axis)
+        out = upsample_axis(out, axis)
     return out

@@ -3,7 +3,7 @@
 Replaces MapSpace.build_space (mad/MapSpace.py:69-189): an optional x2
 upsampled octave (Catmull-Rom, presmoothed) and the base octave, each with
 its scale-normalized negative LoG (clamped at 0) and the gradient of its
-Gaussian-smoothed volume.
+Gaussian-smoothed volume (kernel K3, :mod:`mad_tpu_torch.kernels.gradient`).
 
 The map is zero-padded by ``map_padding`` voxels and used at its real
 size; mad_tpu's shape buckets only bounded XLA recompiles. Octaves build
@@ -21,26 +21,12 @@ import torch.nn.functional as F
 
 from ..core.config import ScaleSpaceConfig
 from ..core.grid import DensityGrid
+from ..kernels.gradient import gradient  # noqa: F401  (K3, the octave field)
 from .convolve import gaussian_filter3d, log_filter3d, upsample2
 
 # Above this many octave voxels the gradient field is stored as bfloat16
 # (mad_tpu/ops/scalespace.py:287: 250 M voxels = 3 GB of float32 gradients).
 BF16_VOXELS = 250_000_000
-
-
-def gradient(vol: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    """(X, Y, Z) -> (X, Y, Z, 3) central differences, one-sided at the
-    edges (``jnp.gradient`` with unit spacing, term for term)."""
-    out = torch.empty(vol.shape + (3,), dtype=dtype, device=vol.device)
-    for a in range(3):
-        n = vol.shape[a]
-        o = out[..., a]
-        o.narrow(a, 1, n - 2).copy_(
-            (vol.narrow(a, 2, n - 2) - vol.narrow(a, 0, n - 2)) * 0.5)
-        o.narrow(a, 0, 1).copy_(vol.narrow(a, 1, 1) - vol.narrow(a, 0, 1))
-        o.narrow(a, n - 1, 1).copy_(vol.narrow(a, n - 1, 1)
-                                    - vol.narrow(a, n - 2, 1))
-    return out
 
 
 @dataclass

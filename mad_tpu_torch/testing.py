@@ -6,10 +6,13 @@ walk) and homomultimer assemblies for tests and the chip smoke run, plus
 the self-fit decoy transform. ``near_isovalue``, ``overlap_slack`` and
 ``overlap_tolerance`` are the port's own: the bound that two computations
 of one solution set's overlap matrix are held to; so is ``pose_table``, a
-synthetic match table for the pose clustering.
+synthetic match table for the pose clustering; and ``recording``, which
+collects the inputs a call site on the path gives a kernel.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 
@@ -129,6 +132,23 @@ def decoy_transform(struct: Structure, t=(150.0, 0.0, 0.0), a=0.375,
     coords = coords @ _np_axis_angle_mat([0.0, 0, 1], c)
     coords = coords - coords.mean(axis=0) + np.asarray(t)
     return struct.with_coords(coords)
+
+
+@contextlib.contextmanager
+def recording(module, name: str):
+    """Record the positional arguments of every call of ``module.name``
+    made inside the block (the call still runs)."""
+    calls, fn = [], getattr(module, name)
+
+    def rec(*args):
+        calls.append(args)
+        return fn(*args)
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
 
 
 def near_isovalue(structures, cfg, device, eps: float = 1e-5):
