@@ -26,39 +26,46 @@ Phases, each of which raises (non-zero exit) when it fails:
      upsampled Gaussian volume, float32 and bfloat16), K5 (the LoG volumes
      of both map octaves with K4's seeds) and K8 (the map's two octave
      tables and keep indices) bit for bit, at the inputs a describe_grid
-     of the bench map gives them), both timed with CUDA events, beside the
+     of the bench map gives them; K16 (the first docking round's 28 lanes
+     and the table rows the rescue round may take: hits, counts, accepted,
+     slots and rows equal, moved anchors within 1e-12 A; the hits and rows
+     also equal to cKDTree's on its poses), K17 at both of
+     its call sites (the solutions' score and score_models: CCC within
+     1e-5) and K20b (the bench overlap, bit for bit), at the inputs one
+     more bench fit gives them), both timed with CUDA events, beside the
      one PyTorch call that computes the same function where there is one
      (K10's head: torch.topk per row, then over the flat heads; K3:
      torch.gradient; K8: F.normalize of the gathered rows), and the
      kernel's bound: the larger of the bytes it must move over 3.35 TB/s
      and the operations it does over 67 TFLOP/s (float32, no tensor cores;
-     K14's over 34 TFLOP/s, float64); then describe_grid on the bench map
-     with the kernels and with the plain versions of K2, K3, K5 and K8
-     must give the same DescriptorSet (desc, desc_norm, coords,
-     subv_coords, rfinal) bit for bit;
+     K14's, K16's and K17's over 34 TFLOP/s, float64); then describe_grid
+     on the bench map with the kernels and with the plain versions of K2,
+     K3, K5 and K8 must give the same DescriptorSet (desc, desc_norm,
+     coords, subv_coords, rfinal) bit for bit;
   5. timed pass of the main path (after one more warm pass) with every
      launch counter reset first;
      fails unless every kernel of the path launched, the solutions are
      finite, at least 9 of 10 copies are recovered (best CA-RMSD < 10 A)
      and at least one model comes back, with a finite CCC, its first
      model made of 10 distinct solutions; then the fit once more with the
-     plain versions of K2, K3, K5, K6, K8, K15 and the matching front
-     (K10's head, K11, K12, K14) swapped in (stage seconds side by side),
-     which must recover as many copies;
+     plain versions of K2, K3, K5, K6, K8, K15, the matching front
+     (K10's head, K11, K12, K14), K16 and K17 swapped in (stage seconds
+     side by side), which must recover as many copies;
   6. the same assembly on the same solutions with the plain versions
-     swapped in on the card: the same tuples and model components, model
-     CCCs within 1e-5, the overlap within its tolerance (K9's atomics
-     round in another order: testing.overlap_tolerance);
+     (K1, K9, K17, K18, K20b, K19, K20) swapped in on the card: the same
+     tuples and model components, model CCCs within 1e-5, the overlap
+     within its tolerance (K9's atomics round in another order:
+     testing.overlap_tolerance);
   7. the MaD session: the bench map and subunit written to a fresh
      workdir, add_map / add_subunit(n_copies=10) / run(transform_subunits)
-     / build_assembly on the card; K2, K3, K5, K6, K8 and K15 must
-     launch in its first run, >= 9/10 copies
-     come back in the written sol_*.pdb files, one Solutions_refined CSV
-     row per solution, model artifacts; a second run() must load the
+     / build_assembly on the card; K2, K3, K5, K6, K8, K15, K16 and K17
+     must launch in its first run, >= 9/10 copies come back in the
+     written sol_*.pdb files, one Solutions_refined CSV row per solution,
+     model artifacts; a second run() must load the
      dsc_db and pose_db caches and give the same solutions;
   8. a heteromer ranking (16^5 tuples over 80 solutions, seeded random
-     overlap) with the counters reset first: K20 must launch, and the
-     plain version on the card must give the same tuples;
+     overlap) with the counters reset first: K20 and K20b must launch,
+     and the plain versions on the card must give the same tuples;
   9. a small two-copy fit through the card and through the CPU (plain
      versions) must recover the same copies at the same poses, and the
      assembly of the card's solutions on the card and on the CPU must
@@ -95,15 +102,19 @@ NEWTON_FLOPS = 120              # K5 flops per peak and active Newton step
 SADDLE_FLOPS = 30               # K5 flops per peak of the saddle test
 R2_FLOPS = 102                  # K14 float64 flops per (row, cluster) RMSD
 APPROX_FLOPS = 20               # K12 flops per moved, rounded anchor
+DIST_FLOPS = 9                  # K16 float64 flops per squared distance
+POSE_FLOPS = 18                 # K16 float64 flops per atom of a centroid
+K16_ANCHOR_TOL = 1e-12          # A, K16's moved anchors vs plain
 K12_EDGE = 1e-4                 # voxel, K12's .5 rounding edge
 # NVIDIA H100 SXM at 700 W: HBM bytes/s, and float32 and float64 flop/s
 # outside the tensor cores (NVIDIA's data sheet), the denominators of each
 # bound.
 PEAK_BYTES_S, PEAK_F32_S, PEAK_F64_S = 3.35e12, 67e12, 34e12
 ASSEMBLY_STAGES = ("overlap", "enumerate", "score_models")
-# kernels the session's first run must launch (K2, K3, K5, K6, K8, K15)
+# kernels the session's first run must launch (K2, K3, K5, K6, K8, K15,
+# K16, K17)
 SESSION_KERNELS = ("upsample_axis", "gradient", "localize", "orient",
-                   "gather_norm", "refine")
+                   "gather_norm", "refine", "post", "batched_ccc")
 
 
 class SmokeFailure(RuntimeError):
@@ -201,11 +212,12 @@ def run_assembly(device, timings, cfg, structures, dmap, n_copies):
     from mad_tpu_torch.engine import assemble as asm
     from mad_tpu_torch.timing import stage
     with stage(timings, "overlap", device):
-        overlap = asm.solution_overlap(structures, cfg.assembly, device)
+        ov_dev = asm.device_overlap(structures, cfg.assembly, device)
+        overlap = asm.host_overlap(ov_dev)
     with stage(timings, "enumerate", device):
         tuples, sums, stds, maxs = asm.enumerate_homomultimer(
             len(structures), min(n_copies, len(structures)), overlap,
-            device=device)
+            device=device, overlap_dev=ov_dev)
     with stage(timings, "score_models", device):
         models = asm.score_models(tuples, sums, stds, maxs, structures,
                                   dmap, cfg.assembly, MAX_MODELS,
@@ -217,13 +229,16 @@ def run_assembly(device, timings, cfg, structures, dmap, n_copies):
 
 def assembly_swaps():
     """The plain PyTorch versions of the kernels the assembly step launches
-    (K1 blur, K9, K18, K19, K20), as (module, name, plain function)."""
+    (K1 blur, K9, K17, K18, K20b, K19, K20), as (module, name, plain
+    function)."""
     import mad_tpu_torch.ops.convolve as convolve
-    from mad_tpu_torch.kernels import (conv1d, enumerate as k_enum, hetero,
-                                       overlap, scatter)
+    from mad_tpu_torch.kernels import (ccc, conv1d, enumerate as k_enum,
+                                       hetero, overlap, scatter, symmetrize)
     return [(convolve, "conv1d_along", conv1d.conv1d_along_plain),
             (scatter, "scatter_atoms", scatter.scatter_atoms_plain),
+            (ccc, "batched_ccc", ccc.batched_ccc_plain),
             (overlap, "pack_overlap", overlap.pack_overlap_plain),
+            (symmetrize, "sym_trim", symmetrize.sym_trim_plain),
             (k_enum, "enumerate_head", k_enum.enumerate_head_plain),
             (hetero, "hetero_head", hetero.hetero_head_plain)]
 
@@ -263,9 +278,19 @@ def describe_swaps():
             (convert, "gather_norm", k8.gather_norm_plain)]
 
 
+def post_ccc_swaps():
+    """The plain PyTorch versions of K16 (engine/docking.py) and K17 (its
+    wrapper module, which engine/score.py calls through)."""
+    from mad_tpu_torch.engine import docking
+    from mad_tpu_torch.kernels import ccc, post
+    return [(docking, "post", post.post_plain),
+            (ccc, "batched_ccc", ccc.batched_ccc_plain)]
+
+
 def fit_swaps():
     """The plain versions that the fit-level comparison swaps in."""
-    return orient_refine_swaps() + match_swaps() + describe_swaps()
+    return (orient_refine_swaps() + match_swaps() + describe_swaps()
+            + post_ccc_swaps())
 
 
 def swapped_kernels(swaps):
@@ -482,6 +507,7 @@ def kernel_checks(fit, cfg, device):
     out["orient"] = orient_check(fit, cfg, device)
     out["refine"] = refine_check(fit, cfg, device)
     out.update(describe_checks(fit, cfg, device))
+    out.update(post_ccc_checks(fit, cfg, device))
     return out
 
 
@@ -620,7 +646,8 @@ def newton_work(vol, seeds, real_shape, max_offset, n_iter):
     is accepted or bad) and the distinct voxels their patches read: the
     work of K5's function on these peaks. Walks as localize_plain."""
     import torch
-    from mad_tpu_torch.kernels.localize import _PATCH, _hessian_grad, _inv3
+    from mad_tpu_torch.kernels.localize import (_hessian_grad, _inv3,
+                                                patch_index)
     K = seeds.shape[0]
     X, Y, Z = vol.shape
     rs = torch.as_tensor(real_shape, device=vol.device)
@@ -629,9 +656,9 @@ def newton_work(vol, seeds, real_shape, max_offset, n_iter):
     steps, ids = 0, []
     for _ in range(n_iter):
         steps += int((~frozen).sum())
-        p = pos[:, None, :] + _PATCH.to(vol.device)[None]
-        ids.append((((p[..., 0] % X) * Y + p[..., 1] % Y) * Z
-                    + p[..., 2] % Z)[~frozen].reshape(-1))
+        p = patch_index(pos, vol.shape)
+        ids.append(((p[..., 0] * Y + p[..., 1]) * Z
+                    + p[..., 2])[~frozen].reshape(-1))
         Hn, G = _hessian_grad(vol[p[..., 0], p[..., 1], p[..., 2]]
                               .reshape(K, 3, 3, 3))
         Hinv, ok = _inv3(Hn)
@@ -644,6 +671,118 @@ def newton_work(vol, seeds, real_shape, max_offset, n_iter):
         frozen = frozen | acc | ~ok
     distinct = int(torch.unique(torch.cat(ids)).numel()) if ids else 0
     return steps, distinct
+
+
+def in_map_voxels(shape, box, starts):
+    """Voxels of the boxes (box extent, (M, 3) corners) inside the map."""
+    lo = np.clip(starts, 0, shape)
+    hi = np.clip(starts + np.asarray(box), 0, shape)
+    return int(np.prod(hi - lo, axis=1).sum())
+
+
+def post_ccc_checks(fit, cfg, device):
+    """K16, K17 and K20b against their plain versions at the inputs that
+    one more bench fit gives them, recorded at their call sites: K16's
+    first round (its lanes, and the table's rows that the rescue round
+    may take), K17 at both of its call sites (the solutions' score, then
+    score_models), K20b on the bench overlap. K16 and K20b equal (K16's
+    moved anchors within K16_ANCHOR_TOL), K17 within CCC_TOL."""
+    import torch
+    from mad_tpu_torch.engine import docking
+    from mad_tpu_torch.kernels import ccc as k17, post as k16
+    from mad_tpu_torch.kernels import symmetrize as k20b
+    from mad_tpu_torch.testing import recording
+    out = {}
+    with recording(docking, "post") as posts, \
+            recording(k17, "batched_ccc") as cccs, \
+            recording(k20b, "sym_trim") as syms:
+        run_fit(device, None, cfg)
+        torch.cuda.synchronize()
+    check(posts and len(cccs) == 2 and syms,
+          f"recorded {len(posts)} K16, {len(cccs)} K17 and {len(syms)} K20b "
+          "calls in the fit")
+
+    # K16, the first round. Work (float64): each lane's centroid, its
+    # anchors moved and measured against every map anchor, the RMSD of
+    # each lane to every earlier solution and lane, each map anchor
+    # measured against every accepted atom; the inputs read once, the
+    # vector written.
+    args = posts[0]
+    C, N = args[2].shape[:2]
+    A, B, S = args[8].shape[0], args[9].shape[0], args[10].shape[0]
+    n_idx, P, n_top = args[11].shape[0], args[14].shape[0], args[16]
+    got = k16.split_post(k16.post(*args).cpu().numpy(), C, A, n_top)
+    ref = k16.split_post(k16.post_plain(*args).cpu().numpy(), C, A, n_top)
+    check(all(np.array_equal(g, w) for g, w in zip(got[1:], ref[1:])),
+          "K16 hits, counts, accepted, slots or rows differ from the plain "
+          "version")
+    err = float(np.abs(got[0] - ref[0]).max())
+    check(err <= K16_ANCHOR_TOL, f"K16 moved anchors differ by {err:g} A")
+    n_acc = int(got[3].sum())
+    # ... and the host path's cKDTree queries on K16's own poses: the hits
+    # (d <= hit_thresh) and the eligible rows (d > anchor_dist, the first
+    # n_top in table order).
+    from scipy.spatial import cKDTree
+    lo_cloud, lo_rows = args[9].cpu().numpy(), args[14].cpu().numpy()
+    ok = ~args[3].cpu().numpy()
+    d, _ = cKDTree(lo_cloud).query(got[0][ok], distance_upper_bound=args[12])
+    check(np.array_equal(got[1][ok], d <= args[12]),
+          "K16 hits differ from cKDTree's")
+    atoms = np.concatenate([args[10].cpu().numpy().reshape(-1, 3),
+                            args[2].cpu().numpy()[got[3]].astype(np.float64)
+                            .reshape(-1, 3)])
+    d, _ = cKDTree(atoms).query(lo_rows, distance_upper_bound=args[15])
+    check(np.array_equal(got[5], np.nonzero(d > args[15])[0][:n_top]),
+          "K16 eligible rows differ from cKDTree's")
+    ops = (C * N * POSE_FLOPS + C * A * (36 + B * DIST_FLOPS)
+           + C * (S + C) * n_idx * DIST_FLOPS
+           + (B * (S + n_acc) * N * DIST_FLOPS if n_top else 0))
+    nbytes = (C * (36 + 12 + 1 + 72 + 48) + C * N * 12 + N * 24
+              + (A + B + P + S * N) * 24 + n_idx * 8
+              + k16.out_size(C, A, n_top) * 8)
+    out["post"] = measure(err, lambda: k16.post(*args),
+                          lambda: k16.post_plain(*args), nbytes, ops,
+                          peak_ops=PEAK_F64_S)
+    say(f"  K16: {C} lanes x {A} anchors x {B} map anchors, {S} earlier "
+        f"solutions, {n_idx} RMSD atoms of {N}; {int(got[2].sum())} hits, "
+        f"{n_acc} accepted, {int((got[4] >= 0).sum()) - n_acc} merged; "
+        f"{len(got[5])} rows taken of {P} (at most {n_top}); equal, moved "
+        f"anchors within {err:g} A; hits and rows equal to cKDTree's")
+    del posts, args
+
+    # K17 at both call sites. Work: each in-map model voxel and its map
+    # voxel read once (4 + 4 B), three float64 products and sums.
+    for label, args in zip(("score", "score_models"), cccs):
+        data, models, starts = args
+        g, w = k17.batched_ccc(*args), k17.batched_ccc_plain(*args)
+        err = float((g - w).abs().max())
+        check(err <= CCC_TOL, f"K17 {label}: CCC differs by {err:g}")
+        M, box = models.shape[0], tuple(models.shape[1:])
+        inside = in_map_voxels(np.asarray(data.shape), box,
+                               starts.cpu().numpy())
+        r = measure(err, lambda: k17.batched_ccc(*args),
+                    lambda: k17.batched_ccc_plain(*args),
+                    inside * 8 + M * (12 + 4), inside * 6,
+                    peak_ops=PEAK_F64_S)
+        say(f"  K17 {label}: {M} models of {box} against "
+            f"{tuple(data.shape)}, {inside} voxels in the map; CCC max diff "
+            f"{err:g}; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms")
+        if label == "score_models":
+            out["batched_ccc"] = r
+    del cccs, args
+
+    # K20b on the bench overlap: equal. Work: the (t, t) block read once,
+    # the result written, one addition an element.
+    ov, t = syms[0]
+    check(torch.equal(k20b.sym_trim(ov, t), k20b.sym_trim_plain(ov, t)),
+          "K20b differs from the plain version")
+    out["sym_trim"] = measure(0.0, lambda: k20b.sym_trim(ov, t),
+                              lambda: k20b.sym_trim_plain(ov, t),
+                              8 * t * t, t * t)
+    say(f"  K20b: ({t}, {t}) of the ({ov.shape[0]}, {ov.shape[1]}) bench "
+        f"overlap, equal")
+    return out
 
 
 def match_kernel_checks(fit, cfg, device):
@@ -1029,7 +1168,7 @@ def assembly_kernel_checks(fit, cfg, device):
     import torch
     from mad_tpu_torch.engine import assemble as asm
     from mad_tpu_torch.kernels import enumerate as k_enum
-    from mad_tpu_torch.kernels import hetero, overlap, scatter
+    from mad_tpu_torch.kernels import hetero, overlap, scatter, symmetrize
     from mad_tpu_torch.ops.simulate import scatter_args
 
     out = {}
@@ -1081,7 +1220,8 @@ def assembly_kernel_checks(fit, cfg, device):
         f"{frame}")
 
     k = min(N_COPIES, n)
-    sym = asm._sym(a["overlap"], n, device)
+    sym = symmetrize.sym_trim_plain(torch.as_tensor(
+        a["overlap"], dtype=torch.float32, device=device), n)
     tab = torch.as_tensor(k_enum.comb_table(n, k), device=device)
     e1 = k_enum.enumerate_head(sym, tab, 256)
     e2 = k_enum.enumerate_head_plain(sym, tab, 256)
@@ -1098,7 +1238,8 @@ def assembly_kernel_checks(fit, cfg, device):
     say(f"  K19: C({n}, {k}) ranks, head {len(e1)}")
 
     ov, groups = hetero_problem()
-    sym = asm._sym(ov, ov.shape[0], device)
+    sym = symmetrize.sym_trim_plain(torch.as_tensor(
+        ov, dtype=torch.float32, device=device), ov.shape[0])
     lists = torch.as_tensor(np.asarray(list(groups.values())),
                             dtype=torch.int32, device=device)
     sizes = [len(g) for g in groups.values()]
@@ -1217,8 +1358,9 @@ def session_phase(device, cfg, fit):
 
 def hetero_phase(device):
     """enumerate_heteromer on hetero_problem(), its counters reset just
-    before; the same call with the plain versions swapped in must give the
-    same tuples. Returns K20's launch count."""
+    before (K20 and K20b must launch); the same call with the plain
+    versions swapped in must give the same tuples. Returns K20's launch
+    count."""
     import torch
     from mad_tpu_torch.engine import assemble as asm
     from mad_tpu_torch.kernels import launch_counts, reset_launches
@@ -1230,6 +1372,8 @@ def hetero_phase(device):
     dt = time.perf_counter() - t0
     count = launch_counts()["hetero_head"]
     check(count >= 1, "K20 never launched in the heteromer ranking")
+    check(launch_counts()["sym_trim"] >= 1,
+          "K20b never launched in the heteromer ranking")
     with plain_versions(assembly_swaps()):
         t0 = time.perf_counter()
         ref = asm.enumerate_heteromer(groups, ov, device=device)

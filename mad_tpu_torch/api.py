@@ -262,12 +262,14 @@ class MaD:
             tuples = np.arange(len(sol_files))[:, None]
             sums = stds = maxs = np.zeros(len(sol_files))
         else:
-            overlap = asm.solution_overlap(structures, acfg, self.device)
+            ov_dev = asm.device_overlap(structures, acfg, self.device)
+            overlap = asm.host_overlap(ov_dev)
             self._print_overlap_table(overlap, sub_key)
             print(f"MaD> Assembling {n_copies} copies of chain {sub_key} "
                   f"from {len(sol_files)} solutions...")
             tuples, sums, stds, maxs = asm.enumerate_homomultimer(
-                len(sol_files), n_copies, overlap, device=self.device)
+                len(sol_files), n_copies, overlap, device=self.device,
+                overlap_dev=ov_dev)
         enum_notes = asm.pop_enum_notes()
 
         if not homomultimer:
@@ -299,10 +301,11 @@ class MaD:
             groups[key] = list(range(len(files), len(files) + len(sols)))
             files.extend(sols)
         structures = [parse_pdb(f) for f in files]
-        overlap = asm.solution_overlap(structures, acfg, self.device)
+        ov_dev = asm.device_overlap(structures, acfg, self.device)
+        overlap = asm.host_overlap(ov_dev)
         self._print_overlap_table(overlap, "+".join(sub_sol))
         tuples, sums, stds, maxs = asm.enumerate_heteromer(
-            groups, overlap, device=self.device)
+            groups, overlap, device=self.device, overlap_dev=ov_dev)
         enum_notes = asm.pop_enum_notes()
         out_dir = os.path.join(self.out_folder, "assembly_models")
         os.makedirs(out_dir, exist_ok=True)

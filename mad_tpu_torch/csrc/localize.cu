@@ -20,7 +20,10 @@
 // the plain version's torch ops (no FMA contraction), and max_offset and
 // 1e-20 are compared as float (what PyTorch does with a Python float
 // against a float32 tensor), so the kernel equals localize_plain bit for
-// bit. A patch index below 0 wraps as PyTorch's indexing does.
+// bit. The patch is placed as mad_tpu's lax.dynamic_slice places it: per
+// axis the start s = pos - 1 becomes s + n when negative (n the volume's
+// extent), then is clamped to [0, n - 3] (kernels/localize.patch_index);
+// pos itself is not clamped.
 //
 // Bound: latency. ~400 peaks an octave, each a chain of 5 dependent
 // steps of 27 gathers and ~150 flops: the work (~0.2 MB, ~1 kflop a
@@ -53,8 +56,10 @@ __device__ __forceinline__ float cross(float a, float b, float c, float d) {
   return sub_rn(mul_rn(a, b), mul_rn(c, d));
 }
 
-__device__ __forceinline__ long long wrap(long long i, long long n) {
-  return i < 0 ? i + n : (i >= n ? i - n : i);
+__device__ __forceinline__ long long patch_start(long long pos, int n) {
+  long long s = pos - 1;
+  if (s < 0) s += n;
+  return s < 0 ? 0 : (s > n - 3 ? n - 3 : s);
 }
 
 __global__ void localize(const float* __restrict__ vol, int X, int Y, int Z,
@@ -71,14 +76,13 @@ __global__ void localize(const float* __restrict__ vol, int X, int Y, int Z,
   float H[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   bool accepted = false, bad = false;
   for (int it = 0; it < n_iter; ++it) {
-    float p[27];   // p[a][b][c] at (x + a - 1, y + b - 1, z + c - 1)
+    float p[27];   // p[a][b][c] at (x0 + a, y0 + b, z0 + c)
+    const long long x0 = patch_start(pos[0], X), y0 = patch_start(pos[1], Y),
+                    z0 = patch_start(pos[2], Z);
     for (int a = 0; a < 3; ++a) {
-      const long long x = wrap(pos[0] + a - 1, X);
       for (int b = 0; b < 3; ++b) {
-        const long long y = wrap(pos[1] + b - 1, Y);
-        const float* row = vol + (x * Y + y) * Z;
-        for (int c = 0; c < 3; ++c)
-          p[a * 9 + b * 3 + c] = row[wrap(pos[2] + c - 1, Z)];
+        const float* row = vol + ((x0 + a) * Y + y0 + b) * Z + z0;
+        for (int c = 0; c < 3; ++c) p[a * 9 + b * 3 + c] = row[c];
       }
     }
 #define P(a, b, c) p[(a) * 9 + (b) * 3 + (c)]

@@ -5,7 +5,8 @@ Replaces MaD.build_assembly / _build_from_single / _build_models
 (mad/MaD.py:192-223, 632-843):
   * per solution, a low-resolution occupancy grid (5 A / 2 A voxels /
     isovalue 0.2), all solutions in one batched simulation (K9 scatter);
-  * pairwise overlap fractions in a common lattice frame (K18);
+  * pairwise overlap fractions in a common lattice frame (K18), kept on
+    the device and symmetrized there for the heads (K20b);
   * homomultimers: the C(n_solutions, n_copies) tuples ranked by max pair
     overlap, the head on the device (K19) when the count is large;
   * heteromers: the cartesian product of per-subunit lists ranked by summed
@@ -26,7 +27,7 @@ import functools
 import math
 from dataclasses import dataclass
 from itertools import combinations, product
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,6 +39,7 @@ from ..device import resolve
 from ..kernels import enumerate as k_enum
 from ..kernels import hetero as k_hetero
 from ..kernels import overlap as k_overlap
+from ..kernels import symmetrize as k_sym
 from ..ops.simulate import batched_simulate
 from .score import ccc_structures
 
@@ -112,16 +114,27 @@ def overlap_inputs(structures: Sequence[Structure], cfg: AssemblyConfig,
     return dens, torch.as_tensor(off, device=device), frame
 
 
+def device_overlap(structures: Sequence[Structure], cfg: AssemblyConfig,
+                   device) -> torch.Tensor:
+    """K18's float32 upper-triangular (n, n) overlap matrix of a solution
+    set, left on ``device`` (the input of K20b): one batched simulation
+    (K9), then K18 on the boxes placed in a common frame."""
+    n = len(structures)
+    if n < 2:
+        return torch.zeros((n, n), dtype=torch.float32, device=device)
+    return k_overlap.pack_overlap(*overlap_inputs(structures, cfg, device))
+
+
+def host_overlap(ov: torch.Tensor) -> np.ndarray:
+    """The float64 host copy of a device overlap (one pull)."""
+    return ov.cpu().numpy().astype(np.float64)
+
+
 def solution_overlap(structures: Sequence[Structure], cfg: AssemblyConfig,
                      device) -> np.ndarray:
     """Pairwise overlap-fraction matrix of a solution set (parity
-    mad/MaD.py:659-668), upper triangular float64 (n, n): one batched
-    simulation (K9), then K18 on the boxes placed in a common frame."""
-    n = len(structures)
-    if n < 2:
-        return np.zeros((n, n))
-    ov = k_overlap.pack_overlap(*overlap_inputs(structures, cfg, device))
-    return ov.cpu().numpy().astype(np.float64)
+    mad/MaD.py:659-668), upper triangular float64 (n, n)."""
+    return host_overlap(device_overlap(structures, cfg, device))
 
 
 def _score_tuples(tuples: np.ndarray, overlap: np.ndarray,
@@ -194,18 +207,20 @@ def _unrank_combination(r: int, n: int, k: int) -> list:
 _ENUM_NMAX = 64     # solution frame of the device unranking (uint64 masks)
 
 
-def _sym(overlap: np.ndarray, n: int, device) -> torch.Tensor:
-    """ov + ov^T of the first n solutions as float32 on ``device`` (summed
-    in float64, as the original's host path does, then rounded)."""
-    ov = torch.as_tensor(np.asarray(overlap, dtype=np.float64)[:n, :n],
-                         device=device)
-    return (ov + ov.T).to(torch.float32)
+def _sym_trim(overlap: np.ndarray, overlap_dev, t: int, device):
+    """ov + ov^T of the first t solutions as float32 on ``device`` (K20b),
+    from the device overlap when the caller kept it there."""
+    if overlap_dev is None:
+        overlap_dev = torch.as_tensor(np.asarray(overlap, dtype=np.float32),
+                                      device=device)
+    return k_sym.sym_trim(overlap_dev, t)
 
 
 def enumerate_homomultimer(n_solutions: int, n_copies: int,
                            overlap: np.ndarray,
                            max_combinations: int = 5_000_000,
-                           head: int = 256, device="cuda"):
+                           head: int = 256, device="cuda",
+                           overlap_dev: Optional[torch.Tensor] = None):
     """Head of the candidate-tuple ranking for a homomultimer
     (mad/MaD.py:686-694: all C(n, k) tuples sorted by max pairwise overlap).
 
@@ -215,7 +230,9 @@ def enumerate_homomultimer(n_solutions: int, n_copies: int,
     every tuple on ``device``. When C(n_solutions, n_copies) exceeds
     ``max_combinations`` the enumeration restricts to the best-ranked
     solutions (they arrive sorted by RWmCC) and says so (every restriction
-    prints + records a note, pop_enum_notes).
+    prints + records a note, pop_enum_notes). ``overlap_dev``: the same
+    overlap still on ``device`` (``device_overlap``), so that K19 reads it
+    without a host round trip.
     """
     device = resolve(device)
     n_orig = n_solutions
@@ -247,8 +264,8 @@ def enumerate_homomultimer(n_solutions: int, n_copies: int,
           "(model building consumes the ranking head only)")
     tab = torch.as_tensor(k_enum.comb_table(n_solutions, n_copies),
                           device=device)
-    keys = k_enum.enumerate_head(_sym(overlap, n_solutions, device), tab,
-                                 head)
+    keys = k_enum.enumerate_head(
+        _sym_trim(overlap, overlap_dev, n_solutions, device), tab, head)
     keep, _mx = k_enum.split_keys(keys)
     top = np.asarray([_unrank_combination(int(r), n_solutions, n_copies)
                       for r in keep], dtype=np.int32)
@@ -272,7 +289,8 @@ def _hetero_scores(gather: np.ndarray, overlap: np.ndarray):
 
 def enumerate_heteromer(groups: Dict[str, List[int]], overlap: np.ndarray,
                         max_combinations: int = 50_000_000, head: int = 256,
-                        device="cuda"):
+                        device="cuda",
+                        overlap_dev: Optional[torch.Tensor] = None):
     """Cartesian product of per-subunit candidate lists (mad/MaD.py:799-805).
 
     groups maps subunit key -> list of global solution indices (or of
@@ -284,7 +302,8 @@ def enumerate_heteromer(groups: Dict[str, List[int]], overlap: np.ndarray,
     product never exists in host memory. When the product exceeds
     ``max_combinations`` the largest groups trim to their best-ranked
     entries (lists arrive ranking-sorted) and the trim is announced
-    (printed + recorded, pop_enum_notes)."""
+    (printed + recorded, pop_enum_notes). ``overlap_dev`` as for
+    ``enumerate_homomultimer``."""
     device = resolve(device)
     lists = [np.asarray(v) for v in groups.values()]
     sizes = [len(v) for v in lists]
@@ -318,7 +337,7 @@ def enumerate_heteromer(groups: Dict[str, List[int]], overlap: np.ndarray,
     for g, lv in enumerate(lists):
         lists_p[g, : len(lv)] = lv
     keys = k_hetero.hetero_head(
-        _sym(overlap, overlap.shape[0], device),
+        _sym_trim(overlap, overlap_dev, overlap.shape[0], device),
         torch.as_tensor(lists_p, device=device), sizes, head)
     ridx, _sums = k_enum.split_keys(keys)
     # decode head tuples on host (mixed radix), re-score for [sum, std, max]

@@ -16,13 +16,13 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-from scipy.spatial import cKDTree
 
 from ..core.config import FilterConfig, MadConfig
 from ..core.grid import DensityGrid
 from ..core.structure import Structure
 from ..timing import stage
 from ..kernels.cluster import cluster_select, gate_threshold, split_selection
+from ..kernels.post import post, split_post
 from .cluster import Candidate
 from .match import MatchTable, exact_rescore, match_descriptors
 from .pipeline import DescriptorSet
@@ -98,63 +98,66 @@ def cluster_candidates(table: MatchTable, hi_bins: np.ndarray,
 def _refine_and_merge(candidates: List[Candidate], solutions: List[Solution],
                       sub_struct: Structure, dmap: DensityGrid,
                       table: MatchTable, cfg: MadConfig, device,
-                      timings=None) -> int:
+                      timings=None, n_top: int = 0):
     """Refine candidate poses and merge them into ``solutions`` (CA-RMSD
     dedup with weight merging, mad/MaD.py:592-620). Returns the number of
-    genuinely new solutions appended."""
+    genuinely new solutions appended and the first ``n_top`` table rows
+    that the next rescue round may take (none when n_top is 0)."""
     starts = start_poses(candidates, sub_struct)
     with stage(timings, "refine", device):
         res = refine_candidates(dmap, starts, cfg.refine, device=device)
-    return _merge_refined(res, candidates, solutions, sub_struct, dmap,
-                          table, cfg)
+    with stage(timings, "post", device):
+        return _merge_refined(res, candidates, solutions, sub_struct, dmap,
+                              table, cfg, device, n_top)
 
 
 def _merge_refined(res, candidates: List[Candidate],
                    solutions: List[Solution], sub_struct: Structure,
-                   dmap: DensityGrid, table: MatchTable,
-                   cfg: MadConfig) -> int:
-    """Post-refinement host half (mad_tpu/engine/docking.py:61-112): the
-    refined pose is the composition of the candidate's start pose with the
+                   dmap: DensityGrid, table: MatchTable, cfg: MadConfig,
+                   device, n_top: int = 0):
+    """Post-refinement half (mad_tpu/engine/docking.py:61-112): the refined
+    pose is the composition of the candidate's start pose with the
     refinement's rot/trans, in float64 on the float32 results; the
-    repeatability is re-scored on it, then CA-RMSD dedup + weight merge."""
+    repeatability is re-scored on it, then CA-RMSD dedup + weight merge;
+    with ``n_top``, the rescue eligibility of the table's rows after the
+    merge. K16 computes all of it on ``device`` and one pull brings it
+    back; the host rebuilds the Solution records."""
+    N = sub_struct.coords.shape[0]
     x032 = sub_struct.coords.astype(np.float32).astype(np.float64)
-    lo_tree = cKDTree(table.lo_cloud)
-    thresh = dmap.voxsp * 1.5
-    refined: List[tuple] = []
-    for i, cand in enumerate(candidates):
-        if res.failed[i]:
-            continue  # numerically failed candidate (NaN guard)
-        A = cand.rot.T.astype(np.float64)
-        b = cand.lo_coord - cand.hi_coord.astype(np.float64) @ A
-        center = (x032 @ A + b).mean(axis=0)
-        R = np.asarray(res.rot[i], dtype=np.float64)
-        t = np.asarray(res.trans[i], dtype=np.float64)
-        s_a = ((table.hi_cloud @ A + b) - center) @ R + center + t
-        d, _ = lo_tree.query(s_a, distance_upper_bound=thresh)
-        hits = d <= thresh
-        repeat = 100.0 * np.count_nonzero(hits) / table.hi_cloud.shape[0]
-        if repeat <= 0:
-            continue
-        refined.append((res.coords[i], s_a[hits], repeat, cand.weight,
-                        cand.members))
+    idx = sub_struct.ca_idx if len(sub_struct.ca_idx) else np.arange(N)
+    prev = (np.stack([s.structure.coords for s in solutions]) if solutions
+            else np.zeros((0, N, 3)))
 
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float64),
+                               device=device)
+
+    vec = post(*res.device_out,
+               put([c.rot for c in candidates]),
+               put([c.hi_coord for c in candidates]),
+               put([c.lo_coord for c in candidates]), put(x032),
+               put(table.hi_cloud), put(table.lo_cloud), put(prev),
+               torch.as_tensor(np.asarray(idx, dtype=np.int64),
+                               device=device),
+               dmap.voxsp * 1.5, cfg.refine.dedup_rmsd,
+               put(table.lo_coord if n_top else np.zeros((0, 3))),
+               cfg.match.anchor_dist, n_top)
+    a_hi = table.hi_cloud.shape[0]
+    s_a, hits, counts, accepted, slot, top = split_post(
+        vec.cpu().numpy(), len(candidates), a_hi, n_top)
     n_new = 0
-    for coords, corresp, repeat, weight, members in refined:
-        struct = sub_struct.with_coords(coords)
-        merged = False
-        if solutions:
-            rmsds = [struct.rmsd_ca_with(s.structure) for s in solutions]
-            j = int(np.argmin(rmsds))
-            if rmsds[j] < cfg.refine.dedup_rmsd:
-                solutions[j].weight += weight
-                solutions[j].members.extend(members)
-                merged = True
-        if not merged:
+    for i, cand in enumerate(candidates):
+        if accepted[i]:
             solutions.append(Solution(
-                structure=struct, corresp_anchors=corresp, repeat=repeat,
-                weight=weight, ccc=0.0, members=list(members)))
+                structure=sub_struct.with_coords(res.coords[i]),
+                corresp_anchors=s_a[i][hits[i]],
+                repeat=100.0 * counts[i] / a_hi, weight=cand.weight,
+                ccc=0.0, members=list(cand.members)))
             n_new += 1
-    return n_new
+        elif slot[i] >= 0:
+            solutions[slot[i]].weight += cand.weight
+            solutions[slot[i]].members.extend(cand.members)
+    return n_new, top
 
 
 def _finalize_solutions(solutions: List[Solution], sub_struct: Structure,
@@ -184,7 +187,8 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
                    on_filtered=None) -> List[Solution]:
     """Dock one subunit into the map on ``device`` (default: the map's);
     returns scored unique solutions, best first. ``timings``: optional
-    dict that collects seconds per stage (match, cluster, refine, score).
+    dict that collects seconds per stage (match, cluster, refine, post,
+    score).
     ``on_filtered``: optional callback receiving the first round's filtered
     pre-refinement Candidate list (the reference's pre_solutions hook,
     mad/MaD.py:404-405, 891-921)."""
@@ -213,25 +217,20 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
     if on_filtered is not None:
         on_filtered(candidates)
 
-    solutions: List[Solution] = []
-    _refine_and_merge(candidates, solutions, sub_struct, dmap, table, cfg,
-                      device, timings)
-
     # Rescue rounds: pairs whose map anchor no accepted solution explains
     # get a fresh n_samples budget under the same gates; the repeat gate
     # stays relative to the FULL table's best. Stops when a round adds
-    # nothing.
+    # nothing. Each round's K16 launch also finds the rows that the next
+    # round may take.
+    rounds = max(0, int(cfg.filter.rescue_rounds))
+    solutions: List[Solution] = []
+    _, top = _refine_and_merge(candidates, solutions, sub_struct, dmap,
+                               table, cfg, device, timings,
+                               n_samples if rounds else 0)
     best_repeat = float(table.repeat[0])
-    for _ in range(max(0, int(cfg.filter.rescue_rounds))):
-        if not solutions:
+    for r in range(rounds):
+        if not solutions or not len(top):
             break
-        atoms = np.concatenate([s.structure.coords for s in solutions])
-        d, _ = cKDTree(atoms).query(
-            table.lo_coord, distance_upper_bound=cfg.match.anchor_dist)
-        elig = np.nonzero(d > cfg.match.anchor_dist)[0]
-        if not len(elig):
-            break
-        top = elig[:n_samples]
         # Below the first-round prefix repeatabilities are approximate;
         # re-score exactly what this round consumes, then re-rank.
         with stage(timings, "match", device):
@@ -245,8 +244,9 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
                 device, best_repeat=best_repeat)
         if not cands:
             break
-        n_new = _refine_and_merge(cands, solutions, sub_struct, dmap, table,
-                                  cfg, device, timings)
+        n_new, top = _refine_and_merge(
+            cands, solutions, sub_struct, dmap, table, cfg, device, timings,
+            n_samples if r + 1 < rounds else 0)
         if verbose and n_new:
             print(f"MaD> Rescue round: {n_new} additional solution(s) in "
                   "unexplained density")

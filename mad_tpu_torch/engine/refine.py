@@ -21,6 +21,7 @@ CUDA launch per call on the card, the plain PyTorch loop on the CPU.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,6 +41,8 @@ class RefineResult:
     converged: np.ndarray     # (C,) bool
     steps: np.ndarray         # (C,) int32 active steps until convergence
     failed: np.ndarray        # (C,) bool: numerical failure (NaN guard)
+    # K15's (rot, trans, coords, failed) as they are on the device, for K16
+    device_out: Optional[tuple] = None
 
 
 def refine_inputs(dmap: DensityGrid, start_coords: np.ndarray, device):
@@ -73,4 +76,4 @@ def refine_candidates(dmap: DensityGrid, start_coords: np.ndarray,
         rot=rot.cpu().numpy(), trans=trans.cpu().numpy(),
         coords=coords.cpu().numpy().astype(np.float64),
         converged=frozen.cpu().numpy(), steps=counts.cpu().numpy(),
-        failed=failed.cpu().numpy())
+        failed=failed.cpu().numpy(), device_out=(rot, trans, coords, failed))

@@ -7,9 +7,10 @@ sources are in ``mad_tpu_torch/csrc`` and build on first use
 (:mod:`.build`).
 """
 
-from . import (approx, cluster, conv1d, describe, enumerate, field,
+from . import (approx, ccc, cluster, conv1d, describe, enumerate, field,
                gather_norm, gradient, hetero, localize, orient, overlap,
-               pairs, peaks, refine, repeat, scatter, upsample)
+               pairs, peaks, post, refine, repeat, scatter, symmetrize,
+               upsample)
 
 # name -> (wrapper module, CUDA source, the mad_tpu body it replaces), in
 # the order of the bodies' K numbers (ROADMAP Queue 2)
@@ -44,12 +45,18 @@ KERNELS = {
                        "mad_tpu/engine/dock_fused.py:50"),
     "refine": (refine, "mad_tpu_torch/csrc/refine.cu",
                "mad_tpu/engine/refine.py:63"),
+    "post": (post, "mad_tpu_torch/csrc/post.cu",
+             "mad_tpu/engine/dock_fused.py:344"),
+    "batched_ccc": (ccc, "mad_tpu_torch/csrc/ccc.cu",
+                    "mad_tpu/engine/score.py:31"),
     "pack_overlap": (overlap, "mad_tpu_torch/csrc/overlap.cu",
                      "mad_tpu/engine/assemble.py:123"),
     "enumerate_head": (enumerate, "mad_tpu_torch/csrc/enumerate.cu",
                        "mad_tpu/engine/assemble.py:338"),
     "hetero_head": (hetero, "mad_tpu_torch/csrc/enumerate.cu",
                     "mad_tpu/engine/assemble.py:500"),
+    "sym_trim": (symmetrize, "mad_tpu_torch/csrc/symmetrize.cu",
+                 "mad_tpu/engine/assemble.py:316"),
 }
 
 

@@ -68,6 +68,12 @@ SIGNATURES = {
     "mad_localize": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P,
                      _P],
     "mad_gather_norm": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
+    "mad_post": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I,
+                 _P, _I, _P, _I, _D, _D, _P, _I, _D, _I, _P, _P, _P, _P, _P,
+                 _P],
+    "mad_batched_ccc": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P,
+                        _P],
+    "mad_sym_trim": [_P, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

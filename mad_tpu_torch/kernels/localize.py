@@ -4,7 +4,8 @@ Replaces mad_tpu/ops/detect.py:125-163 (``localize``, with
 ``_hessian_grad`` :54-70, ``_inv3`` :73-88 and ``_neg_semidefinite``
 :91-103; parity: mad/Detector.py:66-107). Each peak runs up to ``n_iter``
 Newton steps on the finite-difference Hessian and gradient of the 3x3x3
-patch at its position: an offset component beyond ``max_offset`` walks
+patch at its position (placed on a face as mad_tpu places it,
+:func:`patch_index`): an offset component beyond ``max_offset`` walks
 one voxel that way (clamped to the interior of the real extent), all
 components within it accept the peak, a singular Hessian (|det| <= 1e-20)
 marks it bad; an accepted or bad peak is frozen. Accepted peaks whose last
@@ -86,7 +87,21 @@ def _neg_semidefinite(H: torch.Tensor) -> torch.Tensor:
 
 
 _PATCH = torch.stack(torch.meshgrid(
-    *([torch.arange(-1, 2)] * 3), indexing="ij"), -1).reshape(27, 3)
+    *([torch.arange(3)] * 3), indexing="ij"), -1).reshape(27, 3)
+
+
+def patch_index(pos: torch.Tensor, shape) -> torch.Tensor:
+    """(K, 27, 3) voxel indices of the 3x3x3 patch about each position
+    (K, 3), as mad_tpu's ``lax.dynamic_slice`` places it: per axis the
+    start s = pos - 1 becomes s + n when negative (n the volume's own
+    extent), then is clamped to [0, n - 3]. So at the upper face the
+    patch ends on the last voxel, and at pos 0 it is the far face's last
+    three voxels. The position itself is not clamped."""
+    n = torch.as_tensor([int(e) for e in shape], device=pos.device)
+    start = pos - 1
+    start = torch.where(start < 0, start + n, start)
+    start = torch.minimum(torch.clamp(start, min=0), n - 3)
+    return start[:, None, :] + _PATCH.to(pos.device)[None]
 
 
 def localize_plain(vol: torch.Tensor, seeds: torch.Tensor, real_shape,
@@ -96,14 +111,13 @@ def localize_plain(vol: torch.Tensor, seeds: torch.Tensor, real_shape,
     K = seeds.shape[0]
     dev = vol.device
     rs = torch.as_tensor(real_shape, device=dev)
-    patch_off = _PATCH.to(dev)
     pos = seeds.clone()
     offset = torch.zeros((K, 3), dtype=vol.dtype, device=dev)
     H = torch.zeros((K, 3, 3), dtype=vol.dtype, device=dev)
     accepted = torch.zeros(K, dtype=torch.bool, device=dev)
     bad = torch.zeros(K, dtype=torch.bool, device=dev)
     for _ in range(n_iter):
-        p = pos[:, None, :] + patch_off[None]
+        p = patch_index(pos, vol.shape)
         patch = vol[p[..., 0], p[..., 1], p[..., 2]].reshape(K, 3, 3, 3)
         Hn, G = _hessian_grad(patch)
         Hinv, ok = _inv3(Hn)
@@ -131,10 +145,13 @@ def localize(vol: torch.Tensor, seeds: torch.Tensor, real_shape,
     volume ``vol``; ``real_shape`` bounds the walk. Returns (coords (K, 3)
     int64, subvox (K, 3) float32, good (K,) bool: accepted and not a
     saddle)."""
+    if vol.dim() != 3 or min(vol.shape) < 3:
+        raise ValueError(f"localize: need a 3D volume of extent >= 3, got "
+                         f"{tuple(vol.shape)}")
     if vol.device.type == "cpu":
         return localize_plain(vol, seeds, real_shape, max_offset, n_iter)
     global launches
-    if vol.dim() != 3 or vol.dtype != torch.float32:
+    if vol.dtype != torch.float32:
         raise ValueError(f"localize: need a 3D float32 volume, got "
                          f"{tuple(vol.shape)} {vol.dtype}")
     if seeds.dim() != 2 or seeds.shape[1] != 3 or seeds.dtype != torch.int64:

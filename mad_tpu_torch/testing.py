@@ -6,8 +6,10 @@ walk) and homomultimer assemblies for tests and the chip smoke run, plus
 the self-fit decoy transform. ``near_isovalue``, ``overlap_slack`` and
 ``overlap_tolerance`` are the port's own: the bound that two computations
 of one solution set's overlap matrix are held to; so is ``pose_table``, a
-synthetic match table for the pose clustering; and ``recording``, which
-collects the inputs a call site on the path gives a kernel.
+synthetic match table for the pose clustering; ``post_scenario`` and
+``post_round``, two docking rounds of refined lanes for the post-refine
+merge; and ``recording``, which collects the inputs a call site on the
+path gives a kernel.
 """
 
 from __future__ import annotations
@@ -221,6 +223,102 @@ def _rotations(rng, n: int) -> np.ndarray:
         2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
         2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
         -1).reshape(n, 3, 3)
+
+
+def _turn(rng, angle: float) -> np.ndarray:
+    """A rotation by ``angle`` rad about a random axis (float64)."""
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * (K @ K)
+
+
+# Lanes of the two rounds of post_scenario: (copy, turn in rad, shift in A)
+# of the refined pose, or "failed" / "far" (refined 200 A away: no hit).
+POST_LANES = (
+    ((0, 0.01, 0.3), "failed", "far", (1, 0.01, 0.2), (1, 0.03, 0.8),
+     (2, 0.0, 0.1)),
+    ((1, 0.02, 0.5), (3, 0.01, 0.2), (3, 0.02, 0.6), (0, 1.0, 0.3)),
+)
+
+
+def post_scenario(seed: int = 0, n_res: int = 12, n_rows: int = 160):
+    """Two docking rounds' worth of refined lanes for the post-refine merge
+    (K16), made from a numpy seed: a subunit of n_res residues, 10 subunit
+    anchors, map anchors at four copies' poses (0.4 A noise) plus 6 stray
+    ones, ``n_rows`` table rows on those anchors plus 3 rows off them. Each
+    round (POST_LANES) starts every lane on its copy's exact pose, then the
+    lane's refined pose turns and shifts it. In round 1 lane 1 is failed,
+    lane 2 has no hit and lane 4 lies within the dedup RMSD of lane 3; in
+    round 2 lane 0 merges into a round-1 solution and lane 2 into lane 1.
+    Returns numpy arrays: sub, hi_cloud, lo_cloud, lo_rows and per round
+    the candidates' rot (float32) / hi / lo / weight / members and the
+    refinement's R, t, coords (float32) and failed."""
+    rng = np.random.default_rng(seed)
+    sub = make_protein(n_res=n_res, seed=seed)
+    sub = sub.with_coords(sub.coords - sub.center())
+    x0 = sub.coords
+    hi_cloud = (x0[rng.choice(len(x0), 10, replace=False)]
+                + rng.normal(scale=0.5, size=(10, 3)))
+    copies = [(_rotations(rng, 1)[0], rng.normal(size=3) * 40)
+              for _ in range(4)]
+    lo_cloud = np.unique(np.round(np.concatenate(
+        [hi_cloud @ R + T + rng.normal(scale=0.4, size=hi_cloud.shape)
+         for R, T in copies] + [rng.normal(size=(6, 3)) * 60]), 3), axis=0)
+    lo_rows = np.concatenate([lo_cloud[rng.integers(0, len(lo_cloud),
+                                                    n_rows)],
+                              rng.normal(size=(3, 3)) * 30])
+    rounds = []
+    for lanes in POST_LANES:
+        rd = {k: [] for k in ("rot", "hi", "lo", "weight", "members", "R",
+                              "t", "coords", "failed")}
+        for i, lane in enumerate(lanes):
+            k, turn, shift = ((2, 0.0, 0.0) if lane == "failed" else
+                              (3, 0.0, 0.0) if lane == "far" else lane)
+            R, T = copies[k]
+            h = hi_cloud[rng.integers(0, len(hi_cloud))]
+            rot = R.T.astype(np.float32)
+            lo = h @ R + T
+            y0 = ((x0 - h) @ rot.T.astype(np.float64) + lo).astype(np.float32)
+            center = y0.sum(axis=0) / np.float32(len(y0))
+            Rm = _turn(rng, turn).astype(np.float32)
+            t = (np.array([200.0, 0.0, 0.0]) if lane == "far" else
+                 rng.normal(size=3) * shift / np.sqrt(3)).astype(np.float32)
+            coords = (y0 - center) @ Rm + center + t
+            if lane == "failed":
+                coords[:] = np.nan
+            for key, v in (("rot", rot), ("hi", h), ("lo", lo),
+                           ("weight", int(rng.integers(1, 6))),
+                           ("members", [np.full(8, 10.0 * len(rounds) + i)]),
+                           ("R", Rm), ("t", t), ("coords", coords),
+                           ("failed", lane == "failed")):
+                rd[key].append(v)
+        rounds.append({k: (v if k in ("weight", "members") else np.stack(v))
+                       for k, v in rd.items()})
+    return dict(sub=sub, hi_cloud=hi_cloud, lo_cloud=lo_cloud,
+                lo_rows=lo_rows, rounds=rounds)
+
+
+def post_round(sc: dict, r: int, device):
+    """Round r of a post_scenario as the port's docking gets it: the
+    candidates (with rot, hi_coord, lo_coord, weight, members) and the
+    refinement result, K15's device outputs on ``device`` included."""
+    import torch
+    from types import SimpleNamespace
+    from .engine.refine import RefineResult
+    rd = sc["rounds"][r]
+    cands = [SimpleNamespace(rot=rd["rot"][i], hi_coord=rd["hi"][i],
+                             lo_coord=rd["lo"][i], weight=rd["weight"][i],
+                             members=rd["members"][i])
+             for i in range(len(rd["weight"]))]
+    dev = [torch.as_tensor(rd[k], device=device)
+           for k in ("R", "t", "coords", "failed")]
+    res = RefineResult(rot=rd["R"], trans=rd["t"],
+                       coords=rd["coords"].astype(np.float64),
+                       converged=~rd["failed"], steps=None,
+                       failed=rd["failed"], device_out=tuple(dev))
+    return cands, res
 
 
 def pose_table(n: int, n_centers: int, seed: int, a_hi: int = 32,

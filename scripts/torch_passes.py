@@ -9,8 +9,9 @@ Runs chip_smoke.py's bench fit (the whole of bench.py:run_fit through
 mad_tpu_torch): one warm pass, then ``--pairs`` pairs of timed passes in
 ABBA order (kernels, plain, plain, kernels, ...), where "plain" swaps the
 plain versions of ``chip_smoke.fit_swaps()`` in (the describe stage's K2,
-K3, K5, K8, then K6, K15 and the matching front: K10's head, K11, K12,
-K14); prints each pass's stage seconds and the per-stage median and
+K3, K5, K8, then K6, K15, the matching front: K10's head, K11, K12, K14,
+and K16, K17); prints each pass's stage seconds (the docking's ``post``
+stage included) and the per-stage median and
 minimum of each side. Then one pass under torch.profiler (device time,
 kernel launches, idle share of the pass) and the session phase's two runs
 under cProfile (the top functions of each by cumulative host time).

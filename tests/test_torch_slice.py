@@ -160,5 +160,5 @@ def test_stage_timings_are_collected(both):
         make_assembly(n_copies=N_COPIES, n_res=40, seed=3, spread=14.0)[0]),
         both["tmap"], RES, both["tcfg"], n_copies=N_COPIES, device="cpu",
         timings=timings)
-    assert {"match", "cluster", "refine", "score"} <= set(timings)
+    assert {"match", "cluster", "refine", "post", "score"} <= set(timings)
     assert all(v >= 0 for v in timings.values())
