@@ -69,7 +69,19 @@ Phases, each of which raises (non-zero exit) when it fails:
   9. a small two-copy fit through the card and through the CPU (plain
      versions) must recover the same copies at the same poses, and the
      assembly of the card's solutions on the card and on the CPU must
-     agree as in phase 6.
+     agree as in phase 6;
+ 10. capacity mode: describe_grid of the bench map on a mesh of 4 and of
+     3 shards that share the card (make_mesh(n, devices=["cuda:0"] * n)),
+     the launch counters reset just before the first run of each, must
+     give the single-device DescriptorSet bit for bit, launch K1-K7, and
+     read no field with more rows than its slab's own plus twice the
+     octave's largest halo; its seconds (median of 3) beside the
+     single-device run's, with the peak memory of each; then the shard
+     bodies' kernels at shard 1's inputs (the upsampled octave's build on
+     its halo block, K4 and K5's offset forms, K6's, K7's), recorded during
+     one more run, against their plain versions and timed with their
+     bounds: the report rows sharded_scalespace, detect_shard, orient_shard
+     and describe_shard, with their launches in the 4-shard run.
 The last three lines are the kernel report (JSON), the nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
@@ -115,6 +127,26 @@ ASSEMBLY_STAGES = ("overlap", "enumerate", "score_models")
 # K16, K17)
 SESSION_KERNELS = ("upsample_axis", "gradient", "localize", "orient",
                    "gather_norm", "refine", "post", "batched_ccc")
+# capacity mode: the shard counts, the kernels its octave chain must
+# launch, the DescriptorSet fields held bit for bit, and the report rows of
+# the shard bodies: name -> (the kernels whose launches it counts, source,
+# the mad_tpu body)
+CAPACITY_SHARDS = (4, 3)
+CAPACITY_KERNELS = ("conv1d", "upsample_axis", "gradient", "peak_mask_compact",
+                    "localize", "orient", "descriptor_hist")
+SET_FIELDS = ("coords", "map_coords", "subv_coords", "rfinal", "octave",
+              "anchor_id", "main_bin", "sec_bin")
+CAPACITY_ROWS = {
+    "sharded_scalespace": (("conv1d", "upsample_axis", "gradient"),
+                           "mad_tpu_torch/csrc/conv1d.cu",
+                           "mad_tpu/parallel/volume.py:79"),
+    "detect_shard": (("peak_mask_compact", "localize"),
+                     "mad_tpu_torch/csrc/peaks.cu", "mad_tpu/ops/detect.py:236"),
+    "orient_shard": (("orient",), "mad_tpu_torch/csrc/orient.cu",
+                     "mad_tpu/ops/orient.py:369"),
+    "describe_shard": (("descriptor_hist",), "mad_tpu_torch/csrc/describe.cu",
+                       "mad_tpu/ops/describe.py:179"),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -376,6 +408,16 @@ def measure(err, kernel, plain, nbytes, ops, library=None,
                 plain_ms=cuda_ms(plain),
                 library_ms=None if library is None else cuda_ms(library),
                 **bound(nbytes, ops, peak_ops))
+
+
+def say_measure(name, r):
+    lib = r["library_ms"]
+    say(f"  {name}: max abs err {r['max_abs_err']:g}, kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+        + ("none" if lib is None else f"{lib:.4f} ms")
+        + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+        f"{r['bytes']:.4g} B, {r['ops']:.4g} ops; "
+        f"{r['bound_ms'] / r['ms']:.1%} of the kernel's time)")
 
 
 def kernel_checks(fit, cfg, device):
@@ -641,7 +683,8 @@ def describe_checks(fit, cfg, device):
     return out
 
 
-def newton_work(vol, seeds, real_shape, max_offset, n_iter):
+def newton_work(vol, seeds, real_shape, max_offset, n_iter, goff=0,
+                nx=None):
     """The Newton steps that this run's peaks take (a peak stops once it
     is accepted or bad) and the distinct voxels their patches read: the
     work of K5's function on these peaks. Walks as localize_plain."""
@@ -656,7 +699,7 @@ def newton_work(vol, seeds, real_shape, max_offset, n_iter):
     steps, ids = 0, []
     for _ in range(n_iter):
         steps += int((~frozen).sum())
-        p = patch_index(pos, vol.shape)
+        p = patch_index(pos, vol.shape, goff, nx)
         ids.append(((p[..., 0] * Y + p[..., 1]) * Z
                     + p[..., 2])[~frozen].reshape(-1))
         Hn, G = _hessian_grad(vol[p[..., 0], p[..., 1], p[..., 2]]
@@ -1010,6 +1053,7 @@ def orient_work(args, out, chunk=32):
     from mad_tpu_torch.core.geometry import norm3
     grad, coords, valid, real_shape, tab, radius, stride = args[:7]
     cutoff = args[9]
+    goff = args[11] if len(args) > 11 else 0      # the offset form's block
     K, M, S = out[3].shape
     P, X, Y, Z = tab.mask.numel(), *grad.shape[:3]
     belts, per_belt = torch.unique(tab.bounds[:, [1, 3]], dim=0,
@@ -1023,6 +1067,7 @@ def orient_work(args, out, chunk=32):
     for s0 in range(0, K, chunk):
         keep = inside[s0:s0 + chunk]
         pts = coords[s0:s0 + chunk][keep][:, None, :] + tab.offsets[None]
+        pts[..., 0] -= goff
         ids.append(((pts[..., 0] * Y + pts[..., 1]) * Z
                     + pts[..., 2]).reshape(-1))
         g = grad[pts[..., 0], pts[..., 1], pts[..., 2]].to(torch.float32)
@@ -1425,6 +1470,293 @@ def small_reference(device, cfg):
         f"(overlap max diff {e_ov:g}, CCC max diff {e_ccc:g})")
 
 
+# -- phase 10: capacity mode ---------------------------------------------
+
+@contextlib.contextmanager
+def record_first(module, name, pick):
+    """Keep the arguments of the first call of ``module.name`` in the block
+    for which ``pick(args)`` holds (every call still runs)."""
+    got, fn = [], getattr(module, name)
+
+    def rec(*args, **kw):
+        if not got and not kw and pick(args):
+            got.append(args)
+        return fn(*args, **kw)
+
+    setattr(module, name, rec)
+    try:
+        yield got
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def slab_spy():
+    """During a capacity-mode describe_grid, the rows of every field that a
+    kernel of the octave chain reads (K1, K2, K3, K4, K5, K6, K7 at their
+    call sites), each with its octave's bound: the largest slab's own rows
+    plus twice the octave's largest halo (its build halo in octave rows,
+    the orientation's and one more row for K3's input, the detection's),
+    and the octave's rows."""
+    from mad_tpu_torch.engine import pipeline
+    from mad_tpu_torch.kernels import orient as k6
+    from mad_tpu_torch.ops import convolve, describe, detect
+    from mad_tpu_torch.parallel import volume
+    seen, bound = [], {}
+    sites = [(convolve, "conv1d_along"), (convolve, "upsample_axis"),
+             (volume, "gradient"), (detect, "peak_topk"),
+             (detect, "localize"), (k6, "orient"),
+             (describe, "descriptor_hist")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in sites]
+    octave = pipeline._describe_octave
+
+    def octave_spy(octv, cfg, mesh=None):
+        stride = 2 if octv.upsampled else 1
+        halo = max(octv.build_halo() * stride,
+                   pipeline.grad_halo(cfg, octv.upsampled) + 1,
+                   2 + cfg.detect.newton_iters)
+        bound.update(rows=int(max(np.diff(octv.bounds))) + 2 * halo,
+                     full=octv.real_shape[0])
+        return octave(octv, cfg, mesh)
+
+    for mod, name, fn in saved:
+        def spy(*args, _fn=fn, _name=name, **kw):
+            seen.append((_name, int(args[0].shape[0]), dict(bound)))
+            return _fn(*args, **kw)
+        setattr(mod, name, spy)
+    pipeline._describe_octave = octave_spy
+    try:
+        yield seen
+    finally:
+        pipeline._describe_octave = octave
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def median_seconds(fn, reps=3):
+    """Median host seconds of fn() ending in a synchronize, and its result."""
+    import torch
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), out
+
+
+def same_set(a, b):
+    import torch
+    return (a.n == b.n and torch.equal(a.desc, b.desc)
+            and torch.equal(a.desc_norm, b.desc_norm)
+            and all(np.array_equal(getattr(a, k), getattr(b, k))
+                    for k in SET_FIELDS))
+
+
+def capacity_phase(device, cfg, dmap):
+    """describe_grid of the bench map in capacity mode on 4 and on 3
+    shards of the one card: the single-device DescriptorSet bit for bit,
+    no field a kernel reads over its slab's rows plus twice its halo, K1-K7
+    launched; seconds (median of 3) beside the single-device run's, and the
+    phase's peak memory. Then each shard body's kernels at one shard's
+    inputs against their plain versions (shard_checks). Returns the report
+    rows of CAPACITY_ROWS."""
+    import torch
+    from mad_tpu_torch.engine import pipeline
+    from mad_tpu_torch.kernels import launch_counts, reset_launches
+    from mad_tpu_torch.parallel.mesh import make_mesh
+    describe = lambda mesh=None: pipeline.describe_grid(
+        dmap, cfg, name="bench_map",
+        device=device if mesh is None else None, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t_one, ref = median_seconds(describe)
+    peak_one = torch.cuda.max_memory_allocated()
+    counts = None
+    for n in CAPACITY_SHARDS:
+        mesh = make_mesh(n, devices=[device] * n)
+        reset_launches()
+        with slab_spy() as seen:
+            got = describe(mesh)
+            torch.cuda.synchronize()
+        launches = launch_counts()
+        counts = counts or launches
+        check(same_set(got, ref), f"capacity mode on {n} shards: the "
+              "DescriptorSet differs from the single-device one")
+        over = [x for x in seen if not x[1] <= x[2]["rows"] < x[2]["full"]]
+        check(not over, f"capacity mode on {n} shards: fields over their "
+              f"slab's rows plus twice the halo: {over[:4]}")
+        idle = [k for k in CAPACITY_KERNELS if launches[k] == 0]
+        check(not idle, f"capacity mode on {n} shards: {idle} never launched")
+        torch.cuda.reset_peak_memory_stats()
+        t_mesh, got = median_seconds(lambda: describe(mesh))
+        peak = torch.cuda.max_memory_allocated()
+        check(same_set(got, ref), f"capacity mode on {n} shards: a timed "
+              "run differs")
+        worst = max(seen, key=lambda x: x[1] / x[2]["rows"])
+        say(f"capacity mode, {n} shards on {device}: describe_grid "
+            f"{t_mesh:.4f} s median of 3 (single device {t_one:.4f} s), "
+            f"peak {peak / 2**30:.3f} GiB (single device "
+            f"{peak_one / 2**30:.3f} GiB); {got.n} rows, the same "
+            f"DescriptorSet; {len(seen)} kernel inputs, the largest share "
+            f"of its bound {worst[0]} {worst[1]} of {worst[2]['rows']} rows "
+            f"(octave {worst[2]['full']}); launches " + ", ".join(
+                f"{k} {launches[k]}" for k in CAPACITY_KERNELS))
+    rows = shard_checks(device, cfg, dmap)
+    for name, (kernels, _src, _rep) in CAPACITY_ROWS.items():
+        rows[name]["launches"] = sum(counts[k] for k in kernels)
+        say_measure(name, rows[name])
+    return rows
+
+
+def shard_checks(device, cfg, dmap):
+    """The capacity bodies' kernels at shard 1's inputs on the upsampled
+    octave (4 shards), recorded during one describe_grid, against their
+    plain versions and timed: the octave build (K2, K1, the LoG epilogue,
+    K3) on the shard's halo block, equal; K4 and K5's offset forms, equal;
+    K6's (the anchors agreeing as in orient_check); K7's (rows as in
+    kernel_checks)."""
+    import torch
+    from mad_tpu_torch.engine import pipeline
+    from mad_tpu_torch.kernels import conv1d, describe as k7, gradient as k3
+    from mad_tpu_torch.kernels import localize as k5, orient as k6
+    from mad_tpu_torch.kernels import peaks as k4, upsample as k2
+    from mad_tpu_torch.ops import convolve, describe, detect
+    from mad_tpu_torch.ops.scalespace import iter_octaves, octave_volume
+    from mad_tpu_torch.parallel.mesh import make_mesh
+    from mad_tpu_torch.parallel.volume import halo_block
+    from mad_tpu_torch.testing import orient_agreement
+    out = {}
+    mesh = make_mesh(4, devices=[device] * 4)
+    offset = lambda i: lambda a: len(a) > i and a[i] > 0
+    with record_first(detect, "peak_topk", offset(7)) as c4, \
+            record_first(detect, "localize", offset(5)) as c5, \
+            record_first(k6, "orient", offset(11)) as c6, \
+            record_first(describe, "descriptor_hist", offset(11)) as c7:
+        pipeline.describe_grid(dmap, cfg, name="bench_map", mesh=mesh)
+        torch.cuda.synchronize()
+
+    # The octave build on shard 1's block. Bytes: the function's own, the
+    # block read once, the LoG and the gradient field written once (the
+    # launches' own inputs and outputs, the unfused chain's traffic, are
+    # printed beside); operations: 2 flops a nonzero tap of each K1 pass,
+    # 7 a half sample of K2, 6 a voxel of K3.
+    octv = next(o for _org, o in iter_octaves(dmap, cfg.scalespace, mesh)
+                if o.upsampled)
+    c = cfg.scalespace
+    blk, _lo = halo_block(octv.base, 1, octv.build_halo(), mesh)
+    work = dict(bytes=0, ops=0)
+
+    def build(grad=k3.gradient):
+        log, gauss = convolve.log_filter3d(octave_volume(blk, True, c),
+                                           c.detect_sigma, c.truncate)
+        return log, grad(gauss, torch.float32)
+
+    def plain_build():
+        with plain_versions([(convolve, "conv1d_along",
+                              conv1d.conv1d_along_plain),
+                             (convolve, "upsample_axis",
+                              k2.upsample_axis_plain)]):
+            return build(k3.gradient_plain)
+
+    def counted(fn, name):
+        def run(*args, **kw):
+            res = fn(*args, **kw)
+            n_in, n_out = args[0].numel(), res.numel()
+            work["bytes"] += 4 * n_in + res.element_size() * n_out
+            if name == "conv1d_along":
+                work["ops"] += 2 * int(np.count_nonzero(args[1])) * n_out
+            elif name == "upsample_axis":
+                work["ops"] += 7 * (n_out - n_in)
+            else:
+                work["ops"] += 6 * n_in
+            return res
+        return run
+
+    with plain_versions([(convolve, n, counted(getattr(convolve, n), n))
+                         for n in ("conv1d_along", "upsample_axis")]):
+        got = build(counted(k3.gradient, "gradient"))
+    ref = plain_build()
+    check(all(torch.equal(x, y) for x, y in zip(got, ref)),
+          "the shard's octave build differs from the plain versions")
+    own_bytes = 4 * blk.numel() + sum(x.numel() * x.element_size()
+                                      for x in got)
+    out["sharded_scalespace"] = measure(0.0, build, plain_build, own_bytes,
+                                        work["ops"])
+    say(f"  sharded_scalespace: shard 1's block {tuple(blk.shape)} -> "
+        f"{tuple(got[0].shape)} octave rows (LoG, gradient field), equal "
+        f"to the plain versions; bytes in and out {own_bytes:.4g} B, the "
+        f"launches' own {work['bytes']:.4g} B (bound "
+        f"{work['bytes'] / PEAK_BYTES_S * 1e3:.4f} ms unfused)")
+    del got, ref, blk
+
+    # detect_shard: K4 and K5's offset forms, equal. Work as in
+    # kernel_checks (K4: the block read, 27 compares an own voxel, the
+    # peaks written) and describe_checks (K5: newton_work).
+    check(c4 and c5 and c6 and c7, "an offset form was not recorded")
+    a4, a5 = c4[0], c5[0]
+    v1, i1 = k4.peak_topk(*a4)
+    v2, i2 = k4.peak_topk_plain(*a4)
+    check(torch.equal(v1, v2) and torch.equal(i1, i2),
+          "K4's offset form differs from the plain version")
+    got, ref = k5.localize(*a5), k5.localize_plain(*a5)
+    check(all(torch.equal(x, y) for x, y in zip(got, ref)),
+          "K5's offset form differs from the plain version")
+    own = a4[6] * a4[0].shape[1] * a4[0].shape[2]
+    r4 = measure(0.0, lambda: k4.peak_topk(*a4),
+                 lambda: k4.peak_topk_plain(*a4),
+                 4 * a4[0].numel() + 12 * len(v1), 27 * own)
+    K = a5[1].shape[0]
+    steps, voxels = newton_work(*a5)
+    r5 = measure(0.0, lambda: k5.localize(*a5),
+                 lambda: k5.localize_plain(*a5),
+                 4 * voxels + K * (24 + 24 + 12 + 1),
+                 steps * NEWTON_FLOPS + K * SADDLE_FLOPS)
+    out["detect_shard"] = dict(
+        max_abs_err=0.0, library_ms=None, ms=r4["ms"] + r5["ms"],
+        plain_ms=r4["plain_ms"] + r5["plain_ms"],
+        **bound(r4["bytes"] + r5["bytes"], r4["ops"] + r5["ops"]))
+    say(f"  detect_shard: K4 on a block of {tuple(a4[0].shape)} (own rows "
+        f"{a4[5]}-{a4[5] + a4[6]}, x0 {a4[7]}), {len(v1)} peaks; K5 on "
+        f"{K} seeds (goff {a5[5]}); both equal; K4 {r4['ms']:.4f} ms, K5 "
+        f"{r5['ms']:.4f} ms")
+
+    # orient_shard: K6's offset form, the anchors agreeing as in
+    # orient_check; work as orient_work counts it.
+    a6 = c6[0]
+    got = k6.orient(*a6)
+    share, dmax, close = orient_agreement(got, k6.orient_plain(*a6),
+                                          K6_RFINAL_TOL)
+    check(share >= K6_AGREE and close, f"K6's offset form agrees on "
+          f"{share:.5f} of the anchors, frames within {dmax:g}")
+    nbytes, ops = orient_work(a6, got)
+    out["orient_shard"] = measure(dmax, lambda: k6.orient(*a6),
+                                  lambda: k6.orient_plain(*a6), nbytes, ops)
+    say(f"  orient_shard: K6 on {a6[1].shape[0]} anchors, block "
+        f"{tuple(a6[0].shape[:3])} (goff {a6[11]}), "
+        f"{int(got[3].sum())} lanes; agreeing {share:.5f}, frames max diff "
+        f"{dmax:g}")
+
+    # describe_shard: K7's offset form, rows as in kernel_checks; work as
+    # there.
+    a7 = c7[0]
+    d1, ok1 = k7.descriptor_hist(*a7)
+    d2, ok2 = k7.descriptor_hist_plain(*a7)
+    diff = (d1.long() - d2.long()).abs()
+    same = float((diff.sum(dim=1) == 0).float().mean())
+    check(torch.equal(ok1, ok2) and same >= 0.99
+          and int(diff.sum(dim=1).max()) <= 8,
+          f"K7's offset form: rows equal {same:.4f}")
+    L, P, nz = len(ok1), len(a7[5]), len(a7[7])
+    out["describe_shard"] = measure(
+        float(diff.max()), lambda: k7.descriptor_hist(*a7),
+        lambda: k7.descriptor_hist_plain(*a7),
+        L * P * 12 + L * (12 + 36 + 1) + d1.numel() * 2 + L,
+        L * P * (15 + 8 + 15 + 40 + 6 * nz))
+    say(f"  describe_shard: K7 on {L} lanes, block {tuple(a7[0].shape[:3])} "
+        f"(goff {a7[11]}); rows equal {same:.5f}")
+    return out
+
+
 # -- main -----------------------------------------------------------------
 
 
@@ -1449,13 +1781,7 @@ def main():
 
     checks = kernel_checks(fit, cfg, device)
     for name, r in checks.items():
-        lib = r["library_ms"]
-        say(f"  {name}: max abs err {r['max_abs_err']:g}, kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            + ("none" if lib is None else f"{lib:.4f} ms")
-            + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
-            f"{r['bytes']:.4g} B, {r['ops']:.4g} ops; "
-            f"{r['bound_ms'] / r['ms']:.1%} of the kernel's time)")
+        say_measure(name, r)
     del fit
     torch.cuda.empty_cache()
     # Warm again: the plain versions of the checks leave the allocator
@@ -1540,19 +1866,26 @@ def main():
         f"max diff {e_ccc:g})")
     del a, p
     session_phase(device, cfg, fit)
+    dmap = fit["dmap"]
     del fit
     torch.cuda.empty_cache()
 
     counts["hetero_head"] = hetero_phase(device)
     small_reference(device, cfg)
+    capacity = capacity_phase(device, cfg, dmap)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    say(json.dumps({"kernels": [
-        dict({"name": name, "route": "cuda", "source": src, "replaces": rep,
-              "launches": counts[name]},
-             **{k: checks[name][k] for k in keys})
-        for name, (_mod, src, rep) in KERNELS.items()]}))
+    report = [dict({"name": name, "route": "cuda", "source": src,
+                    "replaces": rep, "launches": counts[name]},
+                   **{k: checks[name][k] for k in keys})
+              for name, (_mod, src, rep) in KERNELS.items()]
+    report += [dict({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep,
+                     "launches": capacity[name]["launches"]},
+                    **{k: capacity[name][k] for k in keys})
+               for name, (_k, src, rep) in CAPACITY_ROWS.items()]
+    say(json.dumps({"kernels": report}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

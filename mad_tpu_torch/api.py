@@ -8,8 +8,10 @@ complex_ranking.csv, anchor debug dumps), plus mad_tpu's pose_db
 checkpoint. The caches are ``.npz`` files (mad_tpu_torch/cache.py).
 
 The session runs on ``device`` (the card unless the caller names another)
-and has no mesh: mad_tpu's warm start, describe thread pool and ensemble
-frame groups exist for the TPU host and are not carried over.
+and takes no mesh yet: capacity mode covers the describe path
+(``engine.pipeline.describe_grid(..., mesh=)``), not docking. mad_tpu's
+warm start, describe thread pool and ensemble frame groups exist for the
+TPU host and are not carried over.
 """
 
 from __future__ import annotations

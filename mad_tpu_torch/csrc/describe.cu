@@ -17,6 +17,15 @@
 // PyTorch version (kernels/describe.py), so the two agree bit for bit up
 // to the last-ulp differences of atan2f / acosf between libraries.
 //
+// Offset form (capacity mode, describe.py:167-196 describe_shard, its
+// gathers at describe.py:108-115): grad is a shard's x-slab extended by its
+// neighbours' rows, its row 0 global row goff. The lattice and the bounds
+// test stay global; the nearest sample's global index, minus goff on x,
+// is gathered from the block (clamped to it), so each sample is the one
+// the single-device kernel reads. The halo of radius * stride * 2 rows
+// covers the rotated lattice of every lane the shard owns. The
+// single-device call is goff = 0.
+//
 // Bound: the random 12-byte gathers of the gradient field (4096 a lane,
 // from a field of up to ~2 GB that does not fit L2) and the per-point zone
 // test (16 zones x a few compares). Design: one block of 256 threads per
@@ -45,7 +54,8 @@ __device__ __forceinline__ float load_f<__nv_bfloat16>(
 template <typename T>
 __global__ void descriptor_hist(
     const T* __restrict__ grad, int X, int Y, int Z, int rx, int ry, int rz,
-    const float* __restrict__ coords, const float* __restrict__ rfinal,
+    int goff, const float* __restrict__ coords,
+    const float* __restrict__ rfinal,
     const unsigned char* __restrict__ valid_in,
     const float* __restrict__ lattice, const int* __restrict__ region,
     int P, const float* __restrict__ bounds, int nzones, int nregions,
@@ -81,7 +91,7 @@ __global__ void descriptor_hist(
                            mul_rn(l2, R[6 + j])),
                     c[j]);
       inb = inb && (q[j] >= 0.0f) && (q[j] <= hi[j]);
-      int t = (int)ceilf(q[j] - 0.5f);
+      int t = (int)ceilf(q[j] - 0.5f) - (j == 0 ? goff : 0);
       t = t < 0 ? 0 : (t > dims[j] - 1 ? dims[j] - 1 : t);
       id[j] = t;
     }
@@ -131,7 +141,7 @@ __global__ void descriptor_hist(
 // grad_dtype: 0 = float32, 1 = bfloat16 (the (X, Y, Z, 3) field).
 MAD_EXPORT int mad_descriptor_hist(
     const void* grad, int grad_dtype, int X, int Y, int Z, int rx, int ry,
-    int rz, const float* coords, const float* rfinal,
+    int rz, int goff, const float* coords, const float* rfinal,
     const unsigned char* valid_in, int L, const float* lattice,
     const int* region, int P, const float* bounds, int nzones, int nregions,
     float cutoff, float zero_magn, short* out, unsigned char* ok_out,
@@ -141,14 +151,14 @@ MAD_EXPORT int mad_descriptor_hist(
   const size_t smem = (size_t)nregions * nzones * sizeof(int);
   if (grad_dtype == 0) {
     descriptor_hist<float><<<L, kThreads, smem, stream>>>(
-        static_cast<const float*>(grad), X, Y, Z, rx, ry, rz, coords, rfinal,
-        valid_in, lattice, region, P, bounds, nzones, nregions, cutoff,
-        zero_magn, out, ok_out);
-  } else {
-    descriptor_hist<__nv_bfloat16><<<L, kThreads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(grad), X, Y, Z, rx, ry, rz, coords,
+        static_cast<const float*>(grad), X, Y, Z, rx, ry, rz, goff, coords,
         rfinal, valid_in, lattice, region, P, bounds, nzones, nregions,
         cutoff, zero_magn, out, ok_out);
+  } else {
+    descriptor_hist<__nv_bfloat16><<<L, kThreads, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(grad), X, Y, Z, rx, ry, rz, goff,
+        coords, rfinal, valid_in, lattice, region, P, bounds, nzones,
+        nregions, cutoff, zero_magn, out, ok_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

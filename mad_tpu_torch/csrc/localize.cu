@@ -25,6 +25,14 @@
 // extent), then is clamped to [0, n - 3] (kernels/localize.patch_index);
 // pos itself is not clamped.
 //
+// Offset form (capacity mode, detect.py:236-275 detect_shard): vol is a
+// shard's x-slab extended by its neighbours' rows, whose row 0 is global
+// row goff of a field of nx rows. The walk and its bounds stay global; the
+// x start is placed by the rule above with the field's extent nx, then
+// moved into the block (minus goff, clamped to [0, X - 3]). The halo of
+// 2 + n_iter rows covers the walk of every seed the shard owns. The
+// single-device call is goff = 0, nx = X.
+//
 // Bound: latency. ~400 peaks an octave, each a chain of 5 dependent
 // steps of 27 gathers and ~150 flops: the work (~0.2 MB, ~1 kflop a
 // peak) is under a microsecond of the card; one launch replaces the
@@ -56,16 +64,20 @@ __device__ __forceinline__ float cross(float a, float b, float c, float d) {
   return sub_rn(mul_rn(a, b), mul_rn(c, d));
 }
 
-__device__ __forceinline__ long long patch_start(long long pos, int n) {
+// Patch start on an axis of n_full samples, moved into a block of n_blk
+// samples that starts at sample off.
+__device__ __forceinline__ long long patch_start(long long pos, int n_full,
+                                                 long long off, int n_blk) {
   long long s = pos - 1;
-  if (s < 0) s += n;
-  return s < 0 ? 0 : (s > n - 3 ? n - 3 : s);
+  if (s < 0) s += n_full;
+  s = (s < 0 ? 0 : (s > n_full - 3 ? n_full - 3 : s)) - off;
+  return s < 0 ? 0 : (s > n_blk - 3 ? n_blk - 3 : s);
 }
 
 __global__ void localize(const float* __restrict__ vol, int X, int Y, int Z,
                          const long long* __restrict__ seeds, int K, int rx,
                          int ry, int rz, float max_offset, int n_iter,
-                         long long* __restrict__ pos_out,
+                         int goff, int nx, long long* __restrict__ pos_out,
                          float* __restrict__ subvox,
                          unsigned char* __restrict__ good) {
   const int k = blockIdx.x * kThreads + threadIdx.x;
@@ -77,8 +89,9 @@ __global__ void localize(const float* __restrict__ vol, int X, int Y, int Z,
   bool accepted = false, bad = false;
   for (int it = 0; it < n_iter; ++it) {
     float p[27];   // p[a][b][c] at (x0 + a, y0 + b, z0 + c)
-    const long long x0 = patch_start(pos[0], X), y0 = patch_start(pos[1], Y),
-                    z0 = patch_start(pos[2], Z);
+    const long long x0 = patch_start(pos[0], nx, goff, X),
+                    y0 = patch_start(pos[1], Y, 0, Y),
+                    z0 = patch_start(pos[2], Z, 0, Z);
     for (int a = 0; a < 3; ++a) {
       for (int b = 0; b < 3; ++b) {
         const float* row = vol + ((x0 + a) * Y + y0 + b) * Z + z0;
@@ -155,12 +168,12 @@ __global__ void localize(const float* __restrict__ vol, int X, int Y, int Z,
 // subvox (K, 3) float32 and good (K,) bool, written whole.
 MAD_EXPORT int mad_localize(const float* vol, int X, int Y, int Z,
                             const long long* seeds, int K, int rx, int ry,
-                            int rz, float max_offset, int n_iter,
-                            long long* pos, float* subvox,
+                            int rz, float max_offset, int n_iter, int goff,
+                            int nx, long long* pos, float* subvox,
                             unsigned char* good, cudaStream_t stream) {
   if (K <= 0) return 0;
   localize<<<(K + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      vol, X, Y, Z, seeds, K, rx, ry, rz, max_offset, n_iter, pos, subvox,
-      good);
+      vol, X, Y, Z, seeds, K, rx, ry, rz, max_offset, n_iter, goff, nx, pos,
+      subvox, good);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,6 +19,15 @@
 // Each product and sum is rounded on its own in the plain version's order;
 // atan2f / acosf as core/geometry.spherical_angles calls them.
 //
+// Offset form (capacity mode, orient.py:356-387 orient_shard, its gathers
+// at orient.py:255-263): grad is a shard's x-slab extended by its
+// neighbours' rows, its row 0 global row goff. The border test and the
+// clamped patch centre stay global; the gathers move into the block (x
+// minus goff, clamped to it). The halo of radius * stride * 2 rows covers
+// the patch of every anchor inside the border that the shard owns; the
+// others are rejected by the border test and written as zeros. The
+// single-device call is goff = 0.
+//
 // Histogram sums: each weight is rounded to a multiple of 2^-40 and added
 // with 64-bit integer atomics, so a sum is exact and independent of the
 // order of the atomics: the kernel is deterministic. With the default
@@ -170,8 +179,9 @@ __device__ __forceinline__ void rot_z(float angle, float R[9]) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads) orient_kernel(
     const T* __restrict__ grad, int X, int Y, int Z, int rx, int ry, int rz,
-    const int* __restrict__ coords, const unsigned char* __restrict__ valid,
-    int radius, int stride, const float* __restrict__ mask,
+    int goff, const int* __restrict__ coords,
+    const unsigned char* __restrict__ valid, int radius, int stride,
+    const float* __restrict__ mask,
     const float* __restrict__ bounds, int nz,
     const float* __restrict__ rot_to_pole, const float* __restrict__ p_theta,
     const float* __restrict__ belt_first, int M, int S, float cutoff,
@@ -203,7 +213,7 @@ __global__ void __launch_bounds__(kThreads) orient_kernel(
     for (int m = 0; m < M; ++m) s_main[m] = 0;
   }
   __syncthreads();
-  const int at[3] = {safe[0], safe[1], safe[2]};
+  const int at[3] = {safe[0] - goff, safe[1], safe[2]};   // in the block
 
   if (s_ok) {
     for (int p = tid; p < P; p += blockDim.x) {
@@ -314,7 +324,8 @@ __global__ void __launch_bounds__(kThreads) orient_kernel(
 
 template <typename T>
 int launch(const T* grad, int X, int Y, int Z, int rx, int ry, int rz,
-           const int* coords, const unsigned char* valid, int K, int radius,
+           int goff, const int* coords, const unsigned char* valid, int K,
+           int radius,
            int stride, const float* mask, const float* bounds, int nz,
            const float* rot_to_pole, const float* p_theta,
            const float* belt_first, int M, int S, float cutoff, int* mains,
@@ -322,9 +333,9 @@ int launch(const T* grad, int X, int Y, int Z, int rx, int ry, int rz,
   const size_t smem = (size_t)(1 + M) * nz * sizeof(unsigned long long) +
                       (size_t)4 * nz * sizeof(float);
   orient_kernel<T><<<K, kThreads, smem, stream>>>(
-      grad, X, Y, Z, rx, ry, rz, coords, valid, radius, stride, mask, bounds,
-      nz, rot_to_pole, p_theta, belt_first, M, S, cutoff, mains, secs, rfin,
-      ok);
+      grad, X, Y, Z, rx, ry, rz, goff, coords, valid, radius, stride, mask,
+      bounds, nz, rot_to_pole, p_theta, belt_first, M, S, cutoff, mains, secs,
+      rfin, ok);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -333,7 +344,8 @@ int launch(const T* grad, int X, int Y, int Z, int rx, int ry, int rz,
 // grad_dtype: 0 = float32, 1 = bfloat16 (the (X, Y, Z, 3) field); coords
 // (K, 3) int32 voxel coords; tables as ops/orient._OrientTables builds them.
 MAD_EXPORT int mad_orient(const void* grad, int grad_dtype, int X, int Y,
-                          int Z, int rx, int ry, int rz, const int* coords,
+                          int Z, int rx, int ry, int rz, int goff,
+                          const int* coords,
                           const unsigned char* valid, int K, int radius,
                           int stride, const float* mask, const float* bounds,
                           int nz, const float* rot_to_pole,
@@ -348,11 +360,11 @@ MAD_EXPORT int mad_orient(const void* grad, int grad_dtype, int X, int Y,
     return static_cast<int>(cudaErrorInvalidValue);
   if (grad_dtype == 0)
     return launch(static_cast<const float*>(grad), X, Y, Z, rx, ry, rz,
-                  coords, valid, K, radius, stride, mask, bounds, nz,
+                  goff, coords, valid, K, radius, stride, mask, bounds, nz,
                   rot_to_pole, p_theta, belt_first, M, S, cutoff, mains,
                   secs, rfin, ok, stream);
   return launch(static_cast<const __nv_bfloat16*>(grad), X, Y, Z, rx, ry, rz,
-                coords, valid, K, radius, stride, mask, bounds, nz,
+                goff, coords, valid, K, radius, stride, mask, bounds, nz,
                 rot_to_pole, p_theta, belt_first, M, S, cutoff, mains, secs,
                 rfin, ok, stream);
 }

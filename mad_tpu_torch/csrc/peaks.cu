@@ -10,6 +10,14 @@
 // the wrapper sorts the survivors by (-value, index), which is the exact
 // top-k of detect.py with its flat-index tie order.
 //
+// Offset form (capacity mode, detect.py:236-275 detect_shard): the volume
+// is a block of E x-rows, of which rows [row0, row0 + rows) are the
+// shard's own and the others its neighbours' halo, read only by the 3x3x3
+// neighbourhood; x0 is the global row of own row 0, so the border test is
+// in global coordinates. The index emitted is local to the own rows (the
+// wrapper adds x0 * Y * Z in int64). The single-device call is row0 = 0,
+// rows = E, x0 = 0.
+//
 // Bound: one read of the LoG volume (4 bytes a voxel; the 26 neighbour
 // reads hit L1/L2). Design: the threshold and border tests run first, so
 // only the few voxels above threshold pay the neighbourhood reads; one
@@ -21,21 +29,24 @@
 namespace {
 
 __global__ void peak_mask_compact(const float* __restrict__ vol, int X,
-                                  int Y, int Z, int rx, int ry, int rz,
-                                  int border, float threshold,
+                                  int Y, int Z, int row0, int rows, int x0,
+                                  int rx, int ry, int rz, int border,
+                                  float threshold,
                                   float* __restrict__ out_vals,
                                   int* __restrict__ out_idx,
                                   int* __restrict__ counter, int capacity) {
-  const long long total = (long long)X * Y * Z;
+  const long long total = (long long)rows * Y * Z;
+  const float* own = vol + (long long)row0 * Y * Z;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += stride) {
-    const float v = vol[i];
+    const float v = own[i];
     if (!(v > threshold)) continue;
     const int z = (int)(i % Z);
     const int y = (int)((i / Z) % Y);
-    const int x = (int)(i / ((long long)Y * Z));
-    if (x < border || x >= rx - border || y < border || y >= ry - border ||
+    const int x = row0 + (int)(i / ((long long)Y * Z));   // block row
+    const int gx = x0 + x - row0;                          // global row
+    if (gx < border || gx >= rx - border || y < border || y >= ry - border ||
         z < border || z >= rz - border)
       continue;
     float m = v;
@@ -65,16 +76,17 @@ __global__ void peak_mask_compact(const float* __restrict__ vol, int X,
 }  // namespace
 
 MAD_EXPORT int mad_peak_mask_compact(const float* vol, int X, int Y, int Z,
-                                     int rx, int ry, int rz, int border,
+                                     int row0, int rows, int x0, int rx,
+                                     int ry, int rz, int border,
                                      float threshold, float* out_vals,
                                      int* out_idx, int* counter,
                                      int capacity, cudaStream_t stream) {
-  const long long total = (long long)X * Y * Z;
+  const long long total = (long long)rows * Y * Z;
   long long blocks = (total + 255) / 256;
   if (blocks > 132 * 64) blocks = 132 * 64;   // grid-stride beyond this
   if (blocks < 1) blocks = 1;
   peak_mask_compact<<<(unsigned)blocks, 256, 0, stream>>>(
-      vol, X, Y, Z, rx, ry, rz, border, threshold, out_vals, out_idx,
-      counter, capacity);
+      vol, X, Y, Z, row0, rows, x0, rx, ry, rz, border, threshold, out_vals,
+      out_idx, counter, capacity);
   return static_cast<int>(cudaGetLastError());
 }

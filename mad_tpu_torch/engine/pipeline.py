@@ -7,6 +7,16 @@ all octaves are gathered, concatenated and L2-normalized in one launch of
 K8 (mad/MaD.py:358-368). Every buffer is sized from the real
 counts of the run, so there are no static frames, overflow redos or
 approximate-peak guards.
+
+Capacity mode (``mesh=``, mad_tpu's ``_describe_octave_mesh``,
+engine/pipeline.py:541-610): the octave fields stay x-slabs over the mesh
+through detect, orient and describe (``ops.scalespace.ShardedOctave``,
+``parallel.volume``; the LoG and the gradient field as one halo block a
+shard, each built once), so no shard holds a whole field; the anchor table,
+the frames and the descriptor rows come back to the mesh's first device in
+the single-device order (anchor slot, main, sec), and K8 and everything
+after it are shared with the single-device path. The ``DescriptorSet`` is
+the single-device one, bit for bit.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from ..ops.detect import detect_anchors
 from ..ops.orient import orient_anchors
 from ..ops.scalespace import gradient, iter_octaves
 from ..ops.simulate import simulate_density
+from ..parallel.volume import sharded_gradient
 
 
 @dataclass
@@ -63,7 +74,8 @@ class OctaveLanes:
     valid (anchor, main bin, secondary bin), in (anchor, main, sec) order:
     the input of the descriptor kernel."""
 
-    grad: torch.Tensor        # (X, Y, Z, 3) gradient of the smoothed octave
+    grad: object              # (X, Y, Z, 3) gradient of the smoothed
+                              # octave (with a mesh, its halo Blocks)
     coords: torch.Tensor      # (L, 3) int64 anchor voxel coords
     rfinal: torch.Tensor      # (L, 3, 3) float32 frames
     slot: torch.Tensor        # (L,) detection slot of the lane's anchor
@@ -72,19 +84,31 @@ class OctaveLanes:
     sec: torch.Tensor         # (L,) secondary bin
 
 
-def octave_lanes(octv, cfg: MadConfig) -> OctaveLanes:
+def grad_halo(cfg: MadConfig, upsampled: bool) -> int:
+    """Rows of the gradient field that orientation and the descriptors
+    read beyond an anchor's x: radius * stride * 2, mad_tpu's halo."""
+    stride = 2 if upsampled else 1
+    return max((c.patch_size - c.patch_size % 2) // 2
+               for c in (cfg.orient, cfg.describe)) * stride * 2
+
+
+def octave_lanes(octv, cfg: MadConfig, mesh=None) -> OctaveLanes:
     """LoG -> anchors (K4 + K5) -> gradient field (K3) -> orientation."""
     real = octv.real_shape
     log_vol, gauss = octv.log_gauss()
-    anch = detect_anchors(log_vol, real, cfg.detect)
+    anch = detect_anchors(log_vol, real, cfg.detect, mesh)
     del log_vol
-    grad = gradient(gauss, octv.grad_dtype())
+    if mesh is None:
+        grad = gradient(gauss, octv.grad_dtype())
+    else:
+        grad = sharded_gradient(gauss, octv.grad_dtype(), mesh,
+                                grad_halo(cfg, octv.upsampled))
     del gauss
     vidx = torch.nonzero(anch.valid).reshape(-1)     # slots of valid anchors
     coords_v = anch.coords[vidx]
     mains, secs, rfin, ok = orient_anchors(
         grad, coords_v, torch.ones_like(vidx, dtype=torch.bool), real,
-        octv.upsampled, cfg.orient)
+        octv.upsampled, cfg.orient, mesh=mesh)
     M, S = cfg.orient.max_main, cfg.orient.max_sec
     lanes = torch.nonzero(ok.reshape(-1)).reshape(-1)  # (anchor, main, sec)
     la, lm, ls = lanes // (M * S), (lanes // S) % M, lanes % S
@@ -94,16 +118,16 @@ def octave_lanes(octv, cfg: MadConfig) -> OctaveLanes:
                        sec=secs[la, lm, ls])
 
 
-def _describe_octave(octv, cfg: MadConfig):
+def _describe_octave(octv, cfg: MadConfig, mesh=None):
     """One octave: returns its lanes' device descriptor table, the indices
     of the kept lanes and their host metadata, with anchor ids local to the
     octave's detection order."""
-    lanes = octave_lanes(octv, cfg)
+    lanes = octave_lanes(octv, cfg, mesh)
     descs, dok = describe_anchors(
         lanes.grad, lanes.coords, lanes.rfinal,
         torch.ones(lanes.coords.shape[0], dtype=torch.bool,
                    device=lanes.coords.device),
-        octv.real_shape, octv.upsampled, cfg.describe)
+        octv.real_shape, octv.upsampled, cfg.describe, mesh)
     keep = torch.nonzero(dok).reshape(-1)[: cfg.describe.max_descriptors]
     host = {k: getattr(lanes, k)[keep].cpu().numpy()
             for k in ("coords", "rfinal", "slot", "subvox", "main", "sec")}
@@ -111,15 +135,23 @@ def _describe_octave(octv, cfg: MadConfig):
 
 
 def describe_grid(grid: DensityGrid, cfg: MadConfig, name: str = "",
-                  device=None) -> DescriptorSet:
+                  device=None, mesh=None) -> DescriptorSet:
     """Anchor / orientation / descriptor chain of a density grid, run on
-    ``device`` (default: the grid's own device)."""
+    ``device`` (default: the grid's own device); with a mesh
+    (``parallel.mesh.make_mesh``), in capacity mode over its shards, the
+    result on the mesh's first device."""
+    if mesh is not None:
+        if device is not None and torch.device(device) != mesh.home:
+            raise ValueError(f"describe_grid: device {device} is not the "
+                             f"mesh's first device {mesh.home}")
+        device = mesh.home
     device = torch.device(device) if device is not None else grid.device
     if grid.device != device:
         grid = grid.to(device)
     rows, tables, keeps = [], [], []
-    for oi, (origin, octv) in enumerate(iter_octaves(grid, cfg.scalespace)):
-        table, keep, h = _describe_octave(octv, cfg)
+    for oi, (origin, octv) in enumerate(iter_octaves(grid, cfg.scalespace,
+                                                     mesh)):
+        table, keep, h = _describe_octave(octv, cfg, mesh)
         n = h["coords"].shape[0]
         tables.append(table)
         keeps.append(keep)
@@ -146,9 +178,11 @@ def describe_grid(grid: DensityGrid, cfg: MadConfig, name: str = "",
 
 def describe_structure(struct: Structure, resolution: float, voxsp: float,
                        cfg: MadConfig, isovalue: float = 0.0, name: str = "",
-                       *, device) -> DescriptorSet:
+                       *, device, mesh=None) -> DescriptorSet:
     """PDB path of the describe pipeline: simulate the density on
-    ``device`` first (parity: MapSpace PDB_mode, mad/MapSpace.py:73-75)."""
+    ``device`` first (parity: MapSpace PDB_mode, mad/MapSpace.py:73-75);
+    with a mesh, described in capacity mode (``device`` its first device)."""
     grid = simulate_density(struct, resolution, voxsp, device,
                             isovalue=isovalue, shape_bucket=cfg.shape_bucket)
-    return describe_grid(grid, cfg, name=name or struct.source, device=device)
+    return describe_grid(grid, cfg, name=name or struct.source, device=device,
+                         mesh=mesh)

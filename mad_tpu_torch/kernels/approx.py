@@ -68,10 +68,10 @@ def approx_repeat(field: torch.Tensor, hi_cloud: torch.Tensor,
         return out
     X, Y, Z = field.shape
     lib = build.library()
-    code = lib.mad_approx_repeat(
-        field.data_ptr(), X, Y, Z, hi_cloud.data_ptr(), hi_cloud.shape[0],
-        origin.data_ptr(), float(inv_voxsp), rot.data_ptr(), hi.data_ptr(),
-        lo.data_ptr(), P, out.data_ptr(), build.stream_ptr(rot.device))
-    build.check(code, "mad_approx_repeat")
+    build.launch(
+        lib.mad_approx_repeat, rot.device, field.data_ptr(), X, Y, Z,
+        hi_cloud.data_ptr(), hi_cloud.shape[0], origin.data_ptr(),
+        float(inv_voxsp), rot.data_ptr(), hi.data_ptr(), lo.data_ptr(), P,
+        out.data_ptr())
     launches += 1
     return out

@@ -10,8 +10,9 @@ rebuilds. Nothing here runs at import time: the first CUDA call of a
 kernel wrapper triggers the build, and a failed build raises.
 
 Every exported function launches on the stream it is given and returns
-``cudaGetLastError()`` after the launch; :func:`check` raises on a
-non-zero code.
+``cudaGetLastError()`` after the launch; the wrappers call it through
+:func:`launch`, which makes the inputs' card current around the call and
+raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -41,9 +42,9 @@ _L = ctypes.c_longlong
 # C signatures of the exported launchers (csrc/*.cu, extern "C").
 SIGNATURES = {
     "mad_conv1d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mad_peak_mask_compact": [_P, _I, _I, _I, _I, _I, _I, _I, _F,
-                              _P, _P, _P, _I, _P],
-    "mad_descriptor_hist": [_P, _I, _I, _I, _I, _I, _I, _I,
+    "mad_peak_mask_compact": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _F, _P, _P, _P, _I, _P],
+    "mad_descriptor_hist": [_P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P, _P, _P, _I, _P, _P, _I, _P, _I, _I,
                             _F, _F, _P, _P, _P],
     "mad_exact_repeat": [_P, _I, _P, _I, _P, _P, _P, _I, _F, _P, _P],
@@ -53,8 +54,8 @@ SIGNATURES = {
     "mad_enumerate_head": [_P, _P, _I, _I, _L, _I, _I, _I, _P, _P, _P],
     "mad_hetero_head": [_P, _I, _I, _P, _I, _P, _I, _L, _I, _I, _I, _P, _P,
                         _P],
-    "mad_orient": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P,
-                   _P, _I, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
+    "mad_orient": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I,
+                   _P, _P, _I, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
     "mad_refine": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _F,
                    _P, _P, _P, _P, _P, _P, _P],
     "mad_pair_head": [_P, _I, _I, _I, _F, _L, _P, _P, _P, _P],
@@ -65,8 +66,8 @@ SIGNATURES = {
                            _P, _P, _P],
     "mad_upsample_axis": [_P, _P, _L, _L, _L, _P],
     "mad_gradient": [_P, _I, _I, _I, _I, _P, _P],
-    "mad_localize": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _I, _P, _P, _P,
-                     _P],
+    "mad_localize": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P,
+                     _P, _P, _P],
     "mad_gather_norm": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
     "mad_post": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I,
                  _P, _I, _P, _I, _D, _D, _P, _I, _D, _I, _P, _P, _P, _P, _P,
@@ -159,15 +160,19 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def check(code: int, name: str) -> None:
+def launch(fn, device, *args) -> None:
+    """Call the exported launcher ``fn`` with ``args`` and the current
+    stream of ``device``, with ``device`` made the current card for the
+    call (a launch goes to the current card, which need not be the
+    inputs': a mesh's shards, a session on cuda:1); raise on its error
+    code."""
+    import torch
+    with torch.cuda.device(device):
+        code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
         msg = _lib.mad_error_string(code).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({code})")
-
-
-def stream_ptr(device) -> int:
-    import torch
-    return torch.cuda.current_stream(device).cuda_stream
+        raise RuntimeError(f"{fn.__name__}: CUDA launch failed: {msg} "
+                           f"({code})")
 
 
 def require_cuda(name: str, *tensors) -> None:

@@ -93,10 +93,9 @@ def batched_ccc(data: torch.Tensor, models: torch.Tensor,
         return out
     nblk = blocks_per_model(M, bx * by)
     partial = torch.empty((M, nblk, 3), dtype=torch.float64, device=dev)
-    code = build.library().mad_batched_ccc(
-        data.data_ptr(), *data.shape, models.data_ptr(), M, bx, by, bz,
-        starts.data_ptr(), nblk, partial.data_ptr(), out.data_ptr(),
-        build.stream_ptr(dev))
-    build.check(code, "mad_batched_ccc")
+    build.launch(
+        build.library().mad_batched_ccc, dev, data.data_ptr(), *data.shape,
+        models.data_ptr(), M, bx, by, bz, starts.data_ptr(), nblk,
+        partial.data_ptr(), out.data_ptr())
     launches += 1
     return out

@@ -143,12 +143,10 @@ def cluster_select(rot: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
                         device=rot.device)
     score = torch.empty(n, dtype=torch.float32, device=rot.device)
     lib = build.library()
-    code = lib.mad_cluster_select(
-        rot.data_ptr(), hi.data_ptr(), lo.data_ptr(), repeat.data_ptr(),
-        mu.data_ptr(), M.data_ptr(), n, float(rmsd_cloud),
-        int(weight_threshold), float(rep_thresh), int(in_smem),
-        table.data_ptr(), score.data_ptr(), out.data_ptr(),
-        build.stream_ptr(rot.device))
-    build.check(code, "mad_cluster_select")
+    build.launch(
+        lib.mad_cluster_select, rot.device, rot.data_ptr(), hi.data_ptr(),
+        lo.data_ptr(), repeat.data_ptr(), mu.data_ptr(), M.data_ptr(), n,
+        float(rmsd_cloud), int(weight_threshold), float(rep_thresh),
+        int(in_smem), table.data_ptr(), score.data_ptr(), out.data_ptr())
     launches += 1
     return out

@@ -97,9 +97,8 @@ def conv1d_along(vol: torch.Tensor, kernel: np.ndarray, axis: int,
     out = torch.empty(shape, dtype=torch.float32, device=vol.device)
     taps = _device_taps(k, vol.device)
     lib = build.library()
-    code = lib.mad_conv1d(vol.data_ptr(), out.data_ptr(), taps.data_ptr(),
-                          ksz, outer, n, inner, out_n, lo,
-                          build.stream_ptr(vol.device))
-    build.check(code, "mad_conv1d")
+    build.launch(
+        lib.mad_conv1d, vol.device, vol.data_ptr(), out.data_ptr(),
+        taps.data_ptr(), ksz, outer, n, inner, out_n, lo)
     launches += 1
     return out

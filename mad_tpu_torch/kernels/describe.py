@@ -7,6 +7,12 @@ kernel ``csrc/describe.cu`` runs one block per lane with the histogram in
 shared memory (its note says what bounds it);
 :func:`descriptor_hist_plain` is the plain PyTorch version, chunked over
 lanes, with the same per-element arithmetic order.
+
+Both take an offset form for capacity mode (mad_tpu/ops/describe.py:167-196,
+``describe_shard``, and its gathers at :108-115): ``grad`` is a shard's
+x-slab extended by its neighbours' rows, its row 0 global row ``goff``;
+the lattice and the bounds test stay global, and each sample's global
+nearest index moves into the block.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ launches = 0            # kernel launches since the last reset
 
 def descriptor_hist_plain(grad, coords, rfinal, valid, real_shape, lattice,
                           regions, bounds, nregions: int, cutoff: float,
-                          zero_magn: float, chunk: int = 64
+                          zero_magn: float, goff: int = 0, chunk: int = 64
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     dev = grad.device
     L = coords.shape[0]
@@ -44,7 +50,7 @@ def descriptor_hist_plain(grad, coords, rfinal, valid, real_shape, lattice,
         n = c.shape[0]
         pts = rows_times(lat[None].expand(n, -1, -1), R) + c[:, None, :]
         inb = ((pts >= 0) & (pts <= hi)).all(dim=-1).all(dim=-1)
-        g = nearest(grad, pts).to(torch.float32)
+        g = nearest(grad, pts, goff).to(torch.float32)
         magn = torch.sqrt(g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]
                           + g[..., 2] * g[..., 2])
         big = (magn > cutoff)[..., None]
@@ -89,17 +95,19 @@ def descriptor_hist(grad: torch.Tensor, coords: torch.Tensor,
                     rfinal: torch.Tensor, valid: torch.Tensor, real_shape,
                     lattice: np.ndarray, regions: np.ndarray,
                     bounds: np.ndarray, nregions: int, cutoff: float,
-                    zero_magn: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                    zero_magn: float, goff: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Descriptors of L lanes: (L, nregions * nzones) int16 counts and the
     (L,) bool in-bounds mask (rows of out-of-bounds lanes are zero).
 
-    grad: (X, Y, Z, 3) float32 or bfloat16 gradient field; coords: (L, 3)
-    anchor voxel coords; rfinal: (L, 3, 3) frames; valid: (L,) bool;
-    lattice (P, 3) / regions (P,) / bounds (nzones, 4): host constants."""
+    grad: (X, Y, Z, 3) float32 or bfloat16 gradient field (or a block of
+    it from global row ``goff``); coords: (L, 3) anchor voxel coords;
+    rfinal: (L, 3, 3) frames; valid: (L,) bool; lattice (P, 3) / regions
+    (P,) / bounds (nzones, 4): host constants."""
     if grad.device.type == "cpu":
         return descriptor_hist_plain(grad, coords, rfinal, valid, real_shape,
                                      lattice, regions, bounds, nregions,
-                                     cutoff, zero_magn)
+                                     cutoff, zero_magn, goff)
     global launches
     if grad.dim() != 4 or grad.shape[3] != 3 or grad.dtype not in (
             torch.float32, torch.bfloat16):
@@ -124,13 +132,12 @@ def descriptor_hist(grad: torch.Tensor, coords: torch.Tensor,
     X, Y, Z = grad.shape[:3]
     rx, ry, rz = (int(s) for s in real_shape)
     lib = build.library()
-    code = lib.mad_descriptor_hist(
-        grad.data_ptr(), 0 if grad.dtype == torch.float32 else 1, X, Y, Z,
-        rx, ry, rz, coords.data_ptr(), rfinal.data_ptr(),
-        valid_u8.data_ptr(), L, lat.data_ptr(), reg.data_ptr(),
-        lat.shape[0], bnd.data_ptr(), nz, nregions, float(cutoff),
-        float(zero_magn), out.data_ptr(), ok.data_ptr(),
-        build.stream_ptr(grad.device))
-    build.check(code, "mad_descriptor_hist")
+    build.launch(
+        lib.mad_descriptor_hist, grad.device, grad.data_ptr(),
+        0 if grad.dtype == torch.float32 else 1, X, Y, Z, rx, ry, rz,
+        int(goff), coords.data_ptr(), rfinal.data_ptr(), valid_u8.data_ptr(),
+        L, lat.data_ptr(), reg.data_ptr(), lat.shape[0], bnd.data_ptr(), nz,
+        nregions, float(cutoff), float(zero_magn), out.data_ptr(),
+        ok.data_ptr())
     launches += 1
     return out, ok.bool()

@@ -126,9 +126,8 @@ def enumerate_head(sym: torch.Tensor, tab: torch.Tensor,
     S, blocks = plan(total, head, 4 * n * (n + k), sym.device)
     partial, out = head_buffers(blocks, head, sym.device)
     lib = build.library()
-    code = lib.mad_enumerate_head(
-        sym.data_ptr(), tab.data_ptr(), n, k, total, head, S, blocks,
-        partial.data_ptr(), out.data_ptr(), build.stream_ptr(sym.device))
-    build.check(code, "mad_enumerate_head")
+    build.launch(
+        lib.mad_enumerate_head, sym.device, sym.data_ptr(), tab.data_ptr(), n,
+        k, total, head, S, blocks, partial.data_ptr(), out.data_ptr())
     launches += 1
     return out[out != -1]

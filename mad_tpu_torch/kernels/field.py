@@ -58,9 +58,8 @@ def anchor_field(shape, lo_vox: torch.Tensor, radius_vox: int
         raise ValueError("anchor_field: lo_vox must be (A, 3), radius >= 0")
     field = torch.empty((X, Y, Z), dtype=torch.int8, device=lo_vox.device)
     lib = build.library()
-    code = lib.mad_anchor_field(lo_vox.data_ptr(), lo_vox.shape[0], X, Y, Z,
-                                int(radius_vox), field.data_ptr(),
-                                build.stream_ptr(lo_vox.device))
-    build.check(code, "mad_anchor_field")
+    build.launch(
+        lib.mad_anchor_field, lo_vox.device, lo_vox.data_ptr(),
+        lo_vox.shape[0], X, Y, Z, int(radius_vox), field.data_ptr())
     launches += 1
     return field

@@ -81,9 +81,8 @@ def gather_norm(tables, keeps):
         row0.append(row0[-1] + c)
     starts = (ctypes.c_longlong * len(row0))(*row0)
     lib = build.library()
-    code = lib.mad_gather_norm(ptrs, starts, len(tables), idx.data_ptr(), N,
-                               D, desc.data_ptr(), unit.data_ptr(),
-                               build.stream_ptr(dev))
-    build.check(code, "mad_gather_norm")
+    build.launch(
+        lib.mad_gather_norm, dev, ptrs, starts, len(tables), idx.data_ptr(), N,
+        D, desc.data_ptr(), unit.data_ptr())
     launches += 1
     return desc, unit

@@ -57,8 +57,8 @@ def gradient(vol: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     X, Y, Z = vol.shape
     out = torch.empty((X, Y, Z, 3), dtype=dtype, device=vol.device)
     lib = build.library()
-    code = lib.mad_gradient(vol.data_ptr(), X, Y, Z, _DTYPES[dtype],
-                            out.data_ptr(), build.stream_ptr(vol.device))
-    build.check(code, "mad_gradient")
+    build.launch(
+        lib.mad_gradient, vol.device, vol.data_ptr(), X, Y, Z, _DTYPES[dtype],
+        out.data_ptr())
     launches += 1
     return out

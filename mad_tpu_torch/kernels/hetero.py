@@ -80,10 +80,9 @@ def hetero_head(sym: torch.Tensor, lists: torch.Tensor, sizes,
                      sym.device)
     partial, out = head_buffers(blocks, head, sym.device)
     lib = build.library()
-    code = lib.mad_hetero_head(
-        sym.data_ptr(), nsol, int(in_smem), lists.data_ptr(), max_n,
-        radix.data_ptr(), G, total, head, S, blocks, partial.data_ptr(),
-        out.data_ptr(), build.stream_ptr(sym.device))
-    build.check(code, "mad_hetero_head")
+    build.launch(
+        lib.mad_hetero_head, sym.device, sym.data_ptr(), nsol, int(in_smem),
+        lists.data_ptr(), max_n, radix.data_ptr(), G, total, head, S, blocks,
+        partial.data_ptr(), out.data_ptr())
     launches += 1
     return out[out != -1]

@@ -16,6 +16,12 @@ stops once frozen (nothing it holds changes after that), and rounds every
 product, sum and quotient as :func:`localize_plain` (the batched torch-op
 walk) does, so the two agree bit for bit: one launch in place of ~60 small
 launches per Newton step.
+
+Both take an offset form for capacity mode (mad_tpu/ops/detect.py:236-275,
+``detect_shard``): ``vol`` is a shard's x-slab extended by its neighbours'
+rows, its row 0 global row ``goff`` of a field of ``nx`` rows. Seeds, the
+walk and its bounds stay global; the patch is placed on the whole field's
+extent and then moved into the block (:func:`patch_index`).
 """
 
 from __future__ import annotations
@@ -90,22 +96,32 @@ _PATCH = torch.stack(torch.meshgrid(
     *([torch.arange(3)] * 3), indexing="ij"), -1).reshape(27, 3)
 
 
-def patch_index(pos: torch.Tensor, shape) -> torch.Tensor:
+def patch_index(pos: torch.Tensor, shape, goff: int = 0, nx=None
+                ) -> torch.Tensor:
     """(K, 27, 3) voxel indices of the 3x3x3 patch about each position
     (K, 3), as mad_tpu's ``lax.dynamic_slice`` places it: per axis the
     start s = pos - 1 becomes s + n when negative (n the volume's own
     extent), then is clamped to [0, n - 3]. So at the upper face the
     patch ends on the last voxel, and at pos 0 it is the far face's last
-    three voxels. The position itself is not clamped."""
+    three voxels. The position itself is not clamped.
+
+    Offset form: ``shape`` is a block whose row 0 is row ``goff`` of a
+    field of ``nx`` rows; the x start is placed on the field's extent, then
+    moved into the block (minus goff, clamped to [0, X - 3])."""
     n = torch.as_tensor([int(e) for e in shape], device=pos.device)
+    full = n.clone()
+    if nx is not None:
+        full[0] = int(nx)
     start = pos - 1
-    start = torch.where(start < 0, start + n, start)
+    start = torch.where(start < 0, start + full, start)
+    start = torch.minimum(torch.clamp(start, min=0), full - 3)
+    start[:, 0] -= int(goff)
     start = torch.minimum(torch.clamp(start, min=0), n - 3)
     return start[:, None, :] + _PATCH.to(pos.device)[None]
 
 
 def localize_plain(vol: torch.Tensor, seeds: torch.Tensor, real_shape,
-                   max_offset: float, n_iter: int):
+                   max_offset: float, n_iter: int, goff: int = 0, nx=None):
     """Newton walk from each seed (K, 3) int64; returns (coords, subvox,
     accepted & not a saddle)."""
     K = seeds.shape[0]
@@ -117,7 +133,7 @@ def localize_plain(vol: torch.Tensor, seeds: torch.Tensor, real_shape,
     accepted = torch.zeros(K, dtype=torch.bool, device=dev)
     bad = torch.zeros(K, dtype=torch.bool, device=dev)
     for _ in range(n_iter):
-        p = patch_index(pos, vol.shape)
+        p = patch_index(pos, vol.shape, goff, nx)
         patch = vol[p[..., 0], p[..., 1], p[..., 2]].reshape(K, 3, 3, 3)
         Hn, G = _hessian_grad(patch)
         Hinv, ok = _inv3(Hn)
@@ -140,16 +156,18 @@ def localize_plain(vol: torch.Tensor, seeds: torch.Tensor, real_shape,
 
 
 def localize(vol: torch.Tensor, seeds: torch.Tensor, real_shape,
-             max_offset: float, n_iter: int):
+             max_offset: float, n_iter: int, goff: int = 0, nx=None):
     """Newton walk from each seed of ``seeds`` (K, 3) int64 on the float32
-    volume ``vol``; ``real_shape`` bounds the walk. Returns (coords (K, 3)
-    int64, subvox (K, 3) float32, good (K,) bool: accepted and not a
-    saddle)."""
+    volume ``vol`` (a block from global row ``goff`` of a field of ``nx``
+    rows; by default the whole field); ``real_shape`` bounds the walk.
+    Returns (coords (K, 3) int64, subvox (K, 3) float32, good (K,) bool:
+    accepted and not a saddle)."""
     if vol.dim() != 3 or min(vol.shape) < 3:
         raise ValueError(f"localize: need a 3D volume of extent >= 3, got "
                          f"{tuple(vol.shape)}")
     if vol.device.type == "cpu":
-        return localize_plain(vol, seeds, real_shape, max_offset, n_iter)
+        return localize_plain(vol, seeds, real_shape, max_offset, n_iter,
+                              goff, nx)
     global launches
     if vol.dtype != torch.float32:
         raise ValueError(f"localize: need a 3D float32 volume, got "
@@ -169,10 +187,10 @@ def localize(vol: torch.Tensor, seeds: torch.Tensor, real_shape,
     lib = build.library()
     # max_offset goes over as a C float: the plain version compares the
     # float32 offsets with the Python float in float32.
-    code = lib.mad_localize(vol.data_ptr(), *vol.shape, seeds.data_ptr(), K,
-                            rx, ry, rz, float(max_offset), int(n_iter),
-                            pos.data_ptr(), subvox.data_ptr(),
-                            good.data_ptr(), build.stream_ptr(vol.device))
-    build.check(code, "mad_localize")
+    nx = vol.shape[0] if nx is None else int(nx)
+    build.launch(
+        lib.mad_localize, vol.device, vol.data_ptr(), *vol.shape,
+        seeds.data_ptr(), K, rx, ry, rz, float(max_offset), int(n_iter),
+        int(goff), nx, pos.data_ptr(), subvox.data_ptr(), good.data_ptr())
     launches += 1
     return pos, subvox, good

@@ -15,6 +15,12 @@ int32, sec_bin (K, M, S) int32, rfinal (K, M, S, 3, 3) float32, valid
 (K, M, S) bool). Only the lanes flagged valid are defined: the kernel
 writes zeros where the plain version carries the values of unused main
 slots and rejected anchors.
+
+Both take an offset form for capacity mode (mad_tpu/ops/orient.py:356-387,
+``orient_shard``, and its gathers at :255-263): ``grad`` is a shard's
+x-slab extended by its neighbours' rows, its row 0 global row ``goff``;
+the coords, the border test and the clamped patch centre stay global, the
+gathers move into the block.
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ def _first_k_flagged(flag: torch.Tensor, k: int):
 
 def orient_plain(grad, coords, valid, real_shape, tab, radius: int,
                  stride: int, max_main: int, max_sec: int,
-                 cutoff_magn: float, chunk: int = 32):
+                 cutoff_magn: float, chunk: int = 32, goff: int = 0):
     dev = grad.device
     M, S = max_main, max_sec
     rs = torch.as_tensor(real_shape, device=dev)
@@ -82,7 +88,8 @@ def orient_plain(grad, coords, valid, real_shape, tab, radius: int,
         safe = torch.minimum(torch.clamp(coord, min=half),
                              torch.clamp(rs - half - 1, min=half))
         pts = safe[:, None, :] + tab.offsets[None]               # (n, P, 3)
-        g = grad[pts[..., 0], pts[..., 1], pts[..., 2]].to(torch.float32)
+        px = torch.clamp(pts[..., 0] - goff, 0, grad.shape[0] - 1)
+        g = grad[px, pts[..., 1], pts[..., 2]].to(torch.float32)
         magn = norm3(g)
         dirs = g / torch.clamp(magn, min=1e-30)[..., None]
         w = tab.mask[None] * (magn >= cutoff_magn).to(torch.float32)
@@ -120,12 +127,14 @@ def orient_plain(grad, coords, valid, real_shape, tab, radius: int,
 
 
 def orient(grad, coords, valid, real_shape, tab, radius: int, stride: int,
-           max_main: int, max_sec: int, cutoff_magn: float, chunk: int = 32):
+           max_main: int, max_sec: int, cutoff_magn: float, chunk: int = 32,
+           goff: int = 0):
     """Frames of K anchors; CPU tensors take the plain version (``chunk``
     anchors at a time, the kernel takes one block per anchor)."""
     if grad.device.type == "cpu":
         return orient_plain(grad, coords, valid, real_shape, tab, radius,
-                            stride, max_main, max_sec, cutoff_magn, chunk)
+                            stride, max_main, max_sec, cutoff_magn, chunk,
+                            goff)
     global launches
     if grad.dim() != 4 or grad.shape[3] != 3 or grad.dtype not in (
             torch.float32, torch.bfloat16):
@@ -157,14 +166,13 @@ def orient(grad, coords, valid, real_shape, tab, radius: int, stride: int,
         return mains, secs, rfin, ok.bool()
     X, Y, Z = grad.shape[:3]
     rx, ry, rz = (int(s) for s in real_shape)
-    code = build.library().mad_orient(
-        grad.data_ptr(), 0 if grad.dtype == torch.float32 else 1, X, Y, Z,
-        rx, ry, rz, coords_i.data_ptr(), valid_u8.data_ptr(), K,
-        int(radius), int(stride), tab.mask.data_ptr(), tab.bounds.data_ptr(),
-        nz, tab.rot_to_pole.data_ptr(), tab.p_theta.data_ptr(),
-        tab.belt_first.data_ptr(), M, S, float(cutoff_magn),
-        mains.data_ptr(), secs.data_ptr(), rfin.data_ptr(), ok.data_ptr(),
-        build.stream_ptr(dev))
-    build.check(code, "mad_orient")
+    build.launch(
+        build.library().mad_orient, dev, grad.data_ptr(),
+        0 if grad.dtype == torch.float32 else 1, X, Y, Z, rx, ry, rz,
+        int(goff), coords_i.data_ptr(), valid_u8.data_ptr(), K, int(radius),
+        int(stride), tab.mask.data_ptr(), tab.bounds.data_ptr(), nz,
+        tab.rot_to_pole.data_ptr(), tab.p_theta.data_ptr(),
+        tab.belt_first.data_ptr(), M, S, float(cutoff_magn), mains.data_ptr(),
+        secs.data_ptr(), rfin.data_ptr(), ok.data_ptr())
     launches += 1
     return mains, secs, rfin, ok.bool()

@@ -79,10 +79,8 @@ def pack_overlap(dens: torch.Tensor, offsets: torch.Tensor,
     packed = torch.empty(m * FX * FY * W, dtype=torch.int32, device=dev)
     counts = torch.zeros((m, m), dtype=torch.int32, device=dev)
     lib = build.library()
-    code = lib.mad_pack_overlap(
-        dens.data_ptr(), offsets.data_ptr(), m, X, Y, Z, FX, FY, W,
-        packed.data_ptr(), counts.data_ptr(), ov.data_ptr(),
-        build.stream_ptr(dev))
-    build.check(code, "mad_pack_overlap")
+    build.launch(
+        lib.mad_pack_overlap, dev, dens.data_ptr(), offsets.data_ptr(), m, X,
+        Y, Z, FX, FY, W, packed.data_ptr(), counts.data_ptr(), ov.data_ptr())
     launches += 1
     return ov

@@ -103,9 +103,8 @@ def pair_head(sim: torch.Tensor, row_cap: int, max_pairs: int,
     heads = torch.empty(dh * k, dtype=torch.int64, device=sim.device)
     tmp = torch.empty_like(heads)
     lib = build.library()
-    code = lib.mad_pair_head(sim.data_ptr(), dh, dl, k, float(threshold), L,
-                             heads.data_ptr(), tmp.data_ptr(), out.data_ptr(),
-                             build.stream_ptr(sim.device))
-    build.check(code, "mad_pair_head")
+    build.launch(
+        lib.mad_pair_head, sim.device, sim.data_ptr(), dh, dl, k,
+        float(threshold), L, heads.data_ptr(), tmp.data_ptr(), out.data_ptr())
     launches += 1
     return out

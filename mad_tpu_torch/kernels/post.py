@@ -212,14 +212,13 @@ def post(rot_m: torch.Tensor, trans_m: torch.Tensor, coords_m: torch.Tensor,
     lane_of = torch.empty(C, dtype=torch.int32, device=dev)
     elig_pt = torch.empty(B, dtype=torch.uint8, device=dev)
     row_flag = torch.empty(P, dtype=torch.uint8, device=dev)
-    code = build.library().mad_post(
-        *(t.data_ptr() for t in f32), failed.data_ptr(),
-        *(t.data_ptr() for t in f64[:3]), C, f64[3].data_ptr(), N,
-        f64[4].data_ptr(), A_hi, f64[5].data_ptr(), B, f64[6].data_ptr(), S,
-        idx.data_ptr(), idx.shape[0], float(hit_thresh), float(dedup_rmsd),
-        f64[7].data_ptr(), P, float(anchor_dist), int(n_top),
-        rmat.data_ptr(), lane_of.data_ptr(), elig_pt.data_ptr(),
-        row_flag.data_ptr(), out.data_ptr(), build.stream_ptr(dev))
-    build.check(code, "mad_post")
+    build.launch(
+        build.library().mad_post, dev, *(t.data_ptr() for t in f32),
+        failed.data_ptr(), *(t.data_ptr() for t in f64[:3]), C,
+        f64[3].data_ptr(), N, f64[4].data_ptr(), A_hi, f64[5].data_ptr(), B,
+        f64[6].data_ptr(), S, idx.data_ptr(), idx.shape[0], float(hit_thresh),
+        float(dedup_rmsd), f64[7].data_ptr(), P, float(anchor_dist),
+        int(n_top), rmat.data_ptr(), lane_of.data_ptr(), elig_pt.data_ptr(),
+        row_flag.data_ptr(), out.data_ptr())
     launches += 1
     return out

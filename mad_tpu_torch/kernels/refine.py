@@ -109,13 +109,12 @@ def refine_loop(field: torch.Tensor, y0: torch.Tensor, center: torch.Tensor,
     if C == 0:
         return rot, trans, coords, frozen.bool(), steps, failed.bool()
     X, Y, Z = field.shape[:3]
-    code = build.library().mad_refine(
-        field.data_ptr(), X, Y, Z, y0.data_ptr(), C, N, center.data_ptr(),
-        angle_den.data_ptr(), bounds.data_ptr(), int(cfg.n_steps),
-        int(cfg.batch_size), float(cfg.max_step), float(cfg.min_step),
-        rot.data_ptr(), trans.data_ptr(), coords.data_ptr(),
-        frozen.data_ptr(), steps.data_ptr(), failed.data_ptr(),
-        build.stream_ptr(dev))
-    build.check(code, "mad_refine")
+    build.launch(
+        build.library().mad_refine, dev, field.data_ptr(), X, Y, Z,
+        y0.data_ptr(), C, N, center.data_ptr(), angle_den.data_ptr(),
+        bounds.data_ptr(), int(cfg.n_steps), int(cfg.batch_size),
+        float(cfg.max_step), float(cfg.min_step), rot.data_ptr(),
+        trans.data_ptr(), coords.data_ptr(), frozen.data_ptr(),
+        steps.data_ptr(), failed.data_ptr())
     launches += 1
     return rot, trans, coords, frozen.bool(), steps, failed.bool()

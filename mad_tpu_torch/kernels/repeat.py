@@ -58,11 +58,10 @@ def exact_repeat(hi_cloud: torch.Tensor, lo_cloud: torch.Tensor,
     if P == 0:
         return out
     lib = build.library()
-    code = lib.mad_exact_repeat(
-        hi_cloud.data_ptr(), hi_cloud.shape[0], lo_cloud.data_ptr(),
-        lo_cloud.shape[0], rot.data_ptr(), hi.data_ptr(), lo.data_ptr(), P,
-        float(thresh) * float(thresh), out.data_ptr(),
-        build.stream_ptr(rot.device))
-    build.check(code, "mad_exact_repeat")
+    build.launch(
+        lib.mad_exact_repeat, rot.device, hi_cloud.data_ptr(),
+        hi_cloud.shape[0], lo_cloud.data_ptr(), lo_cloud.shape[0],
+        rot.data_ptr(), hi.data_ptr(), lo.data_ptr(), P,
+        float(thresh) * float(thresh), out.data_ptr())
     launches += 1
     return out

@@ -85,10 +85,9 @@ def scatter_atoms(coords: torch.Tensor, masses: torch.Tensor,
     if M * N == 0:
         return grids
     lib = build.library()
-    code = lib.mad_scatter_atoms(
-        coords.data_ptr(), masses.data_ptr(), vox_min.data_ptr(), M, N, X, Y,
-        Z, float(margin), float(voxsp), grids.data_ptr(),
-        build.stream_ptr(coords.device))
-    build.check(code, "mad_scatter_atoms")
+    build.launch(
+        lib.mad_scatter_atoms, coords.device, coords.data_ptr(),
+        masses.data_ptr(), vox_min.data_ptr(), M, N, X, Y, Z, float(margin),
+        float(voxsp), grids.data_ptr())
     launches += 1
     return grids

@@ -40,8 +40,8 @@ def sym_trim(ov: torch.Tensor, t: int) -> torch.Tensor:
     out = torch.empty((t, t), dtype=torch.float32, device=ov.device)
     if t == 0:
         return out
-    code = build.library().mad_sym_trim(ov.data_ptr(), n, t, out.data_ptr(),
-                                        build.stream_ptr(ov.device))
-    build.check(code, "mad_sym_trim")
+    build.launch(
+        build.library().mad_sym_trim, ov.device, ov.data_ptr(), n, t,
+        out.data_ptr())
     launches += 1
     return out

@@ -69,8 +69,8 @@ def upsample_axis(vol: torch.Tensor, axis: int) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = build.library()
-    code = lib.mad_upsample_axis(vol.data_ptr(), out.data_ptr(), outer, n,
-                                 inner, build.stream_ptr(vol.device))
-    build.check(code, "mad_upsample_axis")
+    build.launch(
+        lib.mad_upsample_axis, vol.device, vol.data_ptr(), out.data_ptr(),
+        outer, n, inner)
     launches += 1
     return out

@@ -6,6 +6,14 @@ is rotated into the anchor frame, the gradient field is sampled there by
 nearest neighbour, and the samples are binned into subregions x EQSP zones
 (mad/Descriptor.py:106-202). The per-lane work is kernel K7
 (:mod:`mad_tpu_torch.kernels.describe`).
+
+Capacity mode (a mesh; mad_tpu's ``describe_shard``, ops/describe.py:167-232):
+the gradient field arrives as x-slabs. Each shard describes the lanes
+whose anchor x lies in its slab, with K7 gathering from the shard's block
+of the field, extended by radius * stride * 2 rows of its neighbours (the
+rotated lattice reaches at most sqrt(3) of the radius; the blocks are
+orientation's); the rows go back to the lanes' order on the mesh's first
+device.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import torch
 from ..core.config import DescribeConfig
 from ..core.eqsp import get_eqsp
 from ..kernels.describe import descriptor_hist
+from ..parallel.volume import check_halo, map_owned
 from .orient import ref_zone_bounds
 
 
@@ -55,17 +64,26 @@ def region_ids(radius: int, subregions: int) -> np.ndarray:
     return reg.reshape(-1).astype(np.int32)
 
 
-def describe_anchors(grad: torch.Tensor, coords: torch.Tensor,
-                     rfinals: torch.Tensor, valid: torch.Tensor, real_shape,
-                     upsampled: bool, cfg: DescribeConfig):
+def describe_anchors(grad, coords: torch.Tensor, rfinals: torch.Tensor,
+                     valid: torch.Tensor, real_shape, upsampled: bool,
+                     cfg: DescribeConfig, mesh=None):
     """Descriptors for oriented lanes of one octave.
 
+    grad: the gradient field (with a mesh, its ``parallel.volume.Blocks``);
     coords: (L, 3) anchor voxel coords; rfinals: (L, 3, 3); valid: (L,).
-    Returns (descriptors (L, subregions*subeqsp) int16, ok (L,) bool)."""
+    Returns (descriptors (L, subregions*subeqsp) int16, ok (L,) bool), on
+    the device of ``coords``."""
     radius = (cfg.patch_size - cfg.patch_size % 2) // 2
-    return descriptor_hist(
-        grad, coords, rfinals, valid, real_shape,
-        descriptor_lattice(radius, upsampled),
-        region_ids(radius, cfg.subregions),
-        ref_zone_bounds(get_eqsp(cfg.subeqsp_size)), cfg.subregions,
-        float(cfg.cutoff_magn), float(cfg.zero_magn))
+    consts = (descriptor_lattice(radius, upsampled),
+              region_ids(radius, cfg.subregions),
+              ref_zone_bounds(get_eqsp(cfg.subeqsp_size)), cfg.subregions,
+              float(cfg.cutoff_magn), float(cfg.zero_magn))
+    if mesh is None:
+        return descriptor_hist(grad, coords, rfinals, valid, real_shape,
+                               *consts)
+    stride = 2 if upsampled else 1
+    check_halo(grad, radius * stride * 2, "describe_anchors")
+    return map_owned(
+        grad, lambda blk, lo, c, r, v: descriptor_hist(
+            blk, c, r, v, real_shape, *consts, lo),
+        coords, rfinals, valid)

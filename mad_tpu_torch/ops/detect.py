@@ -12,6 +12,15 @@ Replaces Detector.find_anchors / check_localize (mad/Detector.py:18-123):
     characteristic-polynomial invariants) are rejected (kernel K5,
     :mod:`mad_tpu_torch.kernels.localize`).
 The anchor table holds exactly the peaks found (at most ``max_anchors``).
+
+Capacity mode (a mesh; mad_tpu's ``detect_shard``, ops/detect.py:221-275):
+the LoG volume arrives as x-slabs and stays so. Each shard runs K4 on its
+slab extended by 2 + ``newton_iters`` rows of its neighbours (the pooling
+reads them; the border test is global), the shards' top-``max_anchors``
+lists merge by (-value, global flat index) -- K4's own order, so ties fall
+as in the single-device top-k -- and each merged seed is localized (K5) by
+the shard that holds its seed x, on the same block; the results return to
+the anchor table on the mesh's first device, in the merged order.
 """
 
 from __future__ import annotations
@@ -23,7 +32,8 @@ import torch
 
 from ..core.config import DetectConfig
 from ..kernels.localize import localize
-from ..kernels.peaks import peak_topk
+from ..kernels.peaks import _order, peak_topk
+from ..parallel.volume import halo_extend, map_owned
 
 
 @dataclass
@@ -40,18 +50,47 @@ class Anchors:
         return self.coords.shape[0]
 
 
-def detect_anchors(log_vol: torch.Tensor, real_shape,
-                   cfg: DetectConfig) -> Anchors:
-    """Anchors of one octave's LoG volume (real_shape = its real extent)."""
-    eb = int(cfg.exclude_border)
-    vals, flat = peak_topk(log_vol, real_shape, float(cfg.threshold_abs), eb,
-                           int(cfg.max_anchors))
-    shape = log_vol.shape
+def _seeds(flat: torch.Tensor, shape, real_shape, eb: int) -> torch.Tensor:
+    """Voxel coords of flat indices, clamped into the border."""
     seeds = torch.stack([flat // (shape[1] * shape[2]),
                          (flat // shape[2]) % shape[1], flat % shape[2]], -1)
     hi = torch.as_tensor(np.asarray(real_shape) - eb - 1, device=seeds.device)
-    seeds = torch.minimum(torch.clamp(seeds, min=eb), hi)
+    return torch.minimum(torch.clamp(seeds, min=eb), hi)
+
+
+def detect_anchors(log_vol, real_shape, cfg: DetectConfig,
+                   mesh=None) -> Anchors:
+    """Anchors of one octave's LoG volume (real_shape = its real extent);
+    with a mesh, ``log_vol`` is the list of its x-slabs."""
+    if mesh is not None:
+        return _detect_mesh(log_vol, real_shape, cfg, mesh)
+    eb = int(cfg.exclude_border)
+    vals, flat = peak_topk(log_vol, real_shape, float(cfg.threshold_abs), eb,
+                           int(cfg.max_anchors))
+    seeds = _seeds(flat, log_vol.shape, real_shape, eb)
     pos, subvox, good = localize(log_vol, seeds, real_shape,
                                  float(cfg.max_offset), int(cfg.newton_iters))
+    return Anchors(coords=pos, subvox=subvox, values=vals,
+                   valid=(vals > cfg.threshold_abs) & good)
+
+
+def _detect_mesh(slabs, real_shape, cfg: DetectConfig, mesh) -> Anchors:
+    eb, cap = int(cfg.exclude_border), int(cfg.max_anchors)
+    thr, n_iter = float(cfg.threshold_abs), int(cfg.newton_iters)
+    blocks = halo_extend(slabs, 2 + n_iter, mesh)  # pool, the walk, patch
+    b = blocks.bounds
+    shape = (b[-1],) + tuple(slabs[0].shape[1:])
+    vals, flats = [], []
+    for s, (blk, lo) in enumerate(zip(blocks.blocks, blocks.lo)):
+        v, f = peak_topk(blk, real_shape, thr, eb, cap, b[s] - lo,
+                         b[s + 1] - b[s], b[s])
+        vals.append(v.to(mesh.home))
+        flats.append(f.to(mesh.home))
+    vals, flat = _order(torch.cat(vals), torch.cat(flats), cap)
+    pos, subvox, good = map_owned(
+        blocks, lambda blk, lo, seeds: localize(
+            blk, seeds, real_shape, float(cfg.max_offset), n_iter, lo,
+            shape[0]),
+        _seeds(flat, shape, real_shape, eb))
     return Anchors(coords=pos, subvox=subvox, values=vals,
                    valid=(vals > cfg.threshold_abs) & good)

@@ -32,10 +32,14 @@ def trilinear(field: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def nearest(field: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+def nearest(field: torch.Tensor, pts: torch.Tensor, goff: int = 0
+            ) -> torch.Tensor:
     """Nearest-neighbour gather with .5 ties to the lower index (scipy RGI
-    'nearest' parity, the descriptor sampling rule)."""
+    'nearest' parity, the descriptor sampling rule). ``goff``: the field is
+    a block whose row 0 is global x ``goff`` (capacity mode); the global
+    index moves into it."""
     shp = torch.as_tensor(field.shape[:3], device=pts.device)
-    ids = torch.minimum(torch.clamp(torch.ceil(pts - 0.5).to(torch.int64),
-                                    min=0), shp - 1)
+    ids = torch.ceil(pts - 0.5).to(torch.int64)
+    ids[..., 0] -= int(goff)
+    ids = torch.minimum(torch.clamp(ids, min=0), shp - 1)
     return field[ids[..., 0], ids[..., 1], ids[..., 2]]

@@ -14,6 +14,14 @@ Reference semantics (mad/Orientator.py:68-343), as in the JAX original:
 
 Every (anchor, main, sec) triple is a lane of a (K, M, S) frame. The
 per-anchor work is kernel K6 (:mod:`mad_tpu_torch.kernels.orient`).
+
+Capacity mode (a mesh; mad_tpu's ``orient_shard``, ops/orient.py:356-424):
+the gradient field arrives as x-slabs. Each shard orients the anchors whose
+x lies in its slab, with K6 gathering from the shard's block of the
+field, extended by radius * stride * 2 rows of its neighbours (built once
+per octave for orientation and descriptors,
+``parallel.volume.sharded_gradient``); the frames go back to the anchors'
+slots on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from ..core.config import OrientConfig
 from ..core.eqsp import EQSPSphere, get_eqsp
 from ..core.geometry import zone_assign
 from ..kernels import orient as k6
+from ..parallel.volume import check_halo, map_owned
 
 
 def ref_zone_bounds(eqsp: EQSPSphere) -> np.ndarray:
@@ -100,16 +109,29 @@ class _OrientTables:
             device=device)
 
 
-def orient_anchors(grad: torch.Tensor, coords: torch.Tensor,
-                   valid: torch.Tensor, real_shape, upsampled: bool,
-                   cfg: OrientConfig, chunk: int = 32):
+def orient_anchors(grad, coords: torch.Tensor, valid: torch.Tensor,
+                   real_shape, upsampled: bool, cfg: OrientConfig,
+                   chunk: int = 32, mesh=None):
     """Canonical frames for K anchors of one octave.
 
-    grad: (X, Y, Z, 3) gradient field; coords: (K, 3) int64 voxel coords;
-    valid: (K,) bool. Returns (main_bin (K, M) int32, sec_bin (K, M, S)
-    int32, rfinal (K, M, S, 3, 3) float32, valid (K, M, S) bool)."""
+    grad: (X, Y, Z, 3) gradient field (with a mesh, its
+    ``parallel.volume.Blocks``); coords: (K, 3) int64 voxel coords; valid:
+    (K,) bool. Returns (main_bin (K, M) int32, sec_bin (K, M, S) int32,
+    rfinal (K, M, S, 3, 3) float32, valid (K, M, S) bool), on the device of
+    ``coords``."""
     radius = (cfg.patch_size - cfg.patch_size % 2) // 2
     stride = 2 if upsampled else 1
-    tab = _OrientTables(cfg, radius, stride, grad.device)
-    return k6.orient(grad, coords, valid, real_shape, tab, radius, stride,
-                     cfg.max_main, cfg.max_sec, cfg.cutoff_magn, chunk)
+    params = (radius, stride, cfg.max_main, cfg.max_sec, cfg.cutoff_magn,
+              chunk)
+    if mesh is None:
+        tab = _OrientTables(cfg, radius, stride, grad.device)
+        return k6.orient(grad, coords, valid, real_shape, tab, *params)
+    check_halo(grad, radius * stride * 2, "orient_anchors")
+    tabs = {}
+
+    def shard(blk, lo, c, v):
+        if blk.device not in tabs:
+            tabs[blk.device] = _OrientTables(cfg, radius, stride, blk.device)
+        return k6.orient(blk, c, v, real_shape, tabs[blk.device], *params,
+                         lo)
+    return map_owned(grad, shard, coords, valid)

@@ -8,6 +8,16 @@ Gaussian-smoothed volume (kernel K3, :mod:`mad_tpu_torch.kernels.gradient`).
 The map is zero-padded by ``map_padding`` voxels and used at its real
 size; mad_tpu's shape buckets only bounded XLA recompiles. Octaves build
 one at a time and each field is freed as soon as its consumer is done.
+
+Capacity mode (a mesh; the ``mesh`` branches of mad_tpu's ``_prepare``,
+``_compiled_log``, ``_grad_body`` and ``LazyOctave``, :83-346): the padded
+map is cut into x-slabs and a :class:`ShardedOctave` builds each shard's
+rows of the upsample (K2), presmooth and LoG (K1 and the LoG epilogue) on
+its slab extended by the chain's reach (:meth:`ShardedOctave.build_halo`),
+so no shard holds a whole octave field; the rows equal the single-device
+octave's bit for bit. Its gradient field is K3 on each shard's block
+extended by the rows orientation and the descriptors read
+(``parallel.volume.sharded_gradient``).
 """
 
 from __future__ import annotations
@@ -22,6 +32,9 @@ import torch.nn.functional as F
 from ..core.config import ScaleSpaceConfig
 from ..core.grid import DensityGrid
 from ..kernels.gradient import gradient  # noqa: F401  (K3, the octave field)
+from ..parallel.mesh import Mesh, mesh_size
+from ..parallel.volume import (filter_radius, map_slabs, row_bounds,
+                               split_x, up_bounds)
 from .convolve import gaussian_filter3d, log_filter3d, upsample2
 
 # Above this many octave voxels the gradient field is stored as bfloat16
@@ -44,13 +57,7 @@ class Octave:
         return tuple(2 * x - 1 for x in s) if self.upsampled else s
 
     def volume(self) -> torch.Tensor:
-        vol = self.base
-        if self.upsampled:
-            vol = upsample2(vol)
-            if self.cfg.presmooth_sigma:
-                vol = gaussian_filter3d(vol, self.cfg.presmooth_sigma,
-                                        self.cfg.truncate)
-        return vol
+        return octave_volume(self.base, self.upsampled, self.cfg)
 
     def log_gauss(self):
         """(LoG response, Gaussian-smoothed volume)."""
@@ -58,8 +65,76 @@ class Octave:
                             self.cfg.truncate)
 
     def grad_dtype(self):
-        n = int(np.prod(self.real_shape, dtype=np.int64))
-        return torch.bfloat16 if n > BF16_VOXELS else torch.float32
+        return _grad_dtype(self.real_shape, 1)
+
+
+def octave_volume(base: torch.Tensor, upsampled: bool,
+                  cfg: ScaleSpaceConfig) -> torch.Tensor:
+    """The octave's volume: the base itself, or its x2 upsample (K2)
+    presmoothed (K1)."""
+    vol = base
+    if upsampled:
+        vol = upsample2(vol)
+        if cfg.presmooth_sigma:
+            vol = gaussian_filter3d(vol, cfg.presmooth_sigma, cfg.truncate)
+    return vol
+
+
+def _grad_dtype(real_shape, n_shards: int):
+    # A mesh scales the gate by its size, as mad_tpu does (what must fit is
+    # one shard's field): above 250 M octave voxels a mesh run keeps the
+    # float32 field that a single-device run stores as bfloat16.
+    n = int(np.prod(real_shape, dtype=np.int64))
+    return (torch.bfloat16 if n > BF16_VOXELS * n_shards
+            else torch.float32)
+
+
+@dataclass
+class ShardedOctave:
+    """One octave of a padded map cut into x-slabs over a mesh."""
+
+    base: list                # the padded base volume's slabs
+    voxsp: float
+    upsampled: bool
+    cfg: ScaleSpaceConfig
+    mesh: Mesh
+
+    @property
+    def real_shape(self) -> Tuple[int, int, int]:
+        s = (row_bounds(self.base)[-1],) + tuple(self.base[0].shape[1:])
+        return tuple(2 * x - 1 for x in s) if self.upsampled else s
+
+    @property
+    def bounds(self):
+        """The octave's row bounds: which rows each shard owns."""
+        b = row_bounds(self.base)
+        return up_bounds(b) if self.upsampled else b
+
+    def build_halo(self) -> int:
+        """Base rows of halo that make the shard's octave rows exact: the
+        LoG's reach, plus the presmooth's on the upsampled octave, there in
+        up rows, halved, and two base rows for K2's Catmull-Rom taps
+        (i - 1 ... i + 2)."""
+        c = self.cfg
+        reach = filter_radius(c.detect_sigma, c.truncate)
+        if not self.upsampled:
+            return reach
+        if c.presmooth_sigma:
+            reach += filter_radius(c.presmooth_sigma, c.truncate)
+        return (reach + 1) // 2 + 2
+
+    def log_gauss(self):
+        """(LoG response slabs, Gaussian-smoothed slabs)."""
+        c = self.cfg
+        log_s, gauss_s = map_slabs(
+            self.base, self.mesh, self.build_halo(),
+            lambda v: log_filter3d(octave_volume(v, self.upsampled, c),
+                                   c.detect_sigma, c.truncate),
+            up=self.upsampled)
+        return log_s, gauss_s
+
+    def grad_dtype(self):
+        return _grad_dtype(self.real_shape, mesh_size(self.mesh))
 
 
 def prepare(grid: DensityGrid, cfg: ScaleSpaceConfig):
@@ -71,10 +146,17 @@ def prepare(grid: DensityGrid, cfg: ScaleSpaceConfig):
     return data, grid.origin - pad * grid.voxsp
 
 
-def iter_octaves(grid: DensityGrid, cfg: ScaleSpaceConfig):
-    """Yield (origin, Octave): the upsampled octave first, as mad_tpu."""
+def iter_octaves(grid: DensityGrid, cfg: ScaleSpaceConfig, mesh=None):
+    """Yield (origin, Octave): the upsampled octave first, as mad_tpu;
+    with a mesh, (origin, ShardedOctave) on the padded map's slabs."""
     data, origin = prepare(grid, cfg)
+    if mesh is None:
+        make = lambda up, vs: Octave(data, vs, up, cfg)
+    else:
+        slabs = split_x(data, mesh)
+        del data
+        make = lambda up, vs: ShardedOctave(slabs, vs, up, cfg, mesh)
     if cfg.oct_mode in ("up", "both"):
-        yield origin, Octave(data, grid.voxsp / 2.0, True, cfg)
+        yield origin, make(True, grid.voxsp / 2.0)
     if cfg.oct_mode in ("base", "both"):
-        yield origin, Octave(data, grid.voxsp, False, cfg)
+        yield origin, make(False, grid.voxsp)
