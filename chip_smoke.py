@@ -29,7 +29,9 @@ Phases, each of which raises (non-zero exit) when it fails:
      of the bench map gives them; K16 (the first docking round's 28 lanes
      and the table rows the rescue round may take: hits, counts, accepted,
      slots and rows equal, moved anchors within 1e-12 A; the hits and rows
-     also equal to cKDTree's on its poses), K17 at both of
+     also equal to cKDTree's on its poses; then each of its five stage
+     entries, lanes, dedup ("post"), cloud points, table rows and
+     compaction, against its plain version), K17 at both of
      its call sites (the solutions' score and score_models: CCC within
      1e-5) and K20b (the bench overlap, bit for bit), at the inputs one
      more bench fit gives them), both timed with CUDA events, beside the
@@ -81,7 +83,23 @@ Phases, each of which raises (non-zero exit) when it fails:
      its halo block, K4 and K5's offset forms, K6's, K7's), recorded during
      one more run, against their plain versions and timed with their
      bounds: the report rows sharded_scalespace, detect_shard, orient_shard
-     and describe_shard, with their launches in the 4-shard run.
+     and describe_shard, with their launches in the 4-shard run;
+ 11. the dock on a mesh: dock_structure on the bench fit's single-device
+     DescriptorSets on 4 and on 3 shards of the card, the launch counters
+     reset just before the first run of each, must give the single-device
+     solutions bit for bit (coords, weights, repeat, CCC, matched anchors)
+     and launch K10's head and its merge, K11-K16 and K16's stages; its
+     seconds (median of 3) and peak memory beside the single-device
+     dock's; then the SMALL dimer docked with a rescue round that clusters
+     (RESCUE) on 4 and 3 shards, bit for bit, its rescue re-score (K13)
+     and K16's row stage on the mesh; then the shard bodies at shard 1's
+     inputs of the 4-shard bench dock against their plain versions and
+     timed with their bounds (report rows match_pairs_shard, repeat_shard,
+     dock_post_shard, refine_shard, and pair_merge, the merge entry, with
+     torch.sort of the keys beside it); then MaD(mesh=) on 2 shards of
+     the card through run on phase 7's inputs must give phase 7's
+     solutions bit for bit, and multichip_step(4) on the card at least
+     one solution.
 The last three lines are the kernel report (JSON), the nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
@@ -136,6 +154,30 @@ CAPACITY_KERNELS = ("conv1d", "upsample_axis", "gradient", "peak_mask_compact",
                     "localize", "orient", "descriptor_hist")
 SET_FIELDS = ("coords", "map_coords", "subv_coords", "rfinal", "octave",
               "anchor_id", "main_bin", "sec_bin")
+# the dock on a mesh: the shard counts, the kernels its dock must launch,
+# the rescue case (the SMALL dimer docked with one copy asked for and 10
+# samples a round, so that the first round finds one copy and the rescue
+# round, which clusters, the other) and the report rows of the shard
+# bodies: name -> (the kernels whose launches it counts, source, the
+# mad_tpu body)
+DOCK_SHARDS = (4, 3)
+DOCK_KERNELS = ("pair_head", "pair_merge", "anchor_field", "approx_repeat",
+                "exact_repeat", "cluster_select", "refine", "post",
+                "post_lanes", "post_points", "post_rows", "post_compact")
+RESCUE = dict(n_copies=1, n_samples=10)
+DOCK_ROWS = {
+    "match_pairs_shard": (("pair_head", "pair_merge"),
+                          "mad_tpu_torch/csrc/pairs.cu",
+                          "mad_tpu/engine/match.py:251"),
+    "repeat_shard": (("approx_repeat", "exact_repeat"),
+                     "mad_tpu_torch/csrc/approx.cu",
+                     "mad_tpu/engine/match.py:160"),
+    "dock_post_shard": (("post_lanes", "post_points", "post_rows"),
+                        "mad_tpu_torch/csrc/post.cu",
+                        "mad_tpu/engine/dock_fused.py:455"),
+    "refine_shard": (("refine",), "mad_tpu_torch/csrc/refine.cu",
+                     "mad_tpu/engine/refine.py:164"),
+}
 CAPACITY_ROWS = {
     "sharded_scalespace": (("conv1d", "upsample_axis", "gradient"),
                            "mad_tpu_torch/csrc/conv1d.cu",
@@ -745,15 +787,21 @@ def post_ccc_checks(fit, cfg, device):
           f"recorded {len(posts)} K16, {len(cccs)} K17 and {len(syms)} K20b "
           "calls in the fit")
 
-    # K16, the first round. Work (float64): each lane's centroid, its
-    # anchors moved and measured against every map anchor, the RMSD of
-    # each lane to every earlier solution and lane, each map anchor
-    # measured against every accepted atom; the inputs read once, the
-    # vector written.
-    args = posts[0]
-    C, N = args[2].shape[:2]
-    A, B, S = args[8].shape[0], args[9].shape[0], args[10].shape[0]
-    n_idx, P, n_top = args[11].shape[0], args[14].shape[0], args[16]
+    # K16, the first round: the whole round against post_plain, then each
+    # stage entry against its plain version at the round's inputs. Work
+    # (float64): each lane's centroid, its anchors moved and measured
+    # against every map anchor (lanes); the RMSD of each lane to every
+    # earlier solution and lane (dedup); each map anchor measured against
+    # every accepted atom (points); each row's search of the cloud and,
+    # off the cloud, its own atom distances (rows); the flags read and the
+    # rows written (compaction); each stage's inputs read once, its
+    # outputs written.
+    args = posts[0][:17]
+    (rot_m, trans_m, coords_m, failed, cand_rot, cand_hi, cand_lo, x0,
+     hi_cloud, lo_cloud, prev, idx, hit, dedup, lo_rows, ad, n_top) = args
+    C, N = coords_m.shape[:2]
+    A, B, S = hi_cloud.shape[0], lo_cloud.shape[0], prev.shape[0]
+    n_idx, P = idx.shape[0], lo_rows.shape[0]
     got = k16.split_post(k16.post(*args).cpu().numpy(), C, A, n_top)
     ref = k16.split_post(k16.post_plain(*args).cpu().numpy(), C, A, n_top)
     check(all(np.array_equal(g, w) for g, w in zip(got[1:], ref[1:])),
@@ -766,31 +814,25 @@ def post_ccc_checks(fit, cfg, device):
     # (d <= hit_thresh) and the eligible rows (d > anchor_dist, the first
     # n_top in table order).
     from scipy.spatial import cKDTree
-    lo_cloud, lo_rows = args[9].cpu().numpy(), args[14].cpu().numpy()
-    ok = ~args[3].cpu().numpy()
-    d, _ = cKDTree(lo_cloud).query(got[0][ok], distance_upper_bound=args[12])
-    check(np.array_equal(got[1][ok], d <= args[12]),
+    lo_np, rows_np = lo_cloud.cpu().numpy(), lo_rows.cpu().numpy()
+    ok = ~failed.cpu().numpy()
+    d, _ = cKDTree(lo_np).query(got[0][ok], distance_upper_bound=hit)
+    check(np.array_equal(got[1][ok], d <= hit),
           "K16 hits differ from cKDTree's")
-    atoms = np.concatenate([args[10].cpu().numpy().reshape(-1, 3),
-                            args[2].cpu().numpy()[got[3]].astype(np.float64)
+    atoms = np.concatenate([prev.cpu().numpy().reshape(-1, 3),
+                            coords_m.cpu().numpy()[got[3]].astype(np.float64)
                             .reshape(-1, 3)])
-    d, _ = cKDTree(atoms).query(lo_rows, distance_upper_bound=args[15])
-    check(np.array_equal(got[5], np.nonzero(d > args[15])[0][:n_top]),
+    d, _ = cKDTree(atoms).query(rows_np, distance_upper_bound=ad)
+    check(np.array_equal(got[5], np.nonzero(d > ad)[0][:n_top]),
           "K16 eligible rows differ from cKDTree's")
-    ops = (C * N * POSE_FLOPS + C * A * (36 + B * DIST_FLOPS)
-           + C * (S + C) * n_idx * DIST_FLOPS
-           + (B * (S + n_acc) * N * DIST_FLOPS if n_top else 0))
-    nbytes = (C * (36 + 12 + 1 + 72 + 48) + C * N * 12 + N * 24
-              + (A + B + P + S * N) * 24 + n_idx * 8
-              + k16.out_size(C, A, n_top) * 8)
-    out["post"] = measure(err, lambda: k16.post(*args),
-                          lambda: k16.post_plain(*args), nbytes, ops,
-                          peak_ops=PEAK_F64_S)
+    whole_ms = cuda_ms(lambda: k16.post(*args))
+    out.update(post_stage_checks(args, n_acc))
     say(f"  K16: {C} lanes x {A} anchors x {B} map anchors, {S} earlier "
         f"solutions, {n_idx} RMSD atoms of {N}; {int(got[2].sum())} hits, "
         f"{n_acc} accepted, {int((got[4] >= 0).sum()) - n_acc} merged; "
         f"{len(got[5])} rows taken of {P} (at most {n_top}); equal, moved "
-        f"anchors within {err:g} A; hits and rows equal to cKDTree's")
+        f"anchors within {err:g} A; hits and rows equal to cKDTree's; the "
+        f"round (five entries) {whole_ms:.4f} ms")
     del posts, args
 
     # K17 at both call sites. Work: each in-map model voxel and its map
@@ -1323,80 +1365,83 @@ def _near_radius(hi_cloud, lo_cloud, rot, hi, lo, thresh, chunk=4):
 
 # -- phase 7: the MaD session -----------------------------------------------
 
-def session_phase(device, cfg, fit):
+def session_phase(device, cfg, fit, root):
     """The bench map and subunit through ``mad_tpu_torch.api.MaD`` in a
-    fresh workdir: add_map, add_subunit(n_copies=10), run with the decoy
-    transform, build_assembly; then a second run() in the same workdir,
-    which must load the dsc_db and pose_db caches and give the same
-    solutions. Returns the first run's launch counts."""
+    fresh workdir under ``root``: add_map, add_subunit(n_copies=10), run
+    with the decoy transform, build_assembly; then a second run() in the
+    same workdir, which must load the dsc_db and pose_db caches and give
+    the same solutions. Returns the inputs' paths and the first run's
+    solutions."""
     import contextlib
     import glob
     import io
     import os
-    import tempfile
     import torch
     from mad_tpu_torch.api import MaD
     from mad_tpu_torch.core.grid import write_mrc
     from mad_tpu_torch.core.structure import parse_pdb, write_pdb
     from mad_tpu_torch.kernels import launch_counts, reset_launches
-    with tempfile.TemporaryDirectory(prefix="mad_session_") as work:
-        map_path = os.path.join(work, "bench_map.mrc")
-        sub_path = os.path.join(work, "bench_sub.pdb")
-        write_mrc(fit["dmap"], map_path)
-        write_pdb(fit["copies"][0], sub_path)
-        secs, logs = [], []
-        for attempt in range(2):
-            log = io.StringIO()
-            reset_launches()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(log):
-                mad = MaD(workdir=work, config=cfg, device=device)
-                mad.add_map(map_path, resolution=RES)
-                mad.add_subunit(sub_path, n_copies=N_COPIES)
-                mad.run(transform_subunits=True)
-                if attempt == 0:
-                    t_run = time.perf_counter() - t0
-                    mad.build_assembly()
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            logs.append(log.getvalue())
+    work = os.path.join(root, "session")
+    os.makedirs(work)
+    map_path = os.path.join(work, "bench_map.mrc")
+    sub_path = os.path.join(work, "bench_sub.pdb")
+    write_mrc(fit["dmap"], map_path)
+    write_pdb(fit["copies"][0], sub_path)
+    secs, logs = [], []
+    for attempt in range(2):
+        log = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            mad = MaD(workdir=work, config=cfg, device=device)
+            mad.add_map(map_path, resolution=RES)
+            mad.add_subunit(sub_path, n_copies=N_COPIES)
+            mad.run(transform_subunits=True)
             if attempt == 0:
-                first, counts = mad, launch_counts()
-        out = first.out_folder
-        files = sorted(glob.glob(os.path.join(
-            out, "individual_solutions", "sol_bench_sub_*.pdb")))
-        sols = [parse_pdb(f) for f in files]
-        rmsds = best_rmsds(sols, fit["copies"])
-        found = int(np.sum(np.asarray(rmsds) < RECOVER_RMSD))
-        with open(os.path.join(out, "Solutions_refined_bench_sub.csv")) as fh:
-            rows = fh.read().strip().splitlines()[1:]
-        models = glob.glob(os.path.join(out, "assembly_models",
-                                        "Model_*.pdb"))
-        say(f"session: run {t_run:.3f} s, run + build_assembly "
-            f"{secs[0]:.3f} s, cached run {secs[1]:.3f} s; "
-            f"{len(files)} sol_*.pdb, {found}/{N_COPIES} recovered (median "
-            f"best CA-RMSD {np.median(rmsds):.3f} A), {len(rows)} CSV rows, "
-            f"{len(models)} models; launches " + ", ".join(
-                f"{k} {counts[k]}" for k in SESSION_KERNELS))
-        check(all(counts[k] > 0 for k in SESSION_KERNELS),
-              f"session: a kernel of {SESSION_KERNELS} never launched: "
-              f"{counts}")
-        check(found >= MIN_RECOVERED,
-              f"session: only {found}/{N_COPIES} copies recovered")
-        check(len(rows) == len(files) == len(first.solutions["bench_sub"]),
-              "session: Solutions_refined CSV rows differ from solutions")
-        check(models and os.path.exists(os.path.join(
-            out, "complex_ranking.csv")), "session: no model artifacts")
-        check("found in database" in logs[1]
-              and "found in pose checkpoint" in logs[1]
-              and "Processing map" not in logs[1],
-              "session: the second run did not load both caches")
-        again = mad.solutions["bench_sub"]
-        check(len(again) == len(first.solutions["bench_sub"]) and all(
-            np.array_equal(a.structure.coords, b.structure.coords)
-            for a, b in zip(again, first.solutions["bench_sub"])),
-            "session: the cached run gave other solutions")
-    return counts
+                t_run = time.perf_counter() - t0
+                mad.build_assembly()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        logs.append(log.getvalue())
+        if attempt == 0:
+            first, counts = mad, launch_counts()
+    out = first.out_folder
+    files = sorted(glob.glob(os.path.join(
+        out, "individual_solutions", "sol_bench_sub_*.pdb")))
+    sols = [parse_pdb(f) for f in files]
+    rmsds = best_rmsds(sols, fit["copies"])
+    found = int(np.sum(np.asarray(rmsds) < RECOVER_RMSD))
+    with open(os.path.join(out, "Solutions_refined_bench_sub.csv")) as fh:
+        rows = fh.read().strip().splitlines()[1:]
+    models = glob.glob(os.path.join(out, "assembly_models",
+                                    "Model_*.pdb"))
+    say(f"session: run {t_run:.3f} s, run + build_assembly "
+        f"{secs[0]:.3f} s, cached run {secs[1]:.3f} s; "
+        f"{len(files)} sol_*.pdb, {found}/{N_COPIES} recovered (median "
+        f"best CA-RMSD {np.median(rmsds):.3f} A), {len(rows)} CSV rows, "
+        f"{len(models)} models; launches " + ", ".join(
+            f"{k} {counts[k]}" for k in SESSION_KERNELS))
+    check(all(counts[k] > 0 for k in SESSION_KERNELS),
+          f"session: a kernel of {SESSION_KERNELS} never launched: "
+          f"{counts}")
+    check(found >= MIN_RECOVERED,
+          f"session: only {found}/{N_COPIES} copies recovered")
+    check(len(rows) == len(files) == len(first.solutions["bench_sub"]),
+          "session: Solutions_refined CSV rows differ from solutions")
+    check(models and os.path.exists(os.path.join(
+        out, "complex_ranking.csv")), "session: no model artifacts")
+    check("found in database" in logs[1]
+          and "found in pose checkpoint" in logs[1]
+          and "Processing map" not in logs[1],
+          "session: the second run did not load both caches")
+    again = mad.solutions["bench_sub"]
+    check(len(again) == len(first.solutions["bench_sub"]) and all(
+        np.array_equal(a.structure.coords, b.structure.coords)
+        for a, b in zip(again, first.solutions["bench_sub"])),
+        "session: the cached run gave other solutions")
+    return dict(root=root, map_path=map_path, sub_path=sub_path,
+                sols=first.solutions["bench_sub"], map_dsc=first.map_dsc,
+                sub_dsc=first.dsc_dict["bench_sub"])
 
 
 # -- phase 8: heteromer ranking ---------------------------------------------
@@ -1468,6 +1513,74 @@ def small_reference(device, cfg):
     say(f"small reference assembly: {len(a['models'])} model(s) "
         f"{[m.components for m in a['models']]}, card and CPU agree "
         f"(overlap max diff {e_ov:g}, CCC max diff {e_ccc:g})")
+
+
+def post_stage_checks(args, n_acc, blocks=None):
+    """K16's stage entries against their plain versions at one round's
+    inputs (``args``, post's first 17; ``n_acc`` lanes accepted), the lane,
+    point and row stages on the (start, count) ``blocks`` of the lanes,
+    points and rows (all of each by default); returns {name: measure(...)}
+    for post_lanes, post (the dedup), post_points, post_rows and
+    post_compact."""
+    import torch
+    from mad_tpu_torch.kernels import post as k16
+    (rot_m, trans_m, coords_m, failed, cand_rot, cand_hi, cand_lo, x0,
+     hi_cloud, lo_cloud, prev, idx, hit, dedup, lo_rows, ad, n_top) = args
+    C, N = coords_m.shape[:2]
+    A, B, S = hi_cloud.shape[0], lo_cloud.shape[0], prev.shape[0]
+    n_idx, P = idx.shape[0], lo_rows.shape[0]
+    (l0, nl), (p0, npt), (r0, nr) = blocks or ((0, C), (0, B), (0, P))
+    out = {}
+    la = (rot_m, trans_m, failed, cand_rot, cand_hi, cand_lo, x0, hi_cloud,
+          lo_cloud, hit, l0, nl)
+    g, w = k16.post_lanes(*la), k16.post_lanes_plain(*la)
+    check(torch.equal(g[1], w[1]) and torch.equal(g[2], w[2]),
+          "K16 lanes: hits or counts differ from the plain version")
+    err = float((g[0] - w[0]).abs().max()) if nl else 0.0
+    check(err <= K16_ANCHOR_TOL, f"K16 lanes: anchors differ by {err:g} A")
+    out["post_lanes"] = measure(
+        err, lambda: k16.post_lanes(*la), lambda: k16.post_lanes_plain(*la),
+        nl * (36 + 12 + 1 + 72 + 48) + N * 24 + (A + B) * 24
+        + nl * A * 32 + nl * 8,
+        nl * N * POSE_FLOPS + nl * A * (36 + B * DIST_FLOPS),
+        peak_ops=PEAK_F64_S)
+    counts_all = k16.post_lanes_plain(*la[:10], 0, C)[2]
+    da = (coords_m, failed, counts_all, prev, idx, dedup)
+    acc, slot = k16.post_dedup(*da)
+    w = k16.post_dedup_plain(*da)
+    check(torch.equal(acc, w[0]) and torch.equal(slot, w[1]),
+          "K16 dedup differs from the plain version")
+    out["post"] = measure(
+        0.0, lambda: k16.post_dedup(*da), lambda: k16.post_dedup_plain(*da),
+        C * N * 12 + S * N * 24 + C * 9 + n_idx * 8 + C * 16,
+        C * (S + C) * n_idx * DIST_FLOPS, peak_ops=PEAK_F64_S)
+    pa = (lo_cloud, prev, coords_m, acc, ad, p0, npt)
+    g, w = k16.post_points(*pa), k16.post_points_plain(*pa)
+    check(torch.equal(g, w), "K16 points differ from the plain version")
+    out["post_points"] = measure(
+        0.0, lambda: k16.post_points(*pa), lambda: k16.post_points_plain(*pa),
+        npt * 25 + S * N * 24 + C * N * 12 + C * 8,
+        npt * (S + n_acc) * N * DIST_FLOPS, peak_ops=PEAK_F64_S)
+    elig = k16.post_points_plain(*pa[:5], 0, B)
+    ra = (lo_rows, lo_cloud, elig, prev, coords_m, acc, ad, r0, nr)
+    g, w = k16.post_rows(*ra), k16.post_rows_plain(*ra)
+    check(torch.equal(g, w), "K16 rows differ from the plain version")
+    blk = lo_rows[r0:r0 + nr]
+    on = int((blk[:, None] == lo_cloud[None]).all(dim=2).any(dim=1).sum())
+    out["post_rows"] = measure(
+        0.0, lambda: k16.post_rows(*ra), lambda: k16.post_rows_plain(*ra),
+        nr * 25 + B * 25 + (nr - on) * (S + n_acc) * N * 12,
+        nr * B * 3 + (nr - on) * (S + n_acc) * N * DIST_FLOPS,
+        peak_ops=PEAK_F64_S)
+    flags = k16.post_rows_plain(*ra[:7], 0, P)
+    g = k16.post_compact(flags, n_top)
+    check(torch.equal(g, k16.post_compact_plain(flags, n_top)),
+          "K16 compaction differs from the plain version")
+    out["post_compact"] = measure(
+        0.0, lambda: k16.post_compact(flags, n_top),
+        lambda: k16.post_compact_plain(flags, n_top), P + (1 + n_top) * 8, P,
+        peak_ops=PEAK_F64_S)
+    return out
 
 
 # -- phase 10: capacity mode ---------------------------------------------
@@ -1757,10 +1870,360 @@ def shard_checks(device, cfg, dmap):
     return out
 
 
+# -- phase 11: the dock on a mesh -------------------------------------------
+
+def solution_diff(a, b):
+    """The first difference between two solution lists, bit for bit in
+    coords, weight, repeat, CCC and matched anchors ("" when none)."""
+    if len(a) != len(b):
+        return f"{len(a)} against {len(b)} solutions"
+    for i, (x, y) in enumerate(zip(a, b)):
+        dx = np.abs(x.structure.coords - y.structure.coords).max()
+        if dx != 0:
+            return f"solution {i}: coords differ by {dx:g}"
+        for k in ("weight", "repeat", "ccc"):
+            if getattr(x, k) != getattr(y, k):
+                return (f"solution {i}: {k} {getattr(x, k)!r} against "
+                        f"{getattr(y, k)!r}")
+        if not np.array_equal(x.corresp_anchors, y.corresp_anchors):
+            return f"solution {i}: the matched anchors differ"
+    return ""
+
+
+def same_solutions(a, b):
+    """Bit for bit: coords, weight, repeat, CCC and matched anchors."""
+    return not solution_diff(a, b)
+
+
+def dock_mesh_phase(device, cfg, bench, session):
+    """dock_structure on the bench fit's single-device DescriptorSets on a
+    mesh of 4 and of 3 shards that share the card, the launch counters
+    reset just before the first run of each: the single-device solutions
+    bit for bit, every kernel of DOCK_KERNELS launched; seconds (median of
+    3) and peak memory beside the single-device dock's. Then the rescue
+    case (rescue_phase), the shard bodies at shard 1's inputs
+    (dock_shard_checks), MaD(mesh=) on the session's inputs (phase 7's
+    solutions) and multichip_step(4). Returns the report rows of
+    DOCK_ROWS and of the merge entry (pair_merge), and its launches in the
+    4-shard run."""
+    import torch
+    from mad_tpu_torch.engine.docking import dock_structure
+    from mad_tpu_torch.kernels import launch_counts, reset_launches
+    from mad_tpu_torch.parallel.mesh import make_mesh
+    from mad_tpu_torch.parallel.step import multichip_step
+    dock = lambda mesh=None: dock_structure(
+        bench["map_set"], bench["sub_set"], bench["moved"], bench["dmap"],
+        RES, cfg, n_copies=N_COPIES, device=device if mesh is None else None,
+        mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t_one, ref = median_seconds(dock)
+    peak_one = torch.cuda.max_memory_allocated()
+    counts = None
+    for n in DOCK_SHARDS:
+        mesh = make_mesh(n, devices=[device] * n)
+        reset_launches()
+        got = dock(mesh)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        counts = counts or launches
+        diff = solution_diff(got, ref)
+        check(not diff, f"dock on {n} shards: the solutions differ from the "
+              f"single-device ones: {diff}")
+        idle = [k for k in DOCK_KERNELS if launches[k] == 0]
+        check(not idle, f"dock on {n} shards: {idle} never launched")
+        torch.cuda.reset_peak_memory_stats()
+        t_mesh, got = median_seconds(lambda: dock(mesh))
+        peak = torch.cuda.max_memory_allocated()
+        check(same_solutions(got, ref), f"dock on {n} shards: a timed run "
+              "differs")
+        say(f"dock on a mesh, {n} shards on {device}: dock_structure "
+            f"{t_mesh:.4f} s median of 3 (single device {t_one:.4f} s), "
+            f"peak {peak / 2**30:.3f} GiB (single device "
+            f"{peak_one / 2**30:.3f} GiB); {len(got)} solutions, the same "
+            "bit for bit; launches " + ", ".join(
+                f"{k} {launches[k]}" for k in DOCK_KERNELS))
+    rescue_phase(device, cfg)
+    rows = dock_shard_checks(device, cfg, bench)
+    for name, (kernels, _src, _rep) in DOCK_ROWS.items():
+        rows[name]["launches"] = sum(counts[k] for k in kernels)
+        say_measure(name, rows[name])
+    say_measure("pair_merge", rows["pair_merge"])
+    mesh_session(device, cfg, session)
+    t0 = time.perf_counter()
+    n_sols = multichip_step(4, devices=[device] * 4)
+    torch.cuda.synchronize()
+    check(n_sols >= 1, "multichip_step(4) found no solution")
+    say(f"multichip_step(4) on {device}: {n_sols} solutions, "
+        f"{time.perf_counter() - t0:.3f} s")
+    return rows, counts["pair_merge"]
+
+
+def rescue_phase(device, cfg):
+    """The SMALL dimer with RESCUE's settings, described once on the card:
+    on 4 and 3 shards the single-device solutions bit for bit, with the
+    rescue round's exact re-score (K13) and clustering on the mesh and
+    K16's row stage launched."""
+    import dataclasses
+    import torch
+    from mad_tpu_torch.engine import docking
+    from mad_tpu_torch.engine.pipeline import (describe_grid,
+                                               describe_structure)
+    from mad_tpu_torch.kernels import launch_counts, reset_launches
+    from mad_tpu_torch.ops.simulate import simulate_density
+    from mad_tpu_torch.parallel.mesh import make_mesh
+    from mad_tpu_torch.testing import (decoy_transform, make_assembly,
+                                       recording)
+    rc = cfg.replace(
+        detect=dataclasses.replace(cfg.detect, max_anchors=1024),
+        filter=dataclasses.replace(cfg.filter,
+                                   n_samples=RESCUE["n_samples"]))
+    sub, copies = make_assembly(n_copies=SMALL["n_copies"],
+                                n_res=SMALL["n_res"], seed=SMALL["seed"],
+                                spread=SMALL["spread"])
+    dmap = simulate_density(
+        np.concatenate([c.coords for c in copies]), SMALL["res"],
+        SMALL["voxsp"], device,
+        masses=np.concatenate([c.masses for c in copies])).reduce_void()
+    moved = decoy_transform(sub)
+    m = describe_grid(dmap, rc, name="map", device=device)
+    s = describe_structure(moved, SMALL["res"], dmap.voxsp, rc, name="sub",
+                           device=device)
+    args = (m, s, moved, dmap, SMALL["res"], rc)
+    ref = docking.dock_structure(*args, n_copies=RESCUE["n_copies"],
+                                 device=device)
+    for n in DOCK_SHARDS:
+        mesh = make_mesh(n, devices=[device] * n)
+        reset_launches()
+        with recording(docking, "exact_rescore") as rescue, \
+                recording(docking, "cluster_select") as rounds:
+            got = docking.dock_structure(*args, n_copies=RESCUE["n_copies"],
+                                         mesh=mesh)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        check(len(rescue) == 1 and rescue[0][4] is mesh and len(rounds) == 2,
+              f"rescue case on {n} shards: the rescue round did not "
+              f"cluster on the mesh ({len(rescue)} re-scores, {len(rounds)} "
+              "clusterings)")
+        check(launches["exact_repeat"] > n and launches["post_rows"] > 0,
+              f"rescue case on {n} shards: K13 {launches['exact_repeat']}, "
+              f"K16 rows {launches['post_rows']} launches")
+        diff = solution_diff(got, ref)
+        check(not diff, f"rescue case on {n} shards: the solutions differ "
+              f"from the single-device ones: {diff}")
+        found = best_rmsds([x.structure for x in got], copies)
+        say(f"rescue case, {n} shards: {len(got)} solutions (weights "
+            f"{[x.weight for x in got]}, best CA-RMSD per copy "
+            f"{np.round(found, 3).tolist()}), the same bit for bit; the "
+            f"rescue round re-scored {len(rescue[0][1])} rows on the mesh "
+            f"and clustered; launches K13 {launches['exact_repeat']}, K16 "
+            f"rows {launches['post_rows']}, K14 {launches['cluster_select']}")
+
+
+def dock_shard_checks(device, cfg, bench):
+    """The shard bodies at shard 1's inputs of a 4-shard bench dock,
+    recorded at their call sites, against their plain versions and timed:
+    D1 K10's head on the shard's rows and the merge of the four heads
+    (equal keys; the merge also as its own row, pair_merge, beside
+    torch.sort of the keys); D2 K12 on its pairs and K13 on its exactly
+    scored rows (equal except pairs on a .5 edge or at the 4 A radius);
+    D3 K16's lane, point and row stages on its blocks of the first round
+    (post_stage_checks' gates); D4 K15 on its candidates (refine_check's
+    gates)."""
+    import torch
+    from mad_tpu_torch.engine import match as em
+    from mad_tpu_torch.engine.docking import dock_structure
+    from mad_tpu_torch.kernels import approx, post as k16, refine as k15
+    from mad_tpu_torch.kernels import pairs, repeat
+    from mad_tpu_torch.parallel.mesh import make_mesh
+    from mad_tpu_torch.testing import ca_rmsds, recording
+    out = {}
+    mesh = make_mesh(4, devices=[device] * 4)
+    with recording(em, "pair_head") as heads, \
+            recording(em, "pair_merge") as merges, \
+            recording(em, "approx_repeat") as c12, \
+            recording(em, "exact_repeat") as c13, \
+            recording(k15, "refine_loop") as c15, \
+            recording(k16, "post_lanes") as lanes, \
+            recording(k16, "post_points") as points, \
+            recording(k16, "post_rows") as rows, \
+            recording(k16, "post_dedup") as dedups:
+        dock_structure(bench["map_set"], bench["sub_set"], bench["moved"],
+                       bench["dmap"], RES, cfg, n_copies=N_COPIES, mesh=mesh)
+        torch.cuda.synchronize()
+
+    # D1: equal keys. Bytes: the shard's cosines read, its head written,
+    # the heads read and the global head written; operations: a compare a
+    # cosine and a key. Library: torch.topk per row then flat on the
+    # shard's cosines, and torch.sort of the heads.
+    a, mg = heads[1], merges[0]
+    check(torch.equal(pairs.pair_head(*a), pairs.pair_head_plain(*a)),
+          "D1: K10's head on shard 1 differs from the plain version")
+    g = pairs.pair_merge(*mg)
+    check(torch.equal(g, pairs.pair_merge_plain(*mg)),
+          "D1: the merge differs from the plain version")
+    sim, keys, L = a[0], mg[0], mg[1]
+    k = min(a[1], sim.shape[1])
+    L1 = pairs.head_length(sim.shape[0], sim.shape[1], a[1], a[2])
+    flip = -(1 << 63)
+
+    def topk_head():
+        vals, _ = torch.topk(sim, k, dim=1)
+        return torch.topk(vals.reshape(-1), L1)
+
+    sort = lambda: torch.sort(keys ^ flip)
+    out["match_pairs_shard"] = measure(
+        0.0, lambda: (pairs.pair_head(*a), pairs.pair_merge(*mg)),
+        lambda: (pairs.pair_head_plain(*a), pairs.pair_merge_plain(*mg)),
+        sim.numel() * 4 + L1 * 8 + keys.numel() * 8 + L * 8,
+        sim.numel() + keys.numel(), lambda: (topk_head(), sort()))
+    out["pair_merge"] = measure(
+        0.0, lambda: pairs.pair_merge(*mg),
+        lambda: pairs.pair_merge_plain(*mg), keys.numel() * 8 + L * 8,
+        keys.numel(), sort)
+    say(f"  match_pairs_shard: K10's head on rows {a[4]}-"
+        f"{a[4] + sim.shape[0]} of {a[5]} x {sim.shape[1]} (head {L1}), "
+        f"the merge of {len(heads)} heads ({keys.numel()} keys) into "
+        f"{L}; equal")
+
+    # D2: K12 and K13 on shard 1's blocks. Work as in match_kernel_checks
+    # and kernel_checks.
+    a12, a13 = c12[1], c13[1]
+    r1, r2 = approx.approx_repeat(*a12), approx.approx_repeat_plain(*a12)
+    edge, touched = approx_edges(*a12)
+    check(not bool(((r1 != r2) & ~edge).any()),
+          "D2: K12 on shard 1 differs off the .5 edges")
+    e1, e2 = repeat.exact_repeat(*a13), repeat.exact_repeat_plain(*a13)
+    near = _near_radius(*a13)
+    check(not bool(((e1 != e2) & ~near).any()),
+          "D2: K13 on shard 1 differs off the radius")
+    P, a_hi, a_lo = a12[4].shape[0], a12[1].shape[0], a13[1].shape[0]
+    n13 = a13[2].shape[0]
+    out["repeat_shard"] = measure(
+        max(float((r1 - r2).abs().max()), float((e1 - e2).abs().max())),
+        lambda: (approx.approx_repeat(*a12), repeat.exact_repeat(*a13)),
+        lambda: (approx.approx_repeat_plain(*a12),
+                 repeat.exact_repeat_plain(*a13)),
+        touched + a_hi * 12 + 12 + P * (36 + 24 + 4)
+        + (a_hi + a_lo) * 12 + n13 * (36 + 24 + 4),
+        P * a_hi * APPROX_FLOPS + n13 * a_hi * (15 + 9 * a_lo))
+    say(f"  repeat_shard: K12 on {P} pairs ({int(edge.sum())} on a .5 "
+        f"edge), K13 on {n13} rows ({int(near.sum())} at the radius)")
+
+    # D3: K16's lane, point and row stages on shard 1's blocks of the
+    # first round.
+    la, pa, ra, da = lanes[1], points[1], rows[1], dedups[0]
+    C = la[0].shape[0]
+    stage_args = (la[0], la[1], da[0], la[2], la[3], la[4], la[5], la[6],
+                  la[7], la[8], da[3], da[4], la[9], da[5], ra[0], pa[4],
+                  cfg.filter.n_samples * N_COPIES)
+    st = post_stage_checks(stage_args, int((pa[3] != 0).sum()),
+                           ((la[10], la[11]), (pa[5], pa[6]),
+                            (ra[7], ra[8])))
+    parts = [st[k] for k in ("post_lanes", "post_points", "post_rows")]
+    out["dock_post_shard"] = dict(
+        max_abs_err=max(r["max_abs_err"] for r in parts),
+        ms=sum(r["ms"] for r in parts),
+        plain_ms=sum(r["plain_ms"] for r in parts), library_ms=None,
+        **bound(sum(r["bytes"] for r in parts),
+                sum(r["ops"] for r in parts), PEAK_F64_S))
+    say(f"  dock_post_shard: K16 lanes {la[10]}-{la[10] + la[11]} of {C}, "
+        f"points {pa[5]}-{pa[5] + pa[6]} of {pa[0].shape[0]}, rows "
+        f"{ra[7]}-{ra[7] + ra[8]} of {ra[0].shape[0]}; equal (ms "
+        + ", ".join(f"{k} {st[k]['ms']:.4f}" for k in
+                    ("post_lanes", "post_points", "post_rows")) + ")")
+
+    # D4: K15 on shard 1's candidates, refine_check's gates and work.
+    a15 = c15[1]
+    got, ref = k15.refine_loop(*a15), k15.refine_loop_plain(*a15)
+    failed = ref[5].cpu().numpy()
+    check(np.array_equal(got[5].cpu().numpy(), failed),
+          "D4: K15 failed flags differ")
+    d = ca_rmsds(got[2].cpu().numpy(), ref[2].cpu().numpy(),
+                 bench["moved"].ca_idx)[~failed]
+    check(len(d) and d.max() <= SMALL_POSE_TOL
+          and np.median(d) <= K15_MEDIAN,
+          f"D4: K15 final CA-RMSD to plain: max {d.max():g}")
+    Cs, N = a15[1].shape[:2]
+    steps = got[4].cpu().numpy()
+    touched = field_voxels(a15[1], got[2], a15[4], bench["dmap"].shape)
+    out["refine_shard"] = measure(
+        float((got[2] - ref[2]).abs().max()),
+        lambda: k15.refine_loop(*a15), lambda: k15.refine_loop_plain(*a15),
+        touched * 12 + Cs * N * 12 * 2 + Cs * (12 + 4 + 36 + 12 + 6) + 28,
+        int(steps.sum()) * N * REFINE_FLOPS)
+    say(f"  refine_shard: K15 on {Cs} candidates (steps {int(steps.sum())}"
+        f"); CA-RMSD to plain max {d.max():.4f} A")
+    return out
+
+
+def mesh_session(device, cfg, session):
+    """MaD(mesh=make_mesh(2, devices=[device] * 2)) through run on the
+    session phase's inputs, in a fresh workdir that holds only phase 7's
+    subunit descriptors in its dsc_db (the subunit's density is simulated
+    by K9, whose atomic adds land in a run-dependent order, so a fresh
+    simulation can differ from phase 7's in the last bits, and with it the
+    descriptors; the capacity-mode describe of one density equals the
+    single-device one, scripts/torch_mesh_repro.py): the map described in
+    capacity mode equal to phase 7's DescriptorSet, and phase 7's
+    solutions bit for bit."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import shutil
+    import torch
+    from mad_tpu_torch.api import MaD
+    from mad_tpu_torch.kernels import launch_counts, reset_launches
+    from mad_tpu_torch.parallel.mesh import make_mesh
+    work = os.path.join(session["root"], "mesh")
+    os.makedirs(os.path.join(work, "dsc_db"))
+    subs = glob.glob(os.path.join(os.path.dirname(session["map_path"]),
+                                  "dsc_db", "bench_sub_*.npz"))
+    check(len(subs) == 1, f"session phase: {len(subs)} subunit caches")
+    shutil.copy(subs[0], os.path.join(work, "dsc_db"))
+    mesh = make_mesh(2, devices=[device] * 2)
+    reset_launches()
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        mad = MaD(workdir=work, config=cfg, mesh=mesh)
+        mad.add_map(session["map_path"], resolution=RES)
+        mad.add_subunit(session["sub_path"], n_copies=N_COPIES)
+        mad.run(transform_subunits=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    got = mad.solutions["bench_sub"]
+    for name, x, y in (("map", mad.map_dsc, session["map_dsc"]),
+                       ("subunit", mad.dsc_dict["bench_sub"],
+                        session["sub_dsc"])):
+        check(same_set(x, y), f"MaD(mesh=): the {name}'s DescriptorSet "
+              "differs from the session phase's")
+    diff = solution_diff(got, session["sols"])
+    check(not diff, "MaD(mesh=) gave other solutions than the session "
+          f"phase: {diff}")
+    idle = [k for k in DOCK_KERNELS + CAPACITY_KERNELS if counts[k] == 0]
+    check(not idle, f"MaD(mesh=): {idle} never launched")
+    check("Processing map" in log.getvalue()
+          and "for bench_sub found in database" in log.getvalue(),
+          "MaD(mesh=): the map was not described, or the subunit's "
+          "descriptors not loaded")
+    say(f"MaD(mesh=2 shards on {device}): run {dt:.3f} s, {len(got)} "
+        "solutions, phase 7's bit for bit")
+
+
 # -- main -----------------------------------------------------------------
 
 
 def main():
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="mad_smoke_") as work:
+        phases(work)
+
+
+def phases(work):
+    """Phases 1-11 (the module docstring); ``work`` is a scratch directory
+    for the sessions' workdirs."""
     import torch
     import mad_tpu_torch  # noqa: F401  (the port must be beside the script)
     device, smi = device_phase()
@@ -1806,7 +2269,8 @@ def main():
     say(f"launches: {counts}")
     say(f"{len(sols)} solutions, {found}/{N_COPIES} subunits recovered, "
         f"median best CA-RMSD {np.median(rmsds):.3f} A")
-    main_path = [n for n in KERNELS if n != "hetero_head"]
+    main_path = [n for n in KERNELS if n not in ("hetero_head",
+                                                 "pair_merge")]
     check(all(counts[n] > 0 for n in main_path),
           f"a kernel of the main path never launched: {counts}")
     check(len(sols) > 0 and all(
@@ -1865,7 +2329,8 @@ def main():
         + f" s; same tuples and models (overlap max diff {e_ov:g}, CCC "
         f"max diff {e_ccc:g})")
     del a, p
-    session_phase(device, cfg, fit)
+    session = session_phase(device, cfg, fit, work)
+    bench = {k: fit[k] for k in ("map_set", "sub_set", "moved", "dmap")}
     dmap = fit["dmap"]
     del fit
     torch.cuda.empty_cache()
@@ -1873,6 +2338,8 @@ def main():
     counts["hetero_head"] = hetero_phase(device)
     small_reference(device, cfg)
     capacity = capacity_phase(device, cfg, dmap)
+    dock, counts["pair_merge"] = dock_mesh_phase(device, cfg, bench, session)
+    checks["pair_merge"] = dock.pop("pair_merge")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1881,10 +2348,11 @@ def main():
                    **{k: checks[name][k] for k in keys})
               for name, (_mod, src, rep) in KERNELS.items()]
     report += [dict({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep,
-                     "launches": capacity[name]["launches"]},
-                    **{k: capacity[name][k] for k in keys})
-               for name, (_k, src, rep) in CAPACITY_ROWS.items()]
+                     "replaces": rep, "launches": rows[name]["launches"]},
+                    **{k: rows[name][k] for k in keys})
+               for table, rows in ((CAPACITY_ROWS, capacity),
+                                   (DOCK_ROWS, dock))
+               for name, (_k, src, rep) in table.items()]
     say(json.dumps({"kernels": report}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

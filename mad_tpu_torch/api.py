@@ -8,10 +8,12 @@ complex_ranking.csv, anchor debug dumps), plus mad_tpu's pose_db
 checkpoint. The caches are ``.npz`` files (mad_tpu_torch/cache.py).
 
 The session runs on ``device`` (the card unless the caller names another)
-and takes no mesh yet: capacity mode covers the describe path
-(``engine.pipeline.describe_grid(..., mesh=)``), not docking. mad_tpu's
-warm start, describe thread pool and ensemble frame groups exist for the
-TPU host and are not carried over.
+or, with ``mesh`` (mad_tpu/api.py:71-82: None, "auto" for one mesh over
+all cards, or a ``parallel.mesh.Mesh``), on the mesh: the describe stage
+in capacity mode (``engine.pipeline.describe_grid(..., mesh=)``) and the
+dock sharded (``engine.docking.dock_structure(..., mesh=)``), everything
+else on the mesh's home device. mad_tpu's warm start, describe thread pool
+and ensemble frame groups exist for the TPU host and are not carried over.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from .engine import assemble as asm
 from .engine.docking import Solution, dock_structure
 from .engine.pipeline import DescriptorSet, describe_grid, describe_structure
 from .ops.simulate import simulate_density
+from .parallel.mesh import auto_mesh, run_device
 from .testing import decoy_transform
 
 
@@ -54,12 +57,20 @@ class MaD:
     """Session object mirroring the reference's user API."""
 
     def __init__(self, workdir: str = ".", config: Optional[MadConfig] = None,
-                 device=None):
+                 device=None, mesh=None):
         """device: where the pipeline runs; None means the card ("cuda"),
-        and raises on a machine without one."""
+        and raises on a machine without one. mesh: None (one device),
+        "auto" (a mesh over all cards, None below two) or a
+        ``parallel.mesh.Mesh``; with a mesh the describe and dock stages
+        shard over it and ``device`` is its home device (naming another
+        raises)."""
         self.workdir = workdir
         self.config = config or MadConfig()
-        self.device = resolve(device)
+        if mesh == "auto":
+            mesh = auto_mesh()
+        self.mesh = mesh
+        self.device = resolve(device if mesh is None
+                              else run_device(mesh, device))
         self.input_map: Optional[str] = None
         self.input_subunits: Dict[str, list] = {}
         self.input_ensembles: Dict[str, dict] = {}
@@ -180,7 +191,7 @@ class MaD:
             print(f"\nMaD> Processing map {self.map_name}")
             self.map_dsc = describe_grid(self.dmap, self.config,
                                          name=self.map_name,
-                                         device=self.device)
+                                         device=self.device, mesh=self.mesh)
             dsc_cache.save_descriptors(self.map_dsc, path)
 
         # subunits
@@ -492,7 +503,7 @@ class MaD:
     def _describe_pdb(self, pdb_path: str, name: str) -> DescriptorSet:
         return describe_structure(parse_pdb(pdb_path), self.resolution,
                                   self.voxsp, self.config, name=name,
-                                  device=self.device)
+                                  device=self.device, mesh=self.mesh)
 
     def _dock_one(self, pdb_path: str, n_copies: int, k: str
                   ) -> List[Solution]:
@@ -531,7 +542,7 @@ class MaD:
         sols = dock_structure(self.map_dsc, ds, struct, self.dmap,
                               self.resolution, cfg, n_copies=n_copies,
                               verbose=True, device=self.device,
-                              on_filtered=on_filtered)
+                              on_filtered=on_filtered, mesh=self.mesh)
         if ckpt is not None:
             dsc_cache.save_solutions(sols, ckpt)
         self.solutions[k] = sols

@@ -12,6 +12,14 @@
 // top_k calls, and keys are unique. Output: the smallest L keys, ascending,
 // L = min(max_pairs, dh * min(row_cap, dl)), padded with ~0.
 //
+// On a mesh (mad_tpu's match_pairs with the subunit rows sharded), each
+// shard runs mad_pair_head on its block of rows with the block's first
+// global row (row0), so its keys carry the global row, and a head of
+// min(max_pairs, rows * k) keys; mad_pair_merge, stages 2 and 3 alone over
+// the shards' heads concatenated, keeps the smallest L: the single-device
+// head, since a key among the L smallest overall is among the L smallest
+// of its own shard.
+//
 // 1. row_heads, one block per row: count the survivors; where there are
 //    more than k = min(row_cap, dl), a radix select (four 8-bit digits,
 //    histograms in shared memory, the row re-read from L1/L2 each pass, so
@@ -62,7 +70,8 @@ __device__ int block_sum(int x, int* red) {
 }
 
 __global__ void row_heads(const float* __restrict__ sim, int dl, int k,
-                          float thr, unsigned long long* __restrict__ heads) {
+                          float thr, int row0,
+                          unsigned long long* __restrict__ heads) {
   __shared__ int hist[256];
   __shared__ int red[32];
   __shared__ unsigned s_prefix;
@@ -70,7 +79,8 @@ __global__ void row_heads(const float* __restrict__ sim, int dl, int k,
   const int row = blockIdx.x;
   const float* v = sim + static_cast<long long>(row) * dl;
   unsigned long long* out = heads + static_cast<long long>(row) * k;
-  const unsigned base = static_cast<unsigned>(row) * static_cast<unsigned>(dl);
+  const unsigned base = static_cast<unsigned>(row0 + row)
+                        * static_cast<unsigned>(dl);
 
   int n = 0;
   for (int c = threadIdx.x; c < dl; c += blockDim.x) n += v[c] > thr;
@@ -191,24 +201,16 @@ __global__ void merge_pass(const unsigned long long* __restrict__ in,
   if (opos < L) out[(left ? start : pstart) + opos] = key;
 }
 
-}  // namespace
-
-// sim (dh, dl) float32; heads and tmp (dh * k) uint64 scratch; out (L).
-MAD_EXPORT int mad_pair_head(const float* sim, int dh, int dl, int k,
-                             float thr, long long L,
-                             unsigned long long* heads,
-                             unsigned long long* tmp,
-                             unsigned long long* out, cudaStream_t stream) {
-  const long long N = static_cast<long long>(dh) * k;
-  if (N == 0 || L == 0) return 0;
-  row_heads<<<dh, kRowThreads, 0, stream>>>(sim, dl, k, thr, heads);
+// Stages 2 and 3: the smallest L of the N keys in `keys` (sorted in place
+// by tiles; tmp N more) into out, ascending.
+int select_smallest(unsigned long long* keys, unsigned long long* tmp,
+                    long long N, long long L, unsigned long long* out,
+                    cudaStream_t stream) {
+  tile_sort<<<static_cast<int>((N + kTile - 1) / kTile), kTileThreads, 0,
+              stream>>>(keys, N);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  tile_sort<<<static_cast<int>((N + kTile - 1) / kTile), kTileThreads, 0,
-              stream>>>(heads, N);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  unsigned long long *src = heads, *dst = tmp;
+  unsigned long long *src = keys, *dst = tmp;
   const int blocks = static_cast<int>((N + kMergeThreads - 1)
                                       / kMergeThreads);
   for (long long w = kTile; w < N; w *= 2) {
@@ -221,4 +223,30 @@ MAD_EXPORT int mad_pair_head(const float* sim, int dh, int dl, int k,
   }
   return static_cast<int>(cudaMemcpyAsync(out, src, L * sizeof(*out),
                                           cudaMemcpyDeviceToDevice, stream));
+}
+
+}  // namespace
+
+// sim (rows, dl) float32, rows row0 .. row0 + rows - 1 of a table of dl
+// columns; heads and tmp (rows * k) uint64 scratch; out (L).
+MAD_EXPORT int mad_pair_head(const float* sim, int dh, int dl, int k,
+                             float thr, int row0, long long L,
+                             unsigned long long* heads,
+                             unsigned long long* tmp,
+                             unsigned long long* out, cudaStream_t stream) {
+  const long long N = static_cast<long long>(dh) * k;
+  if (N == 0 || L == 0) return 0;
+  row_heads<<<dh, kRowThreads, 0, stream>>>(sim, dl, k, thr, row0, heads);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return select_smallest(heads, tmp, N, L, out, stream);
+}
+
+// The global top of a mesh run: the smallest L <= N of the N keys of the
+// shards' heads (keys is scratch, sorted in place by tiles; tmp N more).
+MAD_EXPORT int mad_pair_merge(unsigned long long* keys, long long N,
+                              long long L, unsigned long long* tmp,
+                              unsigned long long* out, cudaStream_t stream) {
+  if (N == 0 || L == 0) return 0;
+  return select_smallest(keys, tmp, N, L, out, stream);
 }

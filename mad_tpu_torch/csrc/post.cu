@@ -4,26 +4,35 @@
 // body) on the port's split path, whose host version (mad_tpu's
 // engine/docking._merge_refined, numpy and cKDTree) computes in float64;
 // so does this file, on the same inputs (kernels/post.py says what each
-// output is). Six kernels run in one launcher, on one stream:
-//   1. post_lanes, a block per lane: the composed pose (A = rot^T,
-//      b = lo - hi A, center = mean(x0 A + b) by a block sum), then a warp
-//      per subunit anchor moves it, s_a = ((h A + b) - center) R + center
-//      + t, and takes its least squared distance to the map anchors
-//      (lanes over the cloud, a shuffle min); hit = d2 < hit_thresh^2;
+// output is). Six kernels, in five launchers (the stages), on one stream:
+//   1. post_lanes, a block per lane of a range: the composed pose
+//      (A = rot^T, b = lo - hi A, center = mean(x0 A + b) by a block sum),
+//      then a warp per subunit anchor moves it, s_a = ((h A + b) - center)
+//      R + center + t, and takes its least squared distance to the map
+//      anchors (lanes over the cloud, a shuffle min); hit = d2 <
+//      hit_thresh^2;
 //   2. post_rmsd, a block per lane: its CA-RMSD to each earlier solution
 //      and to each lane of the round, a warp per pair, lanes over atoms;
 //   3. post_scan, one warp: the greedy dedup in candidate order, the
 //      argmin over the accepted solutions by a shuffle (first index on
-//      ties), merge below dedup_rmsd, else a new solution;
-//   4. post_elig_points, a block per map-anchor cloud point: its least
-//      squared distance to the atoms of every accepted solution (the
-//      earlier rounds' and this round's accepted lanes);
-//   5. post_elig_rows, a thread per table row: finds its map anchor in the
-//      cloud (equal coordinates) and takes that point's answer; a row whose
-//      anchor is not in the cloud is measured against the atoms itself;
-//      eligible = !(d2 < anchor_dist^2), as cKDTree's upper bound decides;
+//      ties), merge below dedup_rmsd, else a new solution (2 and 3 are
+//      one launcher, mad_post_dedup);
+//   4. post_elig_points, a block per map-anchor cloud point of a range:
+//      its least squared distance to the atoms of every accepted solution
+//      (the earlier rounds' and this round's accepted lanes);
+//   5. post_elig_rows, a thread per table row of a range: finds its map
+//      anchor in the cloud (equal coordinates) and takes that point's
+//      answer; a row whose anchor is not in the cloud is measured against
+//      the atoms itself; eligible = !(d2 < anchor_dist^2), as cKDTree's
+//      upper bound decides;
 //   6. post_compact, one block: the first n_top eligible rows in table
 //      order (ballot prefix sums over chunks of 1,024 rows).
+// Stages 1, 4 and 5 take a (start, count) range of lanes, points or rows
+// and write count outputs: on a mesh (mad_tpu's lane_map_fn and
+// pair_scan_fn, engine/dock_fused.py:455-524) each shard runs them on its
+// block on its own device, and 2-3 and 6 run once on the gathered results
+// (the replicated dedup scan and compaction there); a lane's, point's or
+// row's result does not depend on the range it is computed in.
 // Products, sums and differences are __dmul_rn / __dadd_rn / __dsub_rn in
 // the plain version's order, so the poses and distances round as there
 // (the center's sum and the RMSD sums run in another order: within 1e-12).
@@ -104,19 +113,21 @@ __global__ void post_lanes(const float* __restrict__ rot_m,
                            const double* __restrict__ x0, int N,
                            const double* __restrict__ hi_cloud, int A,
                            const double* __restrict__ lo_cloud, int B,
-                           double thr2, double* __restrict__ out_sa,
+                           double thr2, int start,
+                           double* __restrict__ out_sa,
                            double* __restrict__ out_hits,
                            double* __restrict__ out_counts) {
   __shared__ double sA[9], sR[9], sb[3], sc[3], st[3], red[kWarps];
   __shared__ int s_count;
-  const int c = blockIdx.x;
+  const int c = start + blockIdx.x;       // the lane; outputs at blockIdx.x
+  const int o = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (failed[c]) {
     for (int q = threadIdx.x; q < 3 * A; q += blockDim.x)
-      out_sa[3LL * c * A + q] = 0.0;
+      out_sa[3LL * o * A + q] = 0.0;
     for (int a = threadIdx.x; a < A; a += blockDim.x)
-      out_hits[static_cast<long long>(c) * A + a] = 0.0;
-    if (threadIdx.x == 0) out_counts[c] = 0.0;
+      out_hits[static_cast<long long>(o) * A + a] = 0.0;
+    if (threadIdx.x == 0) out_counts[o] = 0.0;
     return;
   }
   if (threadIdx.x < 9) {            // A[d][e] = rot[e][d]
@@ -153,7 +164,7 @@ __global__ void post_lanes(const float* __restrict__ rot_m,
                               lo_cloud[3 * j + 2]));
     best = warp_min(best);
     if (lane == 0) {
-      const long long ca = static_cast<long long>(c) * A + a;
+      const long long ca = static_cast<long long>(o) * A + a;
       for (int e = 0; e < 3; ++e) out_sa[3 * ca + e] = s[e];
       const bool hit = best < thr2;
       out_hits[ca] = hit ? 1.0 : 0.0;
@@ -161,7 +172,7 @@ __global__ void post_lanes(const float* __restrict__ rot_m,
     }
   }
   __syncthreads();
-  if (threadIdx.x == 0) out_counts[c] = static_cast<double>(s_count);
+  if (threadIdx.x == 0) out_counts[o] = static_cast<double>(s_count);
 }
 
 // Atom `k` of target j: an earlier solution (j < S, float64) or lane
@@ -277,13 +288,14 @@ __device__ double atoms_min(const double* p, const double* prev, int S,
 }
 
 __global__ void post_elig_points(const double* __restrict__ lo_cloud,
+                                 int start,
                                  const double* __restrict__ prev, int S,
                                  const float* __restrict__ coords,
                                  const double* __restrict__ acc, int C,
                                  int N, double ad2,
                                  unsigned char* __restrict__ elig_pt) {
   __shared__ double red[kWarps];
-  const int j = blockIdx.x;
+  const int j = start + blockIdx.x;       // the point; output at blockIdx.x
   double best = atoms_min(lo_cloud + 3 * j, prev, S, coords, acc, C, N,
                           threadIdx.x, blockDim.x);
   best = warp_min(best);
@@ -292,11 +304,12 @@ __global__ void post_elig_points(const double* __restrict__ lo_cloud,
   if (threadIdx.x == 0) {
     for (int w = 1; w < kWarps; ++w) best = fmin(best, red[w]);
     best = fmin(best, red[0]);
-    elig_pt[j] = best < ad2 ? 0 : 1;
+    elig_pt[blockIdx.x] = best < ad2 ? 0 : 1;
   }
 }
 
-__global__ void post_elig_rows(const double* __restrict__ lo_rows, int P,
+__global__ void post_elig_rows(const double* __restrict__ lo_rows,
+                               int start, int count,
                                const double* __restrict__ lo_cloud, int B,
                                const unsigned char* __restrict__ elig_pt,
                                const double* __restrict__ prev, int S,
@@ -304,17 +317,17 @@ __global__ void post_elig_rows(const double* __restrict__ lo_rows, int P,
                                const double* __restrict__ acc, int C, int N,
                                double ad2,
                                unsigned char* __restrict__ row_flag) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= P) return;
-  const double* p = lo_rows + 3 * r;
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= count) return;
+  const double* p = lo_rows + 3LL * (start + o);
   for (int j = 0; j < B; ++j) {
     const double* q = lo_cloud + 3 * j;
     if (q[0] == p[0] && q[1] == p[1] && q[2] == p[2]) {
-      row_flag[r] = elig_pt[j];
+      row_flag[o] = elig_pt[j];
       return;
     }
   }
-  row_flag[r] = atoms_min(p, prev, S, coords, acc, C, N, 0, 1) < ad2 ? 0 : 1;
+  row_flag[o] = atoms_min(p, prev, S, coords, acc, C, N, 0, 1) < ad2 ? 0 : 1;
 }
 
 __global__ void post_compact(const unsigned char* __restrict__ row_flag,
@@ -356,55 +369,78 @@ __global__ void post_compact(const unsigned char* __restrict__ row_flag,
 
 }  // namespace
 
-// Inputs as kernels/post.post; scratch: rmat (C (S + C)) f64, lane_of (C)
-// int32, elig_pt (B) and row_flag (P) uint8; out (C A 4 + 3 C + 1 + n_top)
-// f64. P is 0 when n_top is 0 (no eligibility).
-MAD_EXPORT int mad_post(const float* rot_m, const float* trans_m,
-                        const float* coords, const unsigned char* failed,
-                        const double* cand_rot, const double* cand_hi,
-                        const double* cand_lo, int C, const double* x0, int N,
-                        const double* hi_cloud, int A, const double* lo_cloud,
-                        int B, const double* prev, int S,
-                        const long long* idx, int n, double hit_thresh,
-                        double dedup, const double* lo_rows, int P,
-                        double anchor_dist, int n_top, double* rmat,
-                        int* lane_of, unsigned char* elig_pt,
-                        unsigned char* row_flag, double* out,
-                        cudaStream_t stream) {
-  double* out_sa = out;
-  double* out_hits = out_sa + 3LL * C * A;
-  double* out_counts = out_hits + static_cast<long long>(C) * A;
-  double* out_acc = out_counts + C;
-  double* out_slot = out_acc + C;
-  double* out_n = out_slot + C;
-  double* out_rows = out_n + 1;
-  cudaError_t err;
-  if (C > 0) {
-    post_lanes<<<C, kThreads, 0, stream>>>(
-        rot_m, trans_m, failed, cand_rot, cand_hi, cand_lo, x0, N, hi_cloud,
-        A, lo_cloud, B, hit_thresh * hit_thresh, out_sa, out_hits,
-        out_counts);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    post_rmsd<<<C, kThreads, 0, stream>>>(coords, prev, S, C, N, idx, n,
-                                          rmat);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    post_scan<<<1, 32, 0, stream>>>(failed, S, C, rmat, dedup, lane_of,
-                                    out_counts, out_acc, out_slot);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  const double ad2 = anchor_dist * anchor_dist;
-  if (n_top > 0 && P > 0) {
-    if (B > 0) {
-      post_elig_points<<<B, kThreads, 0, stream>>>(
-          lo_cloud, prev, S, coords, out_acc, C, N, ad2, elig_pt);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    }
-    post_elig_rows<<<(P + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-        lo_rows, P, lo_cloud, B, elig_pt, prev, S, coords, out_acc, C, N,
-        ad2, row_flag);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  post_compact<<<1, kCompact, 0, stream>>>(row_flag, P, n_top, out_n,
-                                           out_rows);
+// The launchers, one a stage; inputs as kernels/post.py's stage wrappers
+// say. Each returns cudaGetLastError() after its launches.
+
+// Stage 1, lanes start .. start + count - 1 of the C-lane inputs; out_sa
+// (count A 3), out_hits (count A), out_counts (count) f64.
+MAD_EXPORT int mad_post_lanes(const float* rot_m, const float* trans_m,
+                              const unsigned char* failed,
+                              const double* cand_rot, const double* cand_hi,
+                              const double* cand_lo, int start, int count,
+                              const double* x0, int N,
+                              const double* hi_cloud, int A,
+                              const double* lo_cloud, int B,
+                              double hit_thresh, double* out_sa,
+                              double* out_hits, double* out_counts,
+                              cudaStream_t stream) {
+  post_lanes<<<count, kThreads, 0, stream>>>(
+      rot_m, trans_m, failed, cand_rot, cand_hi, cand_lo, x0, N, hi_cloud,
+      A, lo_cloud, B, hit_thresh * hit_thresh, start, out_sa, out_hits,
+      out_counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stages 2-3 on all C lanes: counts (C) f64 from stage 1; scratch rmat
+// (C (S + C)) f64 and lane_of (C) int32; out_acc, out_slot (C) f64.
+MAD_EXPORT int mad_post_dedup(const float* coords,
+                              const unsigned char* failed,
+                              const double* counts, int C, int N,
+                              const double* prev, int S,
+                              const long long* idx, int n, double dedup,
+                              double* rmat, int* lane_of, double* out_acc,
+                              double* out_slot, cudaStream_t stream) {
+  post_rmsd<<<C, kThreads, 0, stream>>>(coords, prev, S, C, N, idx, n,
+                                        rmat);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  post_scan<<<1, 32, 0, stream>>>(failed, S, C, rmat, dedup, lane_of,
+                                  counts, out_acc, out_slot);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stage 4, cloud points start .. start + count - 1; acc (C) f64 from
+// stage 3; elig_pt (count) uint8.
+MAD_EXPORT int mad_post_points(const double* lo_cloud, int start, int count,
+                               const double* prev, int S,
+                               const float* coords, const double* acc,
+                               int C, int N, double anchor_dist,
+                               unsigned char* elig_pt, cudaStream_t stream) {
+  post_elig_points<<<count, kThreads, 0, stream>>>(
+      lo_cloud, start, prev, S, coords, acc, C, N, anchor_dist * anchor_dist,
+      elig_pt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stage 5, table rows start .. start + count - 1; elig_pt (B) of every
+// cloud point from stage 4; row_flag (count) uint8.
+MAD_EXPORT int mad_post_rows(const double* lo_rows, int start, int count,
+                             const double* lo_cloud, int B,
+                             const unsigned char* elig_pt,
+                             const double* prev, int S, const float* coords,
+                             const double* acc, int C, int N,
+                             double anchor_dist, unsigned char* row_flag,
+                             cudaStream_t stream) {
+  post_elig_rows<<<(count + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      lo_rows, start, count, lo_cloud, B, elig_pt, prev, S, coords, acc, C,
+      N, anchor_dist * anchor_dist, row_flag);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stage 6 on all P rows' flags (P may be 0): out (1 + n_top) f64, the
+// number of rows taken, then the rows (-1 past them).
+MAD_EXPORT int mad_post_compact(const unsigned char* row_flag, int P,
+                                int n_top, double* out, cudaStream_t stream) {
+  post_compact<<<1, kCompact, 0, stream>>>(row_flag, P, n_top, out, out + 1);
   return static_cast<int>(cudaGetLastError());
 }

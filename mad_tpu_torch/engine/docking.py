@@ -7,6 +7,19 @@ after the first round, descriptor pairs whose map anchor no accepted
 solution explains get a fresh clustering budget under the same quality
 gates. The port has one path; mad_tpu's fused dock programs compute the
 same solutions and are not carried over.
+
+With a mesh (``parallel.mesh``; mad_tpu's ``dock_structure(mesh=)`` and
+the three ``run_sharded`` chains of its engine/dock_fused.py) the stages
+shard as there, gathered on the mesh's home device: the similarity rows,
+the pairs and the exactly scored rows in ``match_descriptors`` (K10's head
+per shard and its merge, K11 once per device, K12, K13), the candidates in
+``refine_candidates`` (K15), the lanes, cloud points and table rows of
+K16's lane and eligibility stages, and the rescue round's rows
+(``exact_rescore``, K13). K14's cluster selection runs whole, once on the
+home device on the gathered table, as mad_tpu runs its scan replicated
+after an all-gather (dock_fused.py:198-218, 278-287); so do K16's dedup
+scan and compaction and the CC score (K17), which mad_tpu does not shard
+either. The solutions are the single-device ones.
 """
 
 from __future__ import annotations
@@ -23,6 +36,7 @@ from ..core.structure import Structure
 from ..timing import stage
 from ..kernels.cluster import cluster_select, gate_threshold, split_selection
 from ..kernels.post import post, split_post
+from ..parallel.mesh import Mesh, run_device
 from .cluster import Candidate
 from .match import MatchTable, exact_rescore, match_descriptors
 from .pipeline import DescriptorSet
@@ -98,30 +112,33 @@ def cluster_candidates(table: MatchTable, hi_bins: np.ndarray,
 def _refine_and_merge(candidates: List[Candidate], solutions: List[Solution],
                       sub_struct: Structure, dmap: DensityGrid,
                       table: MatchTable, cfg: MadConfig, device,
-                      timings=None, n_top: int = 0):
+                      timings=None, n_top: int = 0,
+                      mesh: Optional[Mesh] = None):
     """Refine candidate poses and merge them into ``solutions`` (CA-RMSD
     dedup with weight merging, mad/MaD.py:592-620). Returns the number of
     genuinely new solutions appended and the first ``n_top`` table rows
     that the next rescue round may take (none when n_top is 0)."""
     starts = start_poses(candidates, sub_struct)
     with stage(timings, "refine", device):
-        res = refine_candidates(dmap, starts, cfg.refine, device=device)
+        res = refine_candidates(dmap, starts, cfg.refine, device=device,
+                                mesh=mesh)
     with stage(timings, "post", device):
         return _merge_refined(res, candidates, solutions, sub_struct, dmap,
-                              table, cfg, device, n_top)
+                              table, cfg, device, n_top, mesh)
 
 
 def _merge_refined(res, candidates: List[Candidate],
                    solutions: List[Solution], sub_struct: Structure,
                    dmap: DensityGrid, table: MatchTable, cfg: MadConfig,
-                   device, n_top: int = 0):
+                   device, n_top: int = 0, mesh: Optional[Mesh] = None):
     """Post-refinement half (mad_tpu/engine/docking.py:61-112): the refined
     pose is the composition of the candidate's start pose with the
     refinement's rot/trans, in float64 on the float32 results; the
     repeatability is re-scored on it, then CA-RMSD dedup + weight merge;
     with ``n_top``, the rescue eligibility of the table's rows after the
-    merge. K16 computes all of it on ``device`` and one pull brings it
-    back; the host rebuilds the Solution records."""
+    merge. K16 computes all of it on ``device`` (its lane and eligibility
+    stages over the mesh's shards) and one pull brings it back; the host
+    rebuilds the Solution records."""
     N = sub_struct.coords.shape[0]
     x032 = sub_struct.coords.astype(np.float32).astype(np.float64)
     idx = sub_struct.ca_idx if len(sub_struct.ca_idx) else np.arange(N)
@@ -141,7 +158,7 @@ def _merge_refined(res, candidates: List[Candidate],
                                device=device),
                dmap.voxsp * 1.5, cfg.refine.dedup_rmsd,
                put(table.lo_coord if n_top else np.zeros((0, 3))),
-               cfg.match.anchor_dist, n_top)
+               cfg.match.anchor_dist, n_top, mesh)
     a_hi = table.hi_cloud.shape[0]
     s_a, hits, counts, accepted, slot, top = split_post(
         vec.cpu().numpy(), len(candidates), a_hi, n_top)
@@ -184,22 +201,26 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
                    resolution: float, cfg: MadConfig, n_copies: int = 1,
                    verbose: bool = False, device=None,
                    timings: Optional[dict] = None,
-                   on_filtered=None) -> List[Solution]:
+                   on_filtered=None,
+                   mesh: Optional[Mesh] = None) -> List[Solution]:
     """Dock one subunit into the map on ``device`` (default: the map's);
     returns scored unique solutions, best first. ``timings``: optional
     dict that collects seconds per stage (match, cluster, refine, post,
     score).
     ``on_filtered``: optional callback receiving the first round's filtered
     pre-refinement Candidate list (the reference's pre_solutions hook,
-    mad/MaD.py:404-405, 891-921)."""
-    device = torch.device(device) if device is not None else dmap.device
+    mad/MaD.py:404-405, 891-921).
+    ``mesh``: shard the dock over it (module docstring); ``device`` is
+    then its home device (naming another raises)."""
+    device = run_device(mesh, device, dmap.device)
     n_samples = cfg.filter.n_samples * n_copies
     with stage(timings, "match", device):
         # Clustering consumes the top n_samples pairs by repeatability;
         # their ordering must be exact, not approximate (min_exact).
         table = match_descriptors(map_set, sub_set, dmap.shape, dmap.origin,
                                   dmap.voxsp, cfg.match,
-                                  min_exact=n_samples, device=device)
+                                  min_exact=n_samples, device=device,
+                                  mesh=mesh)
     if verbose:
         print(f"MaD> {table.n} descriptor pairs above "
               f"cc={cfg.match.cc_threshold:.2f}")
@@ -226,7 +247,7 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
     solutions: List[Solution] = []
     _, top = _refine_and_merge(candidates, solutions, sub_struct, dmap,
                                table, cfg, device, timings,
-                               n_samples if rounds else 0)
+                               n_samples if rounds else 0, mesh)
     best_repeat = float(table.repeat[0])
     for r in range(rounds):
         if not solutions or not len(top):
@@ -234,7 +255,8 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
         # Below the first-round prefix repeatabilities are approximate;
         # re-score exactly what this round consumes, then re-rank.
         with stage(timings, "match", device):
-            erep = exact_rescore(table, top, cfg.match.anchor_dist, device)
+            erep = exact_rescore(table, top, cfg.match.anchor_dist, device,
+                                 mesh)
         order = np.argsort(-erep, kind="stable")
         sub_table = table.take(top[order], repeat=erep[order])
         with stage(timings, "cluster", device):
@@ -246,7 +268,7 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
             break
         n_new, top = _refine_and_merge(
             cands, solutions, sub_struct, dmap, table, cfg, device, timings,
-            n_samples if r + 1 < rounds else 0)
+            n_samples if r + 1 < rounds else 0, mesh)
         if verbose and n_new:
             print(f"MaD> Rescue round: {n_new} additional solution(s) in "
                   "unexplained density")

@@ -1,5 +1,5 @@
 """Descriptor matching + pose repeatability scoring (port of
-mad_tpu/engine/match.py, single device).
+mad_tpu/engine/match.py).
 
 Replaces MaD._match_dsc (mad/MaD.py:414-453):
   * cosine similarity of every (subunit, map) descriptor pair, one float32
@@ -14,6 +14,19 @@ Replaces MaD._match_dsc (mad/MaD.py:414-453):
     dilated occupancy field of the map anchors (K11, K12), then exact
     nearest-neighbour scores (K13) for the top pairs the clustering
     consumes.
+
+With a mesh (``parallel.mesh``, mad_tpu's ``match_pairs`` /
+``_compiled_approx_repeat`` / ``_compiled_exact_repeat`` under a mesh):
+the subunit rows are cut into blocks, one a shard, each shard runs the
+product and K10's head on its block, and the second entry of K10's source
+(``pair_merge``) keeps the global head on the mesh's home device; K11 is
+built once per distinct device, K12 runs over each shard's block of the
+pairs and K13 over its block of the exactly scored rows, gathered on the
+home device. The selection of those rows and the final order stay on the
+host, so the table is the single-device one. A shard's product is taken
+at the whole table's row count (its rows in a zero frame): cuBLAS picks
+its kernel by the row count, and a block of rows multiplied alone comes
+out in other roundings than the same rows of the whole product.
 """
 
 from __future__ import annotations
@@ -27,8 +40,11 @@ import torch
 from ..core.config import MatchConfig, bucket
 from ..kernels.approx import approx_repeat
 from ..kernels.field import anchor_field
-from ..kernels.pairs import pair_head, split_pair_keys
+from ..kernels.pairs import (head_length, pair_head, pair_merge,
+                             split_pair_keys)
 from ..kernels.repeat import exact_repeat
+from ..parallel.mesh import (Mesh, map_rows, replicate, run_device,
+                             shard_bounds)
 from .pipeline import DescriptorSet
 
 
@@ -63,15 +79,48 @@ class MatchTable:
             hi_cloud=self.hi_cloud, lo_cloud=self.lo_cloud)
 
 
+def _sharded_head(hi: torch.Tensor, lo: torch.Tensor, cfg: MatchConfig,
+                  mesh: Mesh) -> torch.Tensor:
+    """K10's head of hi @ lo.T over the mesh: per shard its block of rows
+    (in a zero frame of all rows, on the shard's device) times the map
+    rows, its head with the block's first row; then the global head of the
+    shards' heads (pair_merge) on the home device."""
+    dh, dl = hi.shape[0], lo.shape[0]
+    lo_d = replicate(mesh, lambda d: lo.to(d))
+    b = shard_bounds(dh, len(mesh))
+    heads = []
+    for s, dev in enumerate(mesh.devices):
+        if b[s + 1] == b[s]:
+            continue
+        frame = torch.zeros(hi.shape, dtype=hi.dtype, device=dev)
+        frame[b[s]:b[s + 1]] = hi[b[s]:b[s + 1]]
+        sim = (frame @ lo_d[dev].T)[b[s]:b[s + 1]]
+        del frame
+        heads.append(pair_head(sim, cfg.row_cap, cfg.max_pairs,
+                               float(cfg.cc_threshold), b[s], dh
+                               ).to(mesh.home))
+        del sim
+    keys = torch.cat(heads) if heads else torch.zeros(
+        0, dtype=torch.int64, device=mesh.home)
+    return pair_merge(keys, head_length(dh, dl, cfg.row_cap, cfg.max_pairs))
+
+
 def match_pairs(map_set: DescriptorSet, sub_set: DescriptorSet,
-                cfg: MatchConfig) -> Optional[dict]:
+                cfg: MatchConfig, mesh: Optional[Mesh] = None
+                ) -> Optional[dict]:
     """Similarity stage + host pose data (mad/MaD.py:414-438): the cosine
-    product (torch.matmul), the pair head (K10's head) and its one pull;
-    None when no pair clears the threshold."""
-    sim = sub_set.desc_norm @ map_set.desc_norm.T
-    keys = pair_head(sim, cfg.row_cap, cfg.max_pairs,
-                     float(cfg.cc_threshold))
-    ccs, rows, cols = split_pair_keys(keys.cpu().numpy(), sim.shape[1])
+    product (torch.matmul), the pair head (K10's head; with a mesh per
+    shard of subunit rows, then merged) and its one pull; None when no
+    pair clears the threshold."""
+    if mesh is None:
+        sim = sub_set.desc_norm @ map_set.desc_norm.T
+        keys = pair_head(sim, cfg.row_cap, cfg.max_pairs,
+                         float(cfg.cc_threshold))
+    else:
+        keys = _sharded_head(sub_set.desc_norm, map_set.desc_norm, cfg,
+                             mesh)
+    ccs, rows, cols = split_pair_keys(keys.cpu().numpy(),
+                                      map_set.desc_norm.shape[0])
     if len(rows) == 0:
         return None
     hi_cloud = np.unique(sub_set.subv_coords[rows], axis=0)
@@ -111,41 +160,43 @@ def _empty_table() -> MatchTable:
 def match_descriptors(map_set: DescriptorSet, sub_set: DescriptorSet,
                       grid_shape, grid_origin, voxsp: float,
                       cfg: MatchConfig, min_exact: int = 0,
-                      device=None) -> MatchTable:
+                      device=None, mesh: Optional[Mesh] = None
+                      ) -> MatchTable:
     """hi = subunit, lo = map (reference naming, mad/MaD.py:414).
 
     min_exact: the clustering consumes the top pairs by repeatability, so
-    at least that many leading pairs get exact scores."""
-    device = torch.device(device) if device is not None \
-        else map_set.desc_norm.device
-    pairs = match_pairs(map_set, sub_set, cfg)
+    at least that many leading pairs get exact scores. With a mesh the
+    work is sharded (module docstring) and ``device`` is its home."""
+    device = run_device(mesh, device, map_set.desc_norm.device)
+    pairs = match_pairs(map_set, sub_set, cfg, mesh)
     if pairs is None:
         return _empty_table()
     ccs, rows, cols = pairs["ccs"], pairs["rows"], pairs["cols"]
     rot, hi_coord, lo_coord = (pairs["rot"], pairs["hi_coord"],
                                pairs["lo_coord"])
     hi_cloud, lo_cloud = pairs["hi_cloud"], pairs["lo_cloud"]
+    shards = mesh or Mesh((device,))
 
-    # Stage A: approximate repeatability of every pair (K11, K12).
+    # Stage A: approximate repeatability of every pair (K11 once per
+    # device, K12 over each shard's pairs).
     r_vox = max(1, int(round(cfg.anchor_dist / voxsp)))
-    field = anchor_field(tuple(grid_shape), torch.as_tensor(anchor_voxels(
-        lo_cloud, grid_origin, voxsp, grid_shape), device=device), r_vox)
-    hi_cloud_d, lo_cloud_d = _f32(hi_cloud, device), _f32(lo_cloud, device)
-    rot_d, hc_d, lc_d = (_f32(rot, device), _f32(hi_coord, device),
-                         _f32(lo_coord, device))
-    rep = approx_repeat(field, hi_cloud_d, _f32(grid_origin, device),
-                        float(np.float32(1.0 / voxsp)), rot_d, hc_d,
-                        lc_d).cpu().numpy()
+    vox = anchor_voxels(lo_cloud, grid_origin, voxsp, grid_shape)
+    inv = float(np.float32(1.0 / voxsp))
+    rep_in = replicate(shards, lambda d: (
+        anchor_field(tuple(grid_shape), torch.as_tensor(vox, device=d),
+                     r_vox), _f32(hi_cloud, d), _f32(grid_origin, d)))
+    rep = map_rows(shards, len(rows), lambda d, a, e: approx_repeat(
+        *rep_in[d], inv, _f32(rot[a:e], d), _f32(hi_coord[a:e], d),
+        _f32(lo_coord[a:e], d))).cpu().numpy()
 
-    # Stage B: exact scores for the ordering-critical top pairs.
+    # Stage B: exact scores for the ordering-critical top pairs. Selection
+    # count is mesh-independent, so a mesh run re-scores the same rows.
     want = max(cfg.exact_top, min_exact)
     if want > 0:
         n_use = min(bucket(want, 64), len(rows))
         top = np.argsort(-rep, kind="stable")[:n_use]
-        top_d = torch.as_tensor(top, device=device)
-        rep[top] = exact_repeat(hi_cloud_d, lo_cloud_d, rot_d[top_d],
-                                hc_d[top_d], lc_d[top_d],
-                                float(cfg.anchor_dist)).cpu().numpy()
+        rep[top] = _exact(shards, hi_cloud, lo_cloud, rot[top],
+                          hi_coord[top], lo_coord[top], cfg.anchor_dist)
     order = np.argsort(-rep, kind="stable")
     return MatchTable(
         cc=ccs[order], repeat=rep[order], hi_idx=rows[order],
@@ -153,14 +204,24 @@ def match_descriptors(map_set: DescriptorSet, sub_set: DescriptorSet,
         lo_coord=lo_coord[order], hi_cloud=hi_cloud, lo_cloud=lo_cloud)
 
 
+def _exact(shards: Mesh, hi_cloud, lo_cloud, rot, hi_coord, lo_coord,
+           anchor_dist: float) -> np.ndarray:
+    """K13 over each shard's block of the given rows (clouds replicated
+    once per device), gathered."""
+    clouds = replicate(shards, lambda d: (_f32(hi_cloud, d),
+                                          _f32(lo_cloud, d)))
+    return map_rows(shards, len(rot), lambda d, a, e: exact_repeat(
+        *clouds[d], _f32(rot[a:e], d), _f32(hi_coord[a:e], d),
+        _f32(lo_coord[a:e], d), float(anchor_dist))).cpu().numpy()
+
+
 def exact_rescore(table: MatchTable, rows: np.ndarray, anchor_dist: float,
-                  device) -> np.ndarray:
+                  device, mesh: Optional[Mesh] = None) -> np.ndarray:
     """Exact repeatability of an arbitrary row subset of ``table`` (the
-    rescue pass reaches below the exact-scored prefix)."""
+    rescue pass reaches below the exact-scored prefix), with a mesh over
+    its shards' blocks of the rows."""
     if len(rows) == 0:
         return np.zeros(0, np.float32)
-    return exact_repeat(
-        _f32(table.hi_cloud, device), _f32(table.lo_cloud, device),
-        _f32(table.rot[rows], device), _f32(table.hi_coord[rows], device),
-        _f32(table.lo_coord[rows], device), float(anchor_dist)
-    ).cpu().numpy()
+    return _exact(mesh or Mesh((torch.device(device),)), table.hi_cloud,
+                  table.lo_cloud, table.rot[rows], table.hi_coord[rows],
+                  table.lo_coord[rows], anchor_dist)

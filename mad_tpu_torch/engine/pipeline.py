@@ -36,6 +36,7 @@ from ..ops.detect import detect_anchors
 from ..ops.orient import orient_anchors
 from ..ops.scalespace import gradient, iter_octaves
 from ..ops.simulate import simulate_density
+from ..parallel.mesh import run_device
 from ..parallel.volume import sharded_gradient
 
 
@@ -140,12 +141,7 @@ def describe_grid(grid: DensityGrid, cfg: MadConfig, name: str = "",
     ``device`` (default: the grid's own device); with a mesh
     (``parallel.mesh.make_mesh``), in capacity mode over its shards, the
     result on the mesh's first device."""
-    if mesh is not None:
-        if device is not None and torch.device(device) != mesh.home:
-            raise ValueError(f"describe_grid: device {device} is not the "
-                             f"mesh's first device {mesh.home}")
-        device = mesh.home
-    device = torch.device(device) if device is not None else grid.device
+    device = run_device(mesh, device, grid.device)
     if grid.device != device:
         grid = grid.to(device)
     rows, tables, keeps = [], [], []

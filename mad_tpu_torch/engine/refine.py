@@ -16,6 +16,13 @@ density gradient, all candidates advancing together. Per step:
     per-candidate abort, mad/structure_utils.py:97-98).
 The loop itself is kernel K15 (:mod:`mad_tpu_torch.kernels.refine`): one
 CUDA launch per call on the card, the plain PyTorch loop on the CPU.
+
+With a mesh (mad_tpu's ``_compiled_refine(mesh)``, the candidates sharded,
+the map replicated) the gradient field is built once per distinct device,
+the starts and their centroids once on the home device, and K15 runs on
+each shard's block of candidates; its outputs gather on the home device,
+where K16 reads them. Each candidate's loop is independent of the others,
+so on the card the result is the single-device one bit for bit.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from ..core.geometry import norm3
 from ..core.grid import DensityGrid
 from ..kernels import refine as k15
 from ..ops.scalespace import gradient
+from ..parallel.mesh import Mesh, map_rows, replicate, run_device
 
 
 @dataclass
@@ -45,33 +53,53 @@ class RefineResult:
     device_out: Optional[tuple] = None
 
 
-def refine_inputs(dmap: DensityGrid, start_coords: np.ndarray, device):
-    """The loop's inputs on ``device``: the map's gradient field, the
-    (C, N, 3) start coords, their centroids, the rotation-angle
-    denominators and the float32 [origin, hi bound, voxsp] bounds."""
+def map_inputs(dmap: DensityGrid, device):
+    """The map's part of the loop's inputs on ``device``: its gradient
+    field and the float32 [origin, hi bound, voxsp] bounds."""
     map_data = dmap.data.to(device=device, dtype=torch.float32)
     field = gradient(map_data)                   # np.gradient parity
-    y0 = torch.as_tensor(np.asarray(start_coords, dtype=np.float32),
-                         device=device)
-    N = y0.shape[1]
     origin = torch.as_tensor(np.asarray(dmap.origin, dtype=np.float32),
                              device=device)
     voxsp = torch.tensor(np.float32(dmap.voxsp), device=device)
     shape = torch.as_tensor(map_data.shape, device=device)
     hi_bound = origin + (shape - 1) * voxsp
+    return field, torch.cat([origin, hi_bound, voxsp[None]])
+
+
+def start_inputs(start_coords: np.ndarray, device):
+    """The candidates' part on ``device``: the (C, N, 3) start coords,
+    their centroids and the rotation-angle denominators."""
+    y0 = torch.as_tensor(np.asarray(start_coords, dtype=np.float32),
+                         device=device)
+    N = y0.shape[1]
     center = y0.sum(dim=1, keepdim=True) / float(max(N, 1))  # (C, 1, 3)
     max_dist = norm3(y0 - center).amax(dim=1)
     angle_den = torch.clamp(max_dist, min=1e-6)
-    bounds = torch.cat([origin, hi_bound, voxsp[None]])
-    return field, y0, center, angle_den, bounds
+    return y0, center, angle_den
+
+
+def refine_inputs(dmap: DensityGrid, start_coords: np.ndarray, device):
+    """The loop's inputs on ``device``: the map's gradient field, the
+    (C, N, 3) start coords, their centroids, the rotation-angle
+    denominators and the float32 [origin, hi bound, voxsp] bounds."""
+    field, bounds = map_inputs(dmap, device)
+    return (field, *start_inputs(start_coords, device), bounds)
 
 
 def refine_candidates(dmap: DensityGrid, start_coords: np.ndarray,
-                      cfg: RefineConfig, device=None) -> RefineResult:
-    """Refine C candidate poses; start_coords is (C, N, 3) in Angstroms."""
-    device = torch.device(device) if device is not None else dmap.device
-    rot, trans, coords, frozen, counts, failed = k15.refine_loop(
-        *refine_inputs(dmap, start_coords, device), cfg)
+                      cfg: RefineConfig, device=None,
+                      mesh: Optional[Mesh] = None) -> RefineResult:
+    """Refine C candidate poses; start_coords is (C, N, 3) in Angstroms.
+    With a mesh, over its shards' blocks of candidates (module docstring);
+    ``device`` is then the mesh's home."""
+    home = run_device(mesh, device, dmap.device)
+    mesh = mesh or Mesh((home,))
+    y0, center, angle_den = start_inputs(start_coords, home)
+    maps = replicate(mesh, lambda d: map_inputs(dmap, d))
+    rot, trans, coords, frozen, counts, failed = map_rows(
+        mesh, y0.shape[0], lambda d, a, e: k15.refine_loop(
+            maps[d][0], y0[a:e].to(d), center[a:e].to(d),
+            angle_den[a:e].to(d), maps[d][1], cfg))
     return RefineResult(
         rot=rot.cpu().numpy(), trans=trans.cpu().numpy(),
         coords=coords.cpu().numpy().astype(np.float64),

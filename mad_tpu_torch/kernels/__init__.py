@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, one wrapper module each.
 
 Each module holds the kernel's wrapper, its plain PyTorch version and a
-``launches`` counter; the wrapper runs the plain version for CPU tensors
+``launches`` counter (a module with more entries, one counter each, named
+in ``COUNTERS``); the wrapper runs the plain version for CPU tensors
 and the kernel for CUDA tensors (no fallback between the two). The CUDA
 sources are in ``mad_tpu_torch/csrc`` and build on first use
 (:mod:`.build`).
@@ -35,6 +36,8 @@ KERNELS = {
                       "mad_tpu/ops/simulate.py:78"),
     "pair_head": (pairs, "mad_tpu_torch/csrc/pairs.cu",
                   "mad_tpu/engine/match.py:74"),
+    "pair_merge": (pairs, "mad_tpu_torch/csrc/pairs.cu",
+                   "mad_tpu/engine/match.py:84"),
     "anchor_field": (field, "mad_tpu_torch/csrc/field.cu",
                      "mad_tpu/engine/match.py:94"),
     "approx_repeat": (approx, "mad_tpu_torch/csrc/approx.cu",
@@ -47,6 +50,14 @@ KERNELS = {
                "mad_tpu/engine/refine.py:63"),
     "post": (post, "mad_tpu_torch/csrc/post.cu",
              "mad_tpu/engine/dock_fused.py:344"),
+    "post_lanes": (post, "mad_tpu_torch/csrc/post.cu",
+                   "mad_tpu/engine/dock_fused.py:374"),
+    "post_points": (post, "mad_tpu_torch/csrc/post.cu",
+                    "mad_tpu/engine/dock_fused.py:419"),
+    "post_rows": (post, "mad_tpu_torch/csrc/post.cu",
+                  "mad_tpu/engine/dock_fused.py:433"),
+    "post_compact": (post, "mad_tpu_torch/csrc/post.cu",
+                     "mad_tpu/engine/dock_fused.py:438"),
     "batched_ccc": (ccc, "mad_tpu_torch/csrc/ccc.cu",
                     "mad_tpu/engine/score.py:31"),
     "pack_overlap": (overlap, "mad_tpu_torch/csrc/overlap.cu",
@@ -60,10 +71,19 @@ KERNELS = {
 }
 
 
+# the counter of each entry of a module with several (default "launches"):
+# K10's merge of the shards' heads, K16's lane, eligibility and compaction
+# stages ("post" counts its dedup)
+COUNTERS = {"pair_merge": "merge_launches", "post_lanes": "lane_launches",
+            "post_points": "point_launches", "post_rows": "row_launches",
+            "post_compact": "compact_launches"}
+
+
 def reset_launches() -> None:
-    for mod, _src, _rep in KERNELS.values():
-        mod.launches = 0
+    for name, (mod, _src, _rep) in KERNELS.items():
+        setattr(mod, COUNTERS.get(name, "launches"), 0)
 
 
 def launch_counts() -> dict:
-    return {name: mod.launches for name, (mod, _s, _r) in KERNELS.items()}
+    return {name: getattr(mod, COUNTERS.get(name, "launches"))
+            for name, (mod, _s, _r) in KERNELS.items()}

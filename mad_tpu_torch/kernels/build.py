@@ -58,7 +58,8 @@ SIGNATURES = {
                    _P, _P, _I, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
     "mad_refine": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _F,
                    _P, _P, _P, _P, _P, _P, _P],
-    "mad_pair_head": [_P, _I, _I, _I, _F, _L, _P, _P, _P, _P],
+    "mad_pair_head": [_P, _I, _I, _I, _F, _I, _L, _P, _P, _P, _P],
+    "mad_pair_merge": [_P, _L, _L, _P, _P, _P],
     "mad_anchor_field": [_P, _I, _I, _I, _I, _I, _P, _P],
     "mad_approx_repeat": [_P, _I, _I, _I, _P, _I, _P, _F, _P, _P, _P, _I,
                           _P, _P],
@@ -69,9 +70,14 @@ SIGNATURES = {
     "mad_localize": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P,
                      _P, _P, _P],
     "mad_gather_norm": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
-    "mad_post": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I,
-                 _P, _I, _P, _I, _D, _D, _P, _I, _D, _I, _P, _P, _P, _P, _P,
-                 _P],
+    "mad_post_lanes": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P,
+                       _I, _D, _P, _P, _P, _P],
+    "mad_post_dedup": [_P, _P, _P, _I, _I, _P, _I, _P, _I, _D, _P, _P, _P,
+                       _P, _P],
+    "mad_post_points": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _D, _P, _P],
+    "mad_post_rows": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _D,
+                      _P, _P],
+    "mad_post_compact": [_P, _I, _I, _P, _P],
     "mad_batched_ccc": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P,
                         _P],
     "mad_sym_trim": [_P, _I, _I, _P, _P],

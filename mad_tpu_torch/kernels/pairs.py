@@ -15,6 +15,13 @@ integers, which is the order (value descending, row ascending, column
 ascending) of the two ``top_k`` calls, padded with -1 (all bits set) to
 ``head_length``; :func:`split_pair_keys` turns them back into (cosines,
 rows, columns) on the host.
+
+On a mesh (``engine.match.match_pairs(mesh=)``) each shard's head covers
+its block of rows, whose first global row ``row0`` goes into the keys, and
+:func:`pair_merge`, the second entry of ``csrc/pairs.cu`` (its sort and
+merge stages alone), keeps the smallest keys of the shards' heads: the
+global top of mad_tpu's ``lax.top_k`` over the flat row heads.
+:func:`pair_merge_plain` sorts the keys as unsigned integers.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ import torch
 
 from . import build
 
-launches = 0            # kernel launches since the last reset
+launches = 0            # pair_head launches since the last reset
+merge_launches = 0      # pair_merge launches since the last reset
 
 _U32 = 1 << 32
 _SIGN = 1 << 31
@@ -59,7 +67,8 @@ def split_pair_keys(keys: np.ndarray, dl: int):
 
 
 def pair_head_plain(sim: torch.Tensor, row_cap: int, max_pairs: int,
-                    threshold: float) -> torch.Tensor:
+                    threshold: float, row0: int = 0,
+                    rows: int = None) -> torch.Tensor:
     dh, dl = sim.shape
     out = torch.full((head_length(dh, dl, row_cap, max_pairs),), -1,
                      dtype=torch.int64, device=sim.device)
@@ -74,25 +83,28 @@ def pair_head_plain(sim: torch.Tensor, row_cap: int, max_pairs: int,
     sel = o[rank < min(row_cap, dl)]               # (row, rank) order
     g = torch.sort(v[sel], descending=True, stable=True).indices[:max_pairs]
     sel = sel[g]
-    out[:sel.shape[0]] = pair_keys(v[sel], r[sel], c[sel], dl)
+    out[:sel.shape[0]] = pair_keys(v[sel], r[sel] + row0, c[sel], dl)
     return out
 
 
 def pair_head(sim: torch.Tensor, row_cap: int, max_pairs: int,
-              threshold: float) -> torch.Tensor:
+              threshold: float, row0: int = 0,
+              rows: int = None) -> torch.Tensor:
     """Keys of the pairs (row, col) with sim > threshold (compared in
     float32), at most ``row_cap`` per row by (value desc, col asc), then at
     most ``max_pairs`` overall by (value desc, row asc, col asc).
 
-    sim (dh, dl) float32 with dh * dl < 2**32. Returns (head_length,)
-    int64, ascending as unsigned, padded with -1."""
+    sim (dh, dl) float32: rows row0 .. row0 + dh - 1 of a table of
+    ``rows`` rows (default row0 + dh) with rows * dl < 2**32. Returns
+    (head_length,) int64, ascending as unsigned, padded with -1."""
     if sim.device.type == "cpu":
-        return pair_head_plain(sim, row_cap, max_pairs, threshold)
+        return pair_head_plain(sim, row_cap, max_pairs, threshold, row0)
     global launches
     sim = sim.to(torch.float32).contiguous()
     build.require_cuda("pair_head", sim)
     dh, dl = sim.shape
-    if dh * dl >= _U32 or row_cap < 1:
+    rows = row0 + dh if rows is None else rows
+    if rows * dl >= _U32 or row_cap < 1 or not 0 <= row0 <= rows - dh:
         raise ValueError(f"pair_head: {dh} x {dl} cosines do not fit the "
                          "32-bit pair index (or row_cap < 1)")
     k = min(row_cap, dl)
@@ -105,6 +117,36 @@ def pair_head(sim: torch.Tensor, row_cap: int, max_pairs: int,
     lib = build.library()
     build.launch(
         lib.mad_pair_head, sim.device, sim.data_ptr(), dh, dl, k,
-        float(threshold), L, heads.data_ptr(), tmp.data_ptr(), out.data_ptr())
+        float(threshold), int(row0), L, heads.data_ptr(), tmp.data_ptr(),
+        out.data_ptr())
     launches += 1
+    return out
+
+
+_FLIP = -(1 << 63)      # xor with the sign bit: unsigned order as signed
+
+
+def pair_merge_plain(keys: torch.Tensor, L: int) -> torch.Tensor:
+    return torch.sort(keys ^ _FLIP).values[:L] ^ _FLIP
+
+
+def pair_merge(keys: torch.Tensor, L: int) -> torch.Tensor:
+    """The smallest ``L`` of the int64 keys (as unsigned), ascending: the
+    global head of the shards' heads concatenated. L <= len(keys)."""
+    if keys.device.type == "cpu":
+        return pair_merge_plain(keys, L)
+    global merge_launches
+    if keys.dtype != torch.int64 or keys.dim() != 1 or not 0 <= L <= len(keys):
+        raise ValueError(f"pair_merge: need 1-d int64 keys and L <= "
+                         f"{len(keys)}, got {keys.dtype} and {L}")
+    build.require_cuda("pair_merge", keys)
+    out = torch.empty(L, dtype=torch.int64, device=keys.device)
+    if L == 0:
+        return out
+    work = keys.clone()                    # sorted in place by tiles
+    tmp = torch.empty_like(work)
+    build.launch(build.library().mad_pair_merge, keys.device,
+                 work.data_ptr(), work.shape[0], L, tmp.data_ptr(),
+                 out.data_ptr())
+    merge_launches += 1
     return out

@@ -35,15 +35,7 @@ from typing import Callable, List, Sequence, Tuple
 import torch
 
 from ..kernels.gradient import gradient
-from .mesh import Mesh
-
-
-def shard_bounds(rows: int, n: int) -> List[int]:
-    """Row bounds of n x-slabs of a field of ``rows`` rows (n + 1 ints)."""
-    if rows < n:
-        raise ValueError(f"shard_bounds: {rows} rows cannot make {n} slabs")
-    q, r = divmod(int(rows), int(n))
-    return [s * q + min(s, r) for s in range(n + 1)]
+from .mesh import Mesh, shard_bounds
 
 
 def row_bounds(slabs: Sequence[torch.Tensor]) -> List[int]:
@@ -62,7 +54,11 @@ def up_bounds(bounds: Sequence[int]) -> List[int]:
 
 def split_x(vol: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
     """Cut a volume into x-slabs, each copied to its shard's device (a
-    copy even on the volume's own device, so the volume can be freed)."""
+    copy even on the volume's own device, so the volume can be freed);
+    every slab has a row."""
+    if vol.shape[0] < len(mesh):
+        raise ValueError(f"split_x: {vol.shape[0]} rows cannot make "
+                         f"{len(mesh)} slabs")
     b = shard_bounds(vol.shape[0], len(mesh))
     return [torch.empty((b[s + 1] - b[s],) + tuple(vol.shape[1:]),
                         dtype=vol.dtype, device=dev).copy_(vol[b[s]:b[s + 1]])

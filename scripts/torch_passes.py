@@ -73,11 +73,13 @@ def profiled_pass(device, cfg):
 
 def session_profile(device, cfg):
     """The session phase's runs under cProfile."""
+    import tempfile
     prof = cProfile.Profile()
     fit = cs.run_fit(device, None, cfg)
-    prof.enable()
-    cs.session_phase(device, cfg, fit)
-    prof.disable()
+    with tempfile.TemporaryDirectory(prefix="mad_passes_") as root:
+        prof.enable()
+        cs.session_phase(device, cfg, fit, root)
+        prof.disable()
     out = io.StringIO()
     pstats.Stats(prof, stream=out).sort_stats("cumulative").print_stats(30)
     cs.say(out.getvalue())
