@@ -1,108 +1,472 @@
-// K1: 1D convolution of a 3D float32 volume along one axis, zero padded,
-// 'same' or 'full' output.
+// K1: 1D convolution of float32 volumes along one axis, zero padded,
+// 'same' or 'full' output, and the fused three-pass LoG.
 //
 // Replaces mad_tpu/ops/convolve.py:79-124 (conv1d_along, the body of
-// separable_conv3d / gaussian_filter3d / log_filter3d and of the
-// simulator's 'full' blur, ops/simulate.py:86-112).
+// separable_conv3d / gaussian_filter3d and of the simulator's 'full' blur,
+// ops/simulate.py:86-112) and :144-162 (log_filter3d's nine passes and its
+// epilogue).
 //
-// The volume is viewed as (outer, n, inner) with the convolved axis in the
-// middle; the output is (outer, out_n, inner) and
-//   out[o, i, q] = sum_m taps[ksz-1-m] * in[o, i + m - lo, q]
+// A volume is viewed as (outer, n, inner) with the convolved axis in the
+// middle (a leading batch axis is more outer); the output is (outer,
+// out_n, inner) and
+//   out[o, i, q] = sum_m w[m] * in[o, i + m - lo, q],  w[m] = taps[ksz-1-m]
 // over in-range input rows, zero taps skipped, summed in m order with one
-// rounding per multiply and per add -- the order of the shift-add in
-// convolve.py:116-123, so the result matches the plain version bit for bit.
+// rounding per multiply and per add: the order of the shift-add of
+// kernels/conv1d.py (mad_tpu/ops/convolve.py:116-123). A sum starts from
+// -0.0, which leaves its first term as it is, as the plain version's does.
 //
-// Bound: device memory bandwidth. Each pass reads the volume and writes
-// the output once (8 bytes a voxel); ksz <= 17 taps is ~2 flops a byte,
-// far below the H100's compute roof. Design: every input element is read
-// from device memory once per block through a shared-memory tile that
-// holds the block's rows plus the ksz-1 halo, and neighbouring threads
-// touch neighbouring addresses:
-//   * inner == 1 (the contiguous axis): 256 threads along the axis, one
-//     row segment of 256 outputs + halo per block;
-//   * inner > 1 (strided axes): a 32-wide slab of the contiguous dimension
-//     (coalesced loads) by 64 outputs along the axis, 8 rows of threads.
+// Entries:
+//   * mad_conv1d: one kernel along one axis (mode kSingle);
+//   * mad_log_pass: the LoG of ops/convolve.py's log_filter3d in three
+//     passes over its nine convolutions (g0, g2: order 0 and 2 taps):
+//       x: ax = g0(vol), bx = g2(vol);
+//       y: axy = g0(ax), a2y = g2(ax), bxy = g0(bx);
+//       z: gauss = g0(axy) and log = clamp(-((g0(bxy) + g0(a2y)) +
+//          g2(axy)) * sigma^2, min 0), rounded as torch.add, add_, neg_,
+//          mul_ and clamp_ round on the card (NaN kept, ::max otherwise).
+//     13 volumes move in place of the unfused chain's 30.
+//
+// Bound: bytes (each pass reads its inputs and writes its outputs once)
+// and the unfused multiplies and adds (2 instructions a nonzero tap and
+// output). Design:
+//   * the taps are a kernel parameter (constant bank), reversed on the
+//     host; the common tap counts (5, 9, 11, 17) are template arguments,
+//     so the tap loop unrolls and the zero-tap test is a uniform branch on
+//     a parameter; other counts take a generic loop;
+//   * each thread keeps kR = 8 consecutive outputs along the axis in
+//     registers and reads its window of kR + ksz - 1 inputs from shared
+//     memory once;
+//   * strided axes: a tile of 32 contiguous columns by up to 64 outputs
+//     along the axis (the axis cut into equal tiles, so no tile is mostly
+//     idle); the contiguous axis: a few rows (or equal segments of them) a
+//     tile, the thread count sized to the rows (559-voxel rows: 70 threads
+//     a row, 3 rows in 224 threads), the outputs staged in shared memory
+//     and written coalesced;
+//   * one tile a block, as many blocks as tiles, shared memory carved out
+//     before L1; the tile's inputs copied with cp.async (4-byte copies
+//     with the hardware's zero fill for rows outside the volume: 'same'
+//     mode's padding), the other resident blocks' work covering the wait.
+//     A persistent grid whose blocks walked the tiles, loading the next
+//     while computing the current one, and 16-byte copies placed by each
+//     row's offset mod 4, both measured slower on the H100 (PERF.md).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kInnerTile = 256;   // outputs per block, contiguous axis
-constexpr int kSlabW = 32;        // contiguous width of a strided tile
-constexpr int kSlabA = 64;        // outputs along the axis per strided tile
-constexpr int kSlabRows = 8;      // thread rows of a strided tile
+constexpr int kMaxTaps = 129;
+constexpr int kR = 8;              // outputs a thread keeps along the axis
+constexpr int kQ = 32;             // contiguous columns of a strided tile
+constexpr int kRows = 8;           // thread rows of a strided tile
+constexpr int kTileA = kR * kRows; // outputs along the axis, strided tile
+constexpr int kMaxContig = 256;    // threads of a contiguous-axis tile
 
-__global__ void conv_contig(const float* __restrict__ in,
-                            float* __restrict__ out,
-                            const float* __restrict__ taps, int ksz,
-                            int n, int out_n, int lo, int tiles) {
-  extern __shared__ float seg[];
-  const long long o = blockIdx.x / tiles;
-  const int i0 = (blockIdx.x % tiles) * kInnerTile;
-  const float* row = in + o * n;
-  const int span = kInnerTile + ksz - 1;
-  for (int j = threadIdx.x; j < span; j += blockDim.x) {
-    const int idx = i0 - lo + j;
-    seg[j] = (idx >= 0 && idx < n) ? row[idx] : 0.0f;
-  }
-  __syncthreads();
-  const int i = i0 + threadIdx.x;
-  if (i >= out_n) return;
-  float acc = 0.0f;
-  for (int m = 0; m < ksz; ++m) {
-    const float w = taps[ksz - 1 - m];
-    if (w != 0.0f) acc = add_rn(acc, mul_rn(w, seg[threadIdx.x + m]));
-  }
-  out[o * out_n + i] = acc;
+enum { kSingle = 0, kLogX = 1, kLogY = 2, kLogZ = 3 };
+
+struct Taps {
+  float init;                      // -0.0, or +0.0 when every tap is 0
+  float w[kMaxTaps];               // w[m] = taps[ksz - 1 - m]
+};
+
+struct Pass {
+  const float* in[3];
+  float* out[3];
+  Taps taps[2];                    // g0 (or the single kernel), g2
+  float s2;                        // sigma^2 of the LoG epilogue
+  int ksz, n, inner, out_n, lo;
+  long long outer;
+  // tiling: strided (a_tiles x q_tiles a row of outer, ta outputs a tile)
+  // or contiguous (rows rows of seg outputs a tile, segs tiles along a row,
+  // tpr threads a row)
+  int a_tiles, ta, q_tiles, seg, segs, rows, tpr;
+  long long tiles;
+  int buf_floats;                  // one input's staging buffer (one row of
+                                   // a contiguous tile), floats
+};
+
+// The convolutions of a pass: conv c reads input conv_in, with tap set
+// conv_tap (0 = g0, 1 = g2).
+__host__ __device__ constexpr int n_in(int mode) {
+  return mode == kLogY ? 2 : (mode == kLogZ ? 3 : 1);
+}
+__host__ __device__ constexpr int n_conv(int mode) {
+  return mode == kSingle ? 1 : (mode == kLogX ? 2 : (mode == kLogY ? 3 : 4));
+}
+__host__ __device__ constexpr int n_out(int mode) {
+  return mode == kLogZ ? 2 : n_conv(mode);
+}
+__host__ __device__ constexpr int conv_in(int mode, int c) {
+  return mode == kLogY ? (c == 2 ? 1 : 0)
+                       : (mode == kLogZ ? (c <= 1 ? 0 : c - 1) : 0);
+}
+__host__ __device__ constexpr int conv_tap(int mode, int c) {
+  return (mode != kSingle && c == 1) ? 1 : 0;
 }
 
-__global__ void conv_strided(const float* __restrict__ in,
-                             float* __restrict__ out,
-                             const float* __restrict__ taps, int ksz,
-                             int n, int inner, int out_n, int lo) {
-  extern __shared__ float tile[];   // [(kSlabA + ksz - 1) * kSlabW]
-  const long long o = blockIdx.z;
-  const int a0 = blockIdx.y * kSlabA;
-  const int q = blockIdx.x * kSlabW + threadIdx.x;
-  const int span = kSlabA + ksz - 1;
-  const float* src = in + o * (long long)n * inner;
-  for (int r = threadIdx.y; r < span; r += kSlabRows) {
-    const int idx = a0 - lo + r;
-    tile[r * kSlabW + threadIdx.x] =
-        (idx >= 0 && idx < n && q < inner) ? src[(long long)idx * inner + q]
-                                           : 0.0f;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+// The thread's copies landed; a __syncthreads() then shows all of them.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Sum the pass's convolutions of one input window into acc. win(j) is the
+// j-th input of the thread's window (j < kR + ksz - 1).
+template <int MODE, int KSZ, int I, typename Win>
+__device__ __forceinline__ void convolve_input(const Pass& p, Win win,
+                                               float (&acc)[4][kR]) {
+  if constexpr (KSZ > 0) {
+    float v[kR + KSZ - 1];
+#pragma unroll
+    for (int j = 0; j < kR + KSZ - 1; ++j) v[j] = win(j);
+#pragma unroll
+    for (int c = 0; c < n_conv(MODE); ++c) {
+      if (conv_in(MODE, c) != I) continue;
+      const Taps& t = p.taps[conv_tap(MODE, c)];
+#pragma unroll
+      for (int m = 0; m < KSZ; ++m) {
+        const float w = t.w[m];
+        if (w != 0.0f) {
+#pragma unroll
+          for (int r = 0; r < kR; ++r)
+            acc[c][r] = add_rn(acc[c][r], mul_rn(w, v[r + m]));
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < n_conv(MODE); ++c) {
+      if (conv_in(MODE, c) != I) continue;
+      const Taps& t = p.taps[conv_tap(MODE, c)];
+      for (int m = 0; m < p.ksz; ++m) {
+        const float w = t.w[m];
+        if (w == 0.0f) continue;
+#pragma unroll
+        for (int r = 0; r < kR; ++r)
+          acc[c][r] = add_rn(acc[c][r], mul_rn(w, win(r + m)));
+      }
+    }
+  }
+}
+
+template <int MODE>
+__device__ __forceinline__ void init_acc(const Pass& p, float (&acc)[4][kR]) {
+#pragma unroll
+  for (int c = 0; c < n_conv(MODE); ++c)
+#pragma unroll
+    for (int r = 0; r < kR; ++r) acc[c][r] = p.taps[conv_tap(MODE, c)].init;
+}
+
+// Output k of the pass from the sums of output slot r.
+template <int MODE>
+__device__ __forceinline__ float result(const Pass& p,
+                                        const float (&acc)[4][kR], int k,
+                                        int r) {
+  if constexpr (MODE == kLogZ) {
+    if (k == 0) return acc[0][r];
+    // lap = (term_x + term_y) + term_z, then neg_, mul_(sigma^2), clamp_
+    const float lap = add_rn(add_rn(acc[3][r], acc[2][r]), acc[1][r]);
+    const float v = mul_rn(-lap, p.s2);
+    return isnan(v) ? v : fmaxf(v, 0.0f);
+  } else {
+    return acc[k][r];
+  }
+}
+
+// ---- strided axes (inner > 1) ---------------------------------------------
+
+template <int MODE>
+__device__ __forceinline__ void strided_load(const Pass& p, long long t,
+                                             float* buf) {
+  const int qt = static_cast<int>(t % p.q_tiles);
+  const long long rest = t / p.q_tiles;
+  const int at = static_cast<int>(rest % p.a_tiles);
+  const long long o = rest / p.a_tiles;
+  const int a0 = at * p.ta, q0 = qt * kQ;
+  const int rows = p.ta + p.ksz - 1;
+  for (int idx = threadIdx.x; idx < rows * kQ; idx += blockDim.x) {
+    const int r = idx / kQ, c = idx % kQ;
+    const int src = a0 - p.lo + r, q = q0 + c;
+    const bool valid = src >= 0 && src < p.n && q < p.inner;
+    const long long off =
+        valid ? (o * p.n + src) * static_cast<long long>(p.inner) + q : 0;
+#pragma unroll
+    for (int i = 0; i < n_in(MODE); ++i)
+      cp_async4(buf + i * p.buf_floats + idx, p.in[i] + off, valid);
+  }
+}
+
+template <int MODE, int KSZ>
+__global__ void __launch_bounds__(kQ * kRows) conv_strided(
+    const __grid_constant__ Pass p) {
+  extern __shared__ float smem[];
+  const int tx = threadIdx.x % kQ, ty = threadIdx.x / kQ;
+  const long long t = blockIdx.x;
+  strided_load<MODE>(p, t, smem);
+  cp_async_wait_all();
+  __syncthreads();
+  const int qt = static_cast<int>(t % p.q_tiles);
+  const long long rest = t / p.q_tiles;
+  const int at = static_cast<int>(rest % p.a_tiles);
+  const long long o = rest / p.a_tiles;
+  const int q = qt * kQ + tx;
+  float acc[4][kR];
+  init_acc<MODE>(p, acc);
+#pragma unroll
+  for (int i = 0; i < n_in(MODE); ++i) {
+    const float* col = smem + i * p.buf_floats + ty * kR * kQ + tx;
+    auto win = [col](int j) { return col[j * kQ]; };
+    if (i == 0) convolve_input<MODE, KSZ, 0>(p, win, acc);
+    if (i == 1) convolve_input<MODE, KSZ, 1>(p, win, acc);
+    if (i == 2) convolve_input<MODE, KSZ, 2>(p, win, acc);
+  }
+  if (q >= p.inner) return;
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int a = ty * kR + r, i = at * p.ta + a;
+    if (a >= p.ta || i >= p.out_n) break;
+    const long long at_out = (o * p.out_n + i) * static_cast<long long>(
+                                 p.inner) + q;
+#pragma unroll
+    for (int k = 0; k < n_out(MODE); ++k)
+      p.out[k][at_out] = result<MODE>(p, acc, k, r);
+  }
+}
+
+// ---- the contiguous axis (inner == 1) -------------------------------------
+
+// A tile: rows consecutive rows (outer indices) by one segment of seg
+// outputs; tpr threads a row, kR outputs a thread.
+template <int MODE>
+__device__ __forceinline__ void contig_load(const Pass& p, long long t,
+                                            float* buf) {
+  const long long o0 = t / p.segs * p.rows;
+  const int s0 = static_cast<int>(t % p.segs) * p.seg;
+  const int len = p.tpr * kR + p.ksz - 1;
+  for (int r = 0; r < p.rows; ++r) {
+    const long long o = o0 + r;
+    for (int j = threadIdx.x; j < len; j += blockDim.x) {
+      const int src = s0 - p.lo + j;
+      const bool valid = o < p.outer && src >= 0 && src < p.n;
+      const long long off = valid ? o * p.n + src : 0;
+#pragma unroll
+      for (int i = 0; i < n_in(MODE); ++i)
+        cp_async4(buf + (i * p.rows + r) * p.buf_floats + j, p.in[i] + off,
+                  valid);
+    }
+  }
+}
+
+template <int MODE, int KSZ>
+__global__ void __launch_bounds__(kMaxContig) conv_contig(
+    const __grid_constant__ Pass p) {
+  extern __shared__ float smem[];
+  const int cap = p.tpr * kR;                     // outputs a row holds
+  float* staged = smem + n_in(MODE) * p.rows * p.buf_floats;
+  const int row = threadIdx.x / p.tpr, lane = threadIdx.x % p.tpr;
+  const long long t = blockIdx.x;
+  contig_load<MODE>(p, t, smem);
+  cp_async_wait_all();
+  __syncthreads();
+  if (row < p.rows) {
+    float acc[4][kR];
+    init_acc<MODE>(p, acc);
+#pragma unroll
+    for (int i = 0; i < n_in(MODE); ++i) {
+      const float* win0 = smem + (i * p.rows + row) * p.buf_floats
+                          + lane * kR;
+      if constexpr (KSZ > 0) {
+        // the window as aligned 16-byte loads
+        constexpr int W4 = (kR + KSZ - 1 + 3) / 4;
+        float v[4 * W4];
+#pragma unroll
+        for (int j = 0; j < W4; ++j) {
+          const float4 f = reinterpret_cast<const float4*>(win0)[j];
+          v[4 * j] = f.x;
+          v[4 * j + 1] = f.y;
+          v[4 * j + 2] = f.z;
+          v[4 * j + 3] = f.w;
+        }
+        auto win = [&v](int j) { return v[j]; };
+        if (i == 0) convolve_input<MODE, KSZ, 0>(p, win, acc);
+        if (i == 1) convolve_input<MODE, KSZ, 1>(p, win, acc);
+        if (i == 2) convolve_input<MODE, KSZ, 2>(p, win, acc);
+      } else {
+        auto win = [win0](int j) { return win0[j]; };
+        if (i == 0) convolve_input<MODE, KSZ, 0>(p, win, acc);
+        if (i == 1) convolve_input<MODE, KSZ, 1>(p, win, acc);
+        if (i == 2) convolve_input<MODE, KSZ, 2>(p, win, acc);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < n_out(MODE); ++k) {
+      float4* dst = reinterpret_cast<float4*>(
+          staged + (k * p.rows + row) * cap + lane * kR);
+#pragma unroll
+      for (int j = 0; j < kR / 4; ++j)
+        dst[j] = make_float4(result<MODE>(p, acc, k, 4 * j),
+                             result<MODE>(p, acc, k, 4 * j + 1),
+                             result<MODE>(p, acc, k, 4 * j + 2),
+                             result<MODE>(p, acc, k, 4 * j + 3));
+    }
   }
   __syncthreads();
-  if (q >= inner) return;
-  float* dst = out + o * (long long)out_n * inner;
-  for (int a = threadIdx.y; a < kSlabA; a += kSlabRows) {
-    if (a0 + a >= out_n) break;
-    float acc = 0.0f;
-    for (int m = 0; m < ksz; ++m) {
-      const float w = taps[ksz - 1 - m];
-      if (w != 0.0f) acc = add_rn(acc, mul_rn(w, tile[(a + m) * kSlabW
-                                                      + threadIdx.x]));
+  const long long o0 = t / p.segs * p.rows;
+  const int s0 = static_cast<int>(t % p.segs) * p.seg;
+  const int len = min(p.seg, p.out_n - s0);
+  for (int r = 0; r < p.rows && o0 + r < p.outer; ++r) {
+    for (int j = threadIdx.x; j < len; j += blockDim.x) {
+#pragma unroll
+      for (int k = 0; k < n_out(MODE); ++k)
+        p.out[k][(o0 + r) * p.out_n + s0 + j] =
+            staged[(k * p.rows + r) * cap + j];
     }
-    dst[(long long)(a0 + a) * inner + q] = acc;
   }
+}
+
+// ---- launch ----------------------------------------------------------------
+
+template <typename K>
+cudaError_t run(K kernel, const Pass& p, int threads, size_t smem,
+                cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  // shared memory before L1: the tiles are the reuse
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  if (p.tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  kernel<<<static_cast<unsigned>(p.tiles), threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int MODE, int KSZ>
+cudaError_t launch_mode(Pass& p, cudaStream_t stream) {
+  constexpr int nin = n_in(MODE), nout = n_out(MODE);
+  if (p.inner > 1) {
+    p.a_tiles = (p.out_n + kTileA - 1) / kTileA;
+    p.ta = (p.out_n + p.a_tiles - 1) / p.a_tiles;
+    p.q_tiles = (p.inner + kQ - 1) / kQ;
+    p.tiles = p.outer * p.a_tiles * p.q_tiles;
+    // rows past ta are read by idle thread rows and never stored
+    p.buf_floats = (kTileA + p.ksz - 1) * kQ;
+    const size_t smem = sizeof(float) * nin * p.buf_floats;
+    return run(conv_strided<MODE, KSZ>, p, kQ * kRows, smem, stream);
+  }
+  // equal segments of at most kMaxContig threads' outputs; then as many
+  // rows a tile (up to 8) as keep the fewest of the block's threads idle
+  p.segs = (p.out_n + kMaxContig * kR - 1) / (kMaxContig * kR);
+  p.seg = (p.out_n + p.segs - 1) / p.segs;
+  p.tpr = (p.seg + kR - 1) / kR;
+  // a row's window: the last thread's, rounded up to whole 16-byte loads
+  p.buf_floats = (p.tpr * kR + p.ksz - 1 + 7) / 4 * 4;
+  const auto threads_for = [&](int rows) { return (rows * p.tpr + 31) / 32
+                                                  * 32; };
+  const auto smem_for = [&](int rows) {
+    return sizeof(float) * rows * (nin * p.buf_floats
+                                   + nout * p.tpr * kR);
+  };
+  p.rows = 1;
+  for (int rows = 2; rows <= 8; ++rows) {
+    if (threads_for(rows) > kMaxContig || smem_for(rows) > 96 * 1024) break;
+    if (rows * p.tpr * threads_for(p.rows) > p.rows * p.tpr
+        * threads_for(rows))
+      p.rows = rows;
+  }
+  p.tiles = (p.outer + p.rows - 1) / p.rows * p.segs;
+  return run(conv_contig<MODE, KSZ>, p, threads_for(p.rows),
+             smem_for(p.rows), stream);
+}
+
+template <int MODE>
+cudaError_t launch_taps(Pass& p, cudaStream_t stream) {
+  switch (p.ksz) {
+    case 17: return launch_mode<MODE, 17>(p, stream);
+    case 11: if constexpr (MODE == kSingle)
+               return launch_mode<MODE, 11>(p, stream);
+             break;
+    case 9: if constexpr (MODE == kSingle)
+              return launch_mode<MODE, 9>(p, stream);
+            break;
+    case 5: if constexpr (MODE == kSingle)
+              return launch_mode<MODE, 5>(p, stream);
+            break;
+    default: break;
+  }
+  return launch_mode<MODE, 0>(p, stream);
+}
+
+void set_taps(Taps& t, const float* k, int ksz) {
+  bool any = false;
+  for (int m = 0; m < kMaxTaps; ++m) {
+    t.w[m] = m < ksz ? k[ksz - 1 - m] : 0.0f;
+    any = any || t.w[m] != 0.0f;
+  }
+  t.init = any ? -0.0f : 0.0f;
 }
 
 }  // namespace
 
+// taps: host array of ksz float32 (copied into the kernel's parameters).
 MAD_EXPORT int mad_conv1d(const float* in, float* out, const float* taps,
-                          int ksz, int outer, int n, int inner, int out_n,
-                          int lo, cudaStream_t stream) {
-  if (inner == 1) {
-    const int tiles = (out_n + kInnerTile - 1) / kInnerTile;
-    const size_t smem = (kInnerTile + ksz - 1) * sizeof(float);
-    conv_contig<<<(unsigned)((long long)outer * tiles), kInnerTile, smem,
-                  stream>>>(in, out, taps, ksz, n, out_n, lo, tiles);
-  } else {
-    dim3 grid((inner + kSlabW - 1) / kSlabW, (out_n + kSlabA - 1) / kSlabA,
-              outer);
-    dim3 block(kSlabW, kSlabRows);
-    const size_t smem = (kSlabA + ksz - 1) * kSlabW * sizeof(float);
-    conv_strided<<<grid, block, smem, stream>>>(in, out, taps, ksz, n,
-                                                inner, out_n, lo);
-  }
-  return static_cast<int>(cudaGetLastError());
+                          int ksz, long long outer, int n, int inner,
+                          int out_n, int lo, cudaStream_t stream) {
+  if (ksz < 1 || ksz > kMaxTaps || outer < 1 || n < 1 || inner < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Pass p{};
+  p.in[0] = in;
+  p.out[0] = out;
+  set_taps(p.taps[0], taps, ksz);
+  p.ksz = ksz;
+  p.n = n;
+  p.inner = inner;
+  p.out_n = out_n;
+  p.lo = lo;
+  p.outer = outer;
+  return static_cast<int>(launch_taps<kSingle>(p, stream));
+}
+
+// One pass of the fused LoG of an (X, Y, Z) volume, 'same' mode: pass 0
+// (x) reads in0 = vol and writes ax, bx; pass 1 (y) reads ax, bx and
+// writes axy, a2y, bxy; pass 2 (z) reads axy, a2y, bxy and writes gauss,
+// log. g0, g2: host arrays of ksz float32.
+MAD_EXPORT int mad_log_pass(int pass, const float* in0, const float* in1,
+                            const float* in2, float* out0, float* out1,
+                            float* out2, const float* g0, const float* g2,
+                            int ksz, int X, int Y, int Z, float s2,
+                            cudaStream_t stream) {
+  if (ksz < 1 || ksz > kMaxTaps || pass < 0 || pass > 2 || X < 1 || Y < 1
+      || Z < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Pass p{};
+  p.in[0] = in0;
+  p.in[1] = in1;
+  p.in[2] = in2;
+  p.out[0] = out0;
+  p.out[1] = out1;
+  p.out[2] = out2;
+  set_taps(p.taps[0], g0, ksz);
+  set_taps(p.taps[1], g2, ksz);
+  p.s2 = s2;
+  p.ksz = ksz;
+  p.lo = ksz / 2;
+  const int dims[3] = {X, Y, Z};
+  p.n = p.out_n = dims[pass];
+  p.outer = pass == 0 ? 1 : (pass == 1 ? X : static_cast<long long>(X) * Y);
+  p.inner = pass == 0 ? Y * Z : (pass == 1 ? Z : 1);
+  cudaError_t err;
+  if (pass == 0) err = launch_taps<kLogX>(p, stream);
+  else if (pass == 1) err = launch_taps<kLogY>(p, stream);
+  else err = launch_taps<kLogZ>(p, stream);
+  return static_cast<int>(err);
 }

@@ -18,6 +18,8 @@ from . import (approx, ccc, cluster, conv1d, describe, enumerate, field,
 KERNELS = {
     "conv1d": (conv1d, "mad_tpu_torch/csrc/conv1d.cu",
                "mad_tpu/ops/convolve.py:79"),
+    "log_gauss": (conv1d, "mad_tpu_torch/csrc/conv1d.cu",
+                  "mad_tpu/ops/convolve.py:144"),
     "upsample_axis": (upsample, "mad_tpu_torch/csrc/upsample.cu",
                       "mad_tpu/ops/convolve.py:184"),
     "gradient": (gradient, "mad_tpu_torch/csrc/gradient.cu",
@@ -72,9 +74,10 @@ KERNELS = {
 
 
 # the counter of each entry of a module with several (default "launches"):
-# K10's merge of the shards' heads, K16's lane, eligibility and compaction
-# stages ("post" counts its dedup)
-COUNTERS = {"pair_merge": "merge_launches", "post_lanes": "lane_launches",
+# K1's fused LoG passes, K10's merge of the shards' heads, K16's lane,
+# eligibility and compaction stages ("post" counts its dedup)
+COUNTERS = {"log_gauss": "log_launches", "pair_merge": "merge_launches",
+            "post_lanes": "lane_launches",
             "post_points": "point_launches", "post_rows": "row_launches",
             "post_compact": "compact_launches"}
 

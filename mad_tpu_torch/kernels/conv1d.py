@@ -1,12 +1,20 @@
-"""K1: 1D convolution of a 3D float32 volume along one axis.
+"""K1: 1D convolution of float32 volumes along one axis, and the fused LoG.
 
-Replaces mad_tpu/ops/convolve.py:79-124 (``conv1d_along``). The CUDA
-kernel is ``csrc/conv1d.cu`` (its note says what bounds it and how it is
-laid out); :func:`conv1d_along_plain` is the plain PyTorch shift-add of the
-JAX original, the reference on the CPU and on the card.
+Replaces mad_tpu/ops/convolve.py:79-124 (``conv1d_along``) and :144-162
+(``log_filter3d``'s passes and epilogue). The CUDA kernels are
+``csrc/conv1d.cu`` (its note says what bounds them and how they are laid
+out):
 
-``conv1d_along`` takes the plain path for a CPU tensor and launches the
-kernel for a CUDA tensor (raising if it cannot); there is no fallback.
+* :func:`conv1d_along` convolves a volume, or a batch of volumes with a
+  leading batch axis, along one spatial axis; :func:`conv1d_along_plain`
+  is the plain PyTorch shift-add of the JAX original;
+* :func:`log_gauss` is the scale-normalized LoG and the Gaussian of one
+  volume in three launches (x, y, z); :func:`log_gauss_plain` is the
+  sequence of nine shift-adds and five torch ops that ``log_filter3d``
+  ran before, which the kernels round as.
+
+Each entry takes the plain path for a CPU tensor and launches the kernel
+for a CUDA tensor (raising if it cannot); there is no fallback.
 """
 
 from __future__ import annotations
@@ -16,9 +24,10 @@ import torch
 
 from . import build
 
-launches = 0            # kernel launches since the last reset
+launches = 0            # single-axis kernel launches since the last reset
+log_launches = 0        # fused LoG pass launches (three a volume)
 
-_taps_cache: dict = {}
+MAX_TAPS = 129          # taps the kernels take (their parameter block)
 
 
 def _geometry(shape, axis: int, ksz: int, mode: str):
@@ -37,10 +46,11 @@ def _geometry(shape, axis: int, ksz: int, mode: str):
 def conv1d_along_plain(vol: torch.Tensor, kernel: np.ndarray, axis: int,
                        mode: str = "same") -> torch.Tensor:
     """Shift-and-add convolution: out = sum_m k[ksz-1-m] * padded[m:m+out_n]
-    along ``axis``, zero taps skipped, summed in m order (the order of
-    mad_tpu/ops/convolve.py:116-123)."""
+    along spatial ``axis`` (of the last three dims), zero taps skipped,
+    summed in m order (the order of mad_tpu/ops/convolve.py:116-123)."""
     k = np.asarray(kernel, dtype=np.float32)
     ksz = k.shape[0]
+    axis = vol.dim() - 3 + axis
     n, lo, hi, out_n = _geometry(vol.shape, axis, ksz, mode)
     pad_shape = list(vol.shape)
     pad_shape[axis] = n + lo + hi
@@ -58,47 +68,120 @@ def conv1d_along_plain(vol: torch.Tensor, kernel: np.ndarray, axis: int,
     return out
 
 
-def _device_taps(k: np.ndarray, device) -> torch.Tensor:
-    # Cached per (taps, device): a host-to-device copy of a pageable numpy
-    # array waits for the stream, which would stall every launch.
-    key = (k.tobytes(), str(device))
-    t = _taps_cache.get(key)
-    if t is None:
-        t = torch.as_tensor(k, device=device)
-        _taps_cache[key] = t
-    return t
+def _host_taps(kernel) -> np.ndarray:
+    k = np.ascontiguousarray(np.asarray(kernel, dtype=np.float32))
+    if k.ndim != 1 or not 1 <= k.shape[0] <= MAX_TAPS:
+        raise ValueError(f"conv1d: {k.shape} taps (the kernels take "
+                         f"1-{MAX_TAPS})")
+    return k
+
+
+def _check_volume(name: str, vol: torch.Tensor, dims) -> None:
+    if vol.dim() not in dims or vol.dtype != torch.float32:
+        raise ValueError(f"{name}: need a {' or '.join(map(str, dims))}D "
+                         f"float32 volume, got {tuple(vol.shape)} "
+                         f"{vol.dtype}")
+    if vol.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: volume too large for int32 indexing")
 
 
 def conv1d_along(vol: torch.Tensor, kernel: np.ndarray, axis: int,
                  mode: str = "same") -> torch.Tensor:
-    """Convolve a 3D volume with a 1D kernel along one axis ('same': zero
-    padded, size kept; 'full': grows by len(kernel) - 1)."""
+    """Convolve a 3D volume, or a (B, X, Y, Z) batch, with a 1D kernel
+    along spatial axis ``axis`` ('same': zero padded, size kept; 'full':
+    grows by len(kernel) - 1)."""
     if vol.device.type == "cpu":
         return conv1d_along_plain(vol, kernel, axis, mode)
     global launches
-    k = np.ascontiguousarray(np.asarray(kernel, dtype=np.float32))
-    ksz = k.shape[0]
-    if vol.dim() != 3 or vol.dtype != torch.float32:
-        raise ValueError(f"conv1d_along: need a 3D float32 volume, got "
-                         f"{tuple(vol.shape)} {vol.dtype}")
-    if not 1 <= ksz <= 257:
-        raise ValueError(f"conv1d_along: {ksz} taps (kernel takes 1-257)")
-    if vol.numel() >= 2 ** 31:
-        raise ValueError("conv1d_along: volume too large for int32 indexing")
+    k = _host_taps(kernel)
+    _check_volume("conv1d_along", vol, (3, 4))
     vol = vol.contiguous()
     build.require_cuda("conv1d_along", vol)
-    n, lo, _hi, out_n = _geometry(vol.shape, axis, ksz, mode)
+    dim = vol.dim() - 3 + axis
+    n, lo, _hi, out_n = _geometry(vol.shape, dim, k.shape[0], mode)
     shape = list(vol.shape)
-    outer = int(np.prod(shape[:axis], dtype=np.int64))
-    inner = int(np.prod(shape[axis + 1:], dtype=np.int64))
-    if inner > 1 and outer > 65535:
-        raise ValueError("conv1d_along: outer extent exceeds the grid")
-    shape[axis] = out_n
+    outer = int(np.prod(shape[:dim], dtype=np.int64))
+    inner = int(np.prod(shape[dim + 1:], dtype=np.int64))
+    shape[dim] = out_n
     out = torch.empty(shape, dtype=torch.float32, device=vol.device)
-    taps = _device_taps(k, vol.device)
-    lib = build.library()
+    if out.numel() == 0:
+        return out
     build.launch(
-        lib.mad_conv1d, vol.device, vol.data_ptr(), out.data_ptr(),
-        taps.data_ptr(), ksz, outer, n, inner, out_n, lo)
+        build.library().mad_conv1d, vol.device, vol.data_ptr(),
+        out.data_ptr(), k.ctypes.data, k.shape[0], outer, n, inner, out_n,
+        lo)
     launches += 1
     return out
+
+
+def _take(vol):
+    """The volume, and the caller's one-element list emptied: the entry
+    then holds the only reference it was handed."""
+    if isinstance(vol, list):
+        return vol.pop()
+    return vol
+
+
+def log_gauss_plain(vol, g0: np.ndarray, g2: np.ndarray, sigma: float):
+    """(LoG response, Gaussian) of a 3D volume: the nine shift-adds of
+    mad_tpu/ops/convolve.py:152-162 and its epilogue, as torch ops.
+    ``vol`` may be a one-element list, which is emptied."""
+    vol = _take(vol)
+    c = conv1d_along_plain
+    ax = c(vol, g0, 0)
+    axy = c(ax, g0, 1)
+    gauss = c(axy, g0, 2)
+    lap = c(axy, g2, 2)                                      # term_z
+    del axy
+    term = c(c(ax, g2, 1), g0, 2)                            # term_y
+    del ax
+    x = c(c(c(vol, g2, 0), g0, 1), g0, 2)                    # term_x
+    del vol
+    # lap = term_x + term_y + term_z, summed in that order
+    lap = torch.add(x, term).add_(lap)
+    del x, term
+    log_resp = torch.clamp_(lap.neg_().mul_(sigma ** 2), min=0.0)
+    return log_resp, gauss
+
+
+def log_gauss(vol, g0: np.ndarray, g2: np.ndarray, sigma: float):
+    """(LoG response, Gaussian) of a 3D volume with the order 0 and 2
+    Gaussian taps g0 and g2, in three kernel launches; bit for bit with
+    :func:`log_gauss_plain`. Pass the volume in a one-element list to hand
+    it over: the list is emptied and the volume freed as soon as the x
+    pass has read it (then the peak holds 5 volumes)."""
+    vol = _take(vol)
+    if vol.device.type == "cpu":
+        return log_gauss_plain(vol, g0, g2, sigma)
+    k0, k2 = _host_taps(g0), _host_taps(g2)
+    if k0.shape != k2.shape:
+        raise ValueError(f"log_gauss: {k0.shape} and {k2.shape} taps")
+    _check_volume("log_gauss", vol, (3,))
+    vol = vol.contiguous()
+    build.require_cuda("log_gauss", vol)
+    dev = vol.device
+    X, Y, Z = vol.shape
+    lib = build.library()
+    # float32 of sigma^2, as mul_ takes the Python float
+    s2 = float(np.float32(sigma ** 2))
+
+    def run(p, ins, outs):
+        global log_launches
+        ins = ins + [None] * (3 - len(ins))
+        outs = outs + [None] * (3 - len(outs))
+        build.launch(lib.mad_log_pass, dev, p,
+                     *[0 if t is None else t.data_ptr() for t in ins + outs],
+                     k0.ctypes.data, k2.ctypes.data, k0.shape[0], X, Y, Z,
+                     s2)
+        log_launches += 1
+
+    new = lambda: torch.empty((X, Y, Z), dtype=torch.float32, device=dev)
+    ax, bx = new(), new()
+    run(0, [vol], [ax, bx])
+    del vol
+    axy, a2y, bxy = new(), new(), new()
+    run(1, [ax, bx], [axy, a2y, bxy])
+    del ax, bx
+    gauss, log_resp = new(), new()
+    run(2, [axy, a2y, bxy], [gauss, log_resp])
+    return log_resp, gauss

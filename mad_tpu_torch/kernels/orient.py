@@ -3,10 +3,12 @@
 Replaces mad_tpu/ops/orient.py:212 (``_orient_bodies``, its per-anchor
 ``one_anchor`` :248-336 with ``zone_hist_fn``, ``_quantize`` and
 ``_first_k_flagged`` :118-173). The CUDA kernel ``csrc/orient.cu`` runs
-one block per anchor with its 1 + M zone histograms in shared memory
-(its note says what bounds it); :func:`orient_plain` is the plain PyTorch
-version, 32 anchors a chunk as batched tensor ops through (chunk, patch,
-zones) masks, with the helpers below.
+one thread-block cluster per anchor, its CTAs splitting the patch and
+adding into the leader's 1 + M zone histograms, and looks a direction's
+zones up in :func:`zone_table` (its note says what bounds it);
+:func:`orient_plain` is the plain PyTorch version, 32 anchors a chunk as
+batched tensor ops through (chunk, patch, zones) masks, with the helpers
+below.
 
 Both take the (X, Y, Z, 3) gradient field, (K, 3) int64 anchor voxel
 coords, a (K,) bool validity, the octave's real extent and the host-built
@@ -25,6 +27,7 @@ gathers move into the block.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.geometry import (matmul3, norm3, rotation_about_z, rows_times,
@@ -36,6 +39,31 @@ launches = 0            # kernel launches since the last reset
 # What csrc/orient.cu holds per block: main and secondary slots, zones,
 # and patch samples (the sum of that many weights of 2^40 fits 64 bits).
 MAX_MAIN, MAX_SEC, MAX_ZONES, MAX_PATCH = 8, 16, 256, 1 << 23
+
+
+def zone_table(bounds):
+    """The zone candidates of each phi slot, for the kernel's lookup.
+
+    bounds (Z, 4) float32 [theta_min, phi_min, theta_max, phi_max]. Returns
+    (edges, start, zones): the sorted distinct phi bounds (nb float32); and
+    for each of the 2 nb + 1 slots of phi (slot 0 below edges[0] or NaN,
+    2j + 1 on edges[j], 2j + 2 the open gap above it), the zones whose
+    closed phi range meets the slot: zones[start[s]:start[s + 1]] (int32,
+    start has 2 nb + 2 entries). A direction strictly inside a zone's phi
+    range lies in a slot that meets the range, so the candidates of its
+    slot hold every zone it lands in (tests/test_torch_orient_zones.py)."""
+    b = np.asarray(bounds, dtype=np.float32)
+    lo, hi = b[:, 1], b[:, 3]
+    edges = np.unique(np.concatenate([lo, hi]))
+    inf = np.float32(np.inf)
+    cands = [np.nonzero(lo < edges[0])[0]]                   # (-inf, e0)
+    for j, e in enumerate(edges):
+        above = edges[j + 1] if j + 1 < len(edges) else inf
+        cands.append(np.nonzero((lo <= e) & (hi >= e))[0])   # {e}
+        cands.append(np.nonzero((lo < above) & (hi > e))[0])  # (e, above)
+    start = np.concatenate([[0], np.cumsum([len(c) for c in cands])])
+    return (edges.astype(np.float32), start.astype(np.int32),
+            np.concatenate(cands).astype(np.int32))
 
 
 def zone_hist(dirs: torch.Tensor, w: torch.Tensor, bounds: torch.Tensor
@@ -130,7 +158,7 @@ def orient(grad, coords, valid, real_shape, tab, radius: int, stride: int,
            max_main: int, max_sec: int, cutoff_magn: float, chunk: int = 32,
            goff: int = 0):
     """Frames of K anchors; CPU tensors take the plain version (``chunk``
-    anchors at a time, the kernel takes one block per anchor)."""
+    anchors at a time, the kernel takes one cluster of CTAs per anchor)."""
     if grad.device.type == "cpu":
         return orient_plain(grad, coords, valid, real_shape, tab, radius,
                             stride, max_main, max_sec, cutoff_magn, chunk,
@@ -155,7 +183,8 @@ def orient(grad, coords, valid, real_shape, tab, radius: int, stride: int,
     valid_u8 = valid.to(torch.uint8)
     build.require_cuda("orient", grad, coords_i, valid_u8, tab.bounds,
                        tab.mask, tab.rot_to_pole, tab.p_theta,
-                       tab.belt_first)
+                       tab.belt_first, tab.zone_edges, tab.zone_start,
+                       tab.zone_cands)
     dev = grad.device
     M, S = max_main, max_sec
     mains = torch.empty((K, M), dtype=torch.int32, device=dev)
@@ -171,8 +200,11 @@ def orient(grad, coords, valid, real_shape, tab, radius: int, stride: int,
         0 if grad.dtype == torch.float32 else 1, X, Y, Z, rx, ry, rz,
         int(goff), coords_i.data_ptr(), valid_u8.data_ptr(), K, int(radius),
         int(stride), tab.mask.data_ptr(), tab.bounds.data_ptr(), nz,
-        tab.rot_to_pole.data_ptr(), tab.p_theta.data_ptr(),
-        tab.belt_first.data_ptr(), M, S, float(cutoff_magn), mains.data_ptr(),
+        tab.zone_edges.data_ptr(), tab.zone_edges.numel(),
+        tab.zone_start.data_ptr(), tab.zone_cands.data_ptr(),
+        tab.zone_cands.numel(), tab.rot_to_pole.data_ptr(),
+        tab.p_theta.data_ptr(), tab.belt_first.data_ptr(), M, S,
+        float(cutoff_magn), mains.data_ptr(),
         secs.data_ptr(), rfin.data_ptr(), ok.data_ptr())
     launches += 1
     return mains, secs, rfin, ok.bool()

@@ -1,8 +1,9 @@
 """Separable filters for 3D volumes (port of mad_tpu/ops/convolve.py).
 
-Gaussian smoothing, the scale-normalized LoG and the simulator's blur are
-1D convolutions along each axis, all through kernel K1
-(:mod:`mad_tpu_torch.kernels.conv1d`); the x2 Catmull-Rom upsampling goes
+Gaussian smoothing and the simulator's blur (of one volume or a batch)
+are 1D convolutions along each axis, and the scale-normalized LoG is three
+fused passes, all through kernel K1 (:mod:`mad_tpu_torch.kernels.conv1d`:
+``conv1d_along`` and ``log_gauss``); the x2 Catmull-Rom upsampling goes
 axis by axis through kernel K2 (:mod:`mad_tpu_torch.kernels.upsample`).
 """
 
@@ -11,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.conv1d import conv1d_along
+from ..kernels.conv1d import conv1d_along, log_gauss
 from ..kernels.upsample import upsample_axis
 
 
@@ -39,7 +40,8 @@ def gaussian_kernel1d(sigma: float, order: int = 0, truncate: float = 4.0
 
 def separable_conv3d(vol: torch.Tensor, kernels, mode: str = "same"
                      ) -> torch.Tensor:
-    """Apply (kx, ky, kz) 1D kernels along axes 0, 1, 2."""
+    """Apply (kx, ky, kz) 1D kernels along spatial axes 0, 1, 2 of a volume
+    or of a (B, X, Y, Z) batch (three launches for the whole batch)."""
     out = vol
     for axis, kern in enumerate(kernels):
         out = conv1d_along(out, kern, axis, mode=mode)
@@ -58,23 +60,15 @@ def log_filter3d(vol: torch.Tensor, sigma: float, truncate: float = 4.0):
 
     Returns (log_response, gauss) with
       log_response = max(0, -sigma^2 * laplacian_of_gaussian(vol))
-    (parity: mad/MapSpace.py:169-182); the pass order and the sums are
-    those of mad_tpu/ops/convolve.py:152-162."""
+    (parity: mad/MapSpace.py:169-182); the sums and their order are those
+    of mad_tpu/ops/convolve.py:152-162, in K1's three fused passes on the
+    card. The volume is handed over, so that it is freed once the first
+    pass has read it unless the caller keeps it."""
     g0 = gaussian_kernel1d(sigma, 0, truncate)
     g2 = gaussian_kernel1d(sigma, 2, truncate)
-    ax = conv1d_along(vol, g0, 0)
-    axy = conv1d_along(ax, g0, 1)
-    gauss = conv1d_along(axy, g0, 2)
-    lap = conv1d_along(axy, g2, 2)                           # term_z
-    del axy
-    term = conv1d_along(conv1d_along(ax, g2, 1), g0, 2)      # term_y
-    del ax
-    x = conv1d_along(conv1d_along(conv1d_along(vol, g2, 0), g0, 1), g0, 2)
-    # lap = term_x + term_y + term_z, summed in that order
-    lap = torch.add(x, term).add_(lap)
-    del x, term
-    log_resp = torch.clamp_(lap.neg_().mul_(sigma ** 2), min=0.0)
-    return log_resp, gauss
+    held = [vol]
+    del vol
+    return log_gauss(held, g0, g2, sigma)
 
 
 def upsample2(vol: torch.Tensor) -> torch.Tensor:

@@ -86,7 +86,11 @@ class _OrientTables:
 
     def __init__(self, cfg: OrientConfig, radius: int, stride: int, device):
         eqsp = get_eqsp(cfg.eqsp_size)
-        self.bounds = torch.as_tensor(ref_zone_bounds(eqsp), device=device)
+        bounds = ref_zone_bounds(eqsp)
+        self.bounds = torch.as_tensor(bounds, device=device)
+        # K6's zone lookup (kernels/orient.zone_table)
+        self.zone_edges, self.zone_start, self.zone_cands = (
+            torch.as_tensor(a, device=device) for a in k6.zone_table(bounds))
         self.mask = torch.as_tensor(
             _sphere_mask(radius, cfg.gw_sig).reshape(-1), device=device)
         offs = np.arange(-radius, radius + 1) * stride

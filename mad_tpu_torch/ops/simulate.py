@@ -5,9 +5,9 @@ Replaces PDB.structure_to_density (mad/PDB.py:131-208):
      (margin = 2 + pad voxels), normalized to max 1;
   2. Gaussian blur with sigma = resolution / (pi*sqrt(2)) / voxsp truncated
      at ceil(3*sigma), *full* convolution (the box grows by the radius),
-     through kernel K1;
+     through kernel K1, three launches for a whole batch;
   3. normalize to max 1, clamp below the isovalue.
-The scatter of a whole batch is one launch of kernel K9
+The scatter of a whole batch is one call of kernel K9
 (:mod:`mad_tpu_torch.kernels.scatter`).
 """
 
@@ -79,13 +79,13 @@ def _simulate_batch(coords: torch.Tensor, masses: torch.Tensor,
                     vox_min: torch.Tensor, box, margin: int, voxsp: float,
                     taps: np.ndarray, isovalue: float) -> torch.Tensor:
     """M structures: one trilinear mass scatter (K9), then per structure
-    normalize, 'full' blur (K1), normalize, clamp
+    normalize, 'full' blur (K1, the batch at once), normalize, clamp
     (mad_tpu/ops/simulate.py:86-108)."""
     grids = scatter.scatter_atoms(coords, masses, vox_min, box, margin, voxsp)
     grids = grids / torch.clamp(grids.amax(dim=(1, 2, 3), keepdim=True),
                                 min=1e-30)
-    dens = torch.stack([separable_conv3d(g, (taps, taps, taps), mode="full")
-                        for g in grids])
+    dens = separable_conv3d(grids, (taps, taps, taps), mode="full")
+    del grids
     dens = dens / torch.clamp(dens.amax(dim=(1, 2, 3), keepdim=True),
                               min=1e-30)
     if isovalue:

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Kernel rows of chip_smoke.py for two checkouts of the port, timed in
-interleaved order on one NVIDIA card.
+"""Kernel rows and fit stages of chip_smoke.py for two checkouts of the
+port, timed in interleaved order on one NVIDIA card.
 
     python3 scripts/torch_kernel_abba.py DIR_A DIR_B [--order ABBA]
         [--kernels peak_mask_compact,localize,orient,descriptor_hist]
+        [--fits 0]
 
 Each DIR holds a checkout (its chip_smoke.py and mad_tpu_torch/). For
 every letter of ``--order`` (A the first directory, B the second), one
 process in that directory builds the checkout's kernels, runs
-chip_smoke's bench fit once and its kernel_checks (each kernel at the
+chip_smoke's bench fit once (warm), then ``--fits`` timed fits (stage
+seconds, peak device memory, K1's launches: ``conv1d`` plus ``log_gauss``
+where the checkout has it), then its kernel_checks (each kernel at the
 bench fit's inputs against its plain version, CUDA events, mean of three
-after a warm call), and prints the chosen rows' kernel and plain ms. Then
-each row's mean per checkout. Prints the card's name and power limit
-first. Needs a card.
+after a warm call), and prints the chosen rows' kernel and plain ms (a
+row the checkout lacks is skipped). Then, per checkout, each row's mean
+and each stage's median over its fits. Prints the card's name and power
+limit first. Needs a card.
 """
 
 import argparse
@@ -21,18 +25,36 @@ import os
 import subprocess
 import sys
 
+import numpy as np
+
 CHILD = r"""
-import json, sys, torch
+import json, sys, time, torch
 import chip_smoke as cs
-names = sys.argv[1].split(",")
+from mad_tpu_torch import kernels
+names, fits = sys.argv[1].split(","), int(sys.argv[2])
 device, _smi = cs.device_phase()
 cs.build_phase()
 cfg = cs.bench_config()
 fit = cs.run_fit(device, {}, cfg)
 torch.cuda.synchronize()
-rows = cs.kernel_checks(fit, cfg, device)
+passes = []
+for _ in range(fits):
+    del fit
+    t = {}
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fit = cs.run_fit(device, t, cfg)
+    torch.cuda.synchronize()
+    t["fit"] = time.perf_counter() - t0
+    t["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = kernels.launch_counts()
+    t["k1_launches"] = counts["conv1d"] + counts.get("log_gauss", 0)
+    passes.append(t)
+print("FITS " + json.dumps(passes))
+rows = cs.kernel_checks(fit, cfg, device) if names != [""] else {}
 print("ROWS " + json.dumps({n: [rows[n]["ms"], rows[n]["plain_ms"]]
-                            for n in names}))
+                            for n in names if n in rows}))
 """
 
 
@@ -43,31 +65,47 @@ def main():
     ap.add_argument("--kernels",
                     default="peak_mask_compact,localize,orient,"
                             "descriptor_hist")
+    ap.add_argument("--fits", type=int, default=0)
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
     got = {"A": [], "B": []}
+    fits = {"A": [], "B": []}
     for i, side in enumerate(args.order):
         root = os.path.abspath(args.dirs["AB".index(side)])
-        proc = subprocess.run([sys.executable, "-c", CHILD, args.kernels],
+        proc = subprocess.run([sys.executable, "-c", CHILD, args.kernels,
+                               str(args.fits)],
                               cwd=root, capture_output=True, text=True)
-        line = [x for x in proc.stdout.splitlines() if x.startswith("ROWS ")]
-        if proc.returncode != 0 or not line:
+        lines = {x[:5]: x[5:].strip() for x in proc.stdout.splitlines()
+                 if x.startswith(("ROWS ", "FITS "))}
+        if proc.returncode != 0 or len(lines) != 2:
             print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n")
             raise SystemExit(f"run {i} ({side}, {root}) failed")
-        rows = json.loads(line[0][5:])
+        rows, passes = json.loads(lines["ROWS "]), json.loads(lines["FITS "])
         got[side].append(rows)
+        fits[side] += passes
         print(f"run {i} {side} ({root}): " + ", ".join(
             f"{n} {k:.4f} ms (plain {p:.4f})" for n, (k, p) in rows.items()),
             flush=True)
+        for t in passes:
+            print(f"  fit {side}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in t.items()), flush=True)
     for side in "AB":
         runs = got[side]
-        if runs:
+        if runs and runs[0]:
             print(f"mean {side} over {len(runs)} runs: " + ", ".join(
                 f"{n} {sum(r[n][0] for r in runs) / len(runs):.4f} ms"
                 for n in runs[0]))
+        if fits[side]:
+            keys = fits[side][0].keys()
+            print(f"fits {side}, median (min, max) of {len(fits[side])}: "
+                  + ", ".join(
+                      f"{k} {np.median([t[k] for t in fits[side]]):.4f} "
+                      f"({min(t[k] for t in fits[side]):.4f}, "
+                      f"{max(t[k] for t in fits[side]):.4f})"
+                      for k in keys), flush=True)
 
 
 if __name__ == "__main__":

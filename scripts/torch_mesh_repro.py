@@ -10,10 +10,10 @@ one NVIDIA card.
    (``torch.matmul``, TF32 off) against the same rows of the whole
    product, and the block in a zero frame of all the rows, as
    ``engine.match.match_pairs(mesh=)`` takes it.
-2. K9's atomics: the bench subunit (copy 0 of chip_smoke.py's
+2. K9's determinism: the bench subunit (copy 0 of chip_smoke.py's
    ``make_assembly``, decoy-transformed) simulated eight times at 10 A
-   and 1.4 A, the largest difference from the first (the atomic adds land
-   in a run-dependent order, so runs may or may not differ);
+   and 1.4 A: how many of the seven re-simulations differ from the first,
+   and by how much (K9 adds in a fixed order, so none should);
    ``describe_grid`` of the first and of one that differs from it (the
    second when none does), equal or not; and of the first in capacity
    mode on 2, 3 and 4 shards of the card against its single-device
@@ -71,10 +71,12 @@ def k9_runs(device):
              for _ in range(8)]
     diff = max(float((grids[0].data - g.data).abs().max())
                for g in grids[1:])
+    equal = [torch.equal(grids[0].data.view(torch.int32),
+                         g.data.view(torch.int32)) for g in grids[1:]]
     print(f"subunit density {tuple(grids[0].data.shape)}, 8 simulations: "
-          f"equal {[torch.equal(grids[0].data, g.data) for g in grids[1:]]}"
-          f", largest difference {diff:g} (of a max of "
-          f"{float(grids[0].data.max()):g})", flush=True)
+          f"{equal.count(False)} of {len(equal)} re-simulations differ from "
+          f"the first (bit for bit: {equal}), largest difference {diff:g} "
+          f"(of a max of {float(grids[0].data.max()):g})", flush=True)
     second = next((g for g in grids[1:]
                    if not torch.equal(g.data, grids[0].data)), grids[1])
     one = describe_grid(grids[0], cfg, name="s", device=device)

@@ -279,12 +279,14 @@ def test_describe_grid_mesh(dimer, n, monkeypatch):
 
     real_octave = pipeline._describe_octave
     monkeypatch.setattr(pipeline, "_describe_octave", octave_spy)
-    for mod, name in ((convolve, "conv1d_along"),
+    for mod, name in ((convolve, "conv1d_along"), (convolve, "log_gauss"),
                       (convolve, "upsample_axis"), (volume, "gradient"),
                       (detect, "peak_topk"), (detect, "localize"),
                       (k6, "orient"), (describe, "descriptor_hist")):
         def spy(*args, _fn=getattr(mod, name), _name=name, **kw):
-            rows.append((_name, args[0].shape[0], dict(bound)))
+            # log_gauss is handed its volume in a one-element list
+            vol = args[0][0] if isinstance(args[0], list) else args[0]
+            rows.append((_name, vol.shape[0], dict(bound)))
             return _fn(*args, **kw)
         monkeypatch.setattr(mod, name, spy)
 
@@ -294,9 +296,9 @@ def test_describe_grid_mesh(dimer, n, monkeypatch):
     assert torch.equal(got.desc_norm, want.desc_norm)
     for k in FIELDS:
         np.testing.assert_array_equal(getattr(got, k), getattr(want, k), k)
-    assert {r[0] for r in rows} == {"conv1d_along", "upsample_axis",
-                                    "gradient", "peak_topk", "localize",
-                                    "orient", "descriptor_hist"}
+    assert {r[0] for r in rows} == {"conv1d_along", "log_gauss",
+                                    "upsample_axis", "gradient", "peak_topk",
+                                    "localize", "orient", "descriptor_hist"}
     for name, r, b in rows:
         assert r <= b["rows"] and r < b["full"], (name, r, b)
 

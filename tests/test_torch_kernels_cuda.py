@@ -84,8 +84,8 @@ def test_k1_rejects_what_it_does_not_take(system):
     k = np.ones(3, np.float32)
     with pytest.raises(ValueError):
         conv1d.conv1d_along(dmap.data.double(), k, 0)
-    with pytest.raises(ValueError):
-        conv1d.conv1d_along(dmap.data[None], k, 0)
+    with pytest.raises(ValueError):      # a batch has one leading axis
+        conv1d.conv1d_along(dmap.data[None, None], k, 0)
 
 
 def test_k4_peaks_exact(system):
