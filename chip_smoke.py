@@ -20,8 +20,11 @@ Phases, each of which raises (non-zero exit) when it fails:
      (K1's single-axis entry along each axis of the upsampled octave and
      on a batch's 'full' blur, and its fused LoG of the octave, bit for
      bit; K9 on the bench map, the subunit, the solutions' and the
-     models' batches, bit for bit with its plain version run on the CPU
-     and five launches equal; K6 on every anchor of both octaves, equal
+     models' batches, bit for bit with its plain version run on the CPU,
+     five launches equal and its maxima equal to amax's, each timed beside
+     index_add_ and index_put_(accumulate=True), whose grid is printed as
+     bit-equal to K9's or not (index_put_ sorts its indices; not
+     asserted); K6 on every anchor of both octaves, equal
      on every anchor, and on the base octave also at patch sizes 12 and
      24 and with a Gaussian window (>= 99 % of the anchors), each
      launched twice; K15 on the first-round candidates; the matching
@@ -39,7 +42,13 @@ Phases, each of which raises (non-zero exit) when it fails:
      entries, lanes, dedup ("post"), cloud points, table rows and
      compaction, against its plain version), K17 at both of
      its call sites (the solutions' score and score_models: CCC within
-     1e-5) and K20b (the bench overlap, bit for bit), at the inputs one
+     1e-5) and the simulation body at the fit's five simulate calls
+     (the map, the subunit, score, overlap, score_models: K9 with its
+     maxima, K1's blur with its divide and max epilogues, the
+     scale-and-clamp pass, bit for bit with the plain body whose scatter
+     runs on the CPU; each call's time and peak memory beside the plain
+     body's; at score_models' call the divide pass, the max pass and the
+     scale-and-clamp pass against their plain versions), at the inputs one
      more bench fit gives them), both timed with CUDA events, beside the
      one PyTorch call that computes the same function where there is one
      (K10's head: torch.topk per row, then over the flat heads; K3:
@@ -62,7 +71,8 @@ Phases, each of which raises (non-zero exit) when it fails:
      (K10's head, K11, K12, K14), K16 and K17 swapped in (stage seconds
      side by side), which must recover as many copies;
   6. the same assembly on the same solutions with the plain versions
-     (K1, K9, K17, K18, K20b, K19, K20) swapped in on the card: the same
+     (the simulation body, K1's blur, K17, K18, K19 and K20 with their
+     plain overlap staging) swapped in on the card: the same
      tuples and model components, model CCCs within 1e-5, the overlap
      within its tolerance (the plain scatter's index_add_ adds with
      atomics on the card: testing.overlap_tolerance);
@@ -74,8 +84,9 @@ Phases, each of which raises (non-zero exit) when it fails:
      model artifacts; a second run() must load the
      dsc_db and pose_db caches and give the same solutions;
   8. a heteromer ranking (16^5 tuples over 80 solutions, seeded random
-     overlap) with the counters reset first: K20 and K20b must launch,
-     and the plain versions on the card must give the same tuples;
+     overlap) with the counters reset first: K20 must launch (it stages
+     the overlap itself), and the plain versions on the card must give
+     the same tuples;
   9. a small two-copy fit through the card and through the CPU (plain
      versions) must recover the same copies at the same poses, and the
      assembly of the card's solutions on the card and on the CPU must
@@ -130,6 +141,8 @@ SMALL_POSE_TOL = 0.5            # A, best CA-RMSD per copy, card vs CPU
 MAX_MODELS, MAX_OVERLAP = 10, 0.1   # bench.py's score_models arguments
 CCC_TOL = 1e-5                  # model CCC, kernels vs plain / card vs CPU
 K9_REPEATS = 5                  # K9 launches on the same inputs, all equal
+# the fit's simulate calls, in order (ops/simulate._simulate_batch)
+SIMULATE_CALLS = ("map", "subunit", "score", "overlap", "score_models")
 K1_FIT_LAUNCHES = 40            # K1 launches (both entries) in the timed fit
 HETERO = dict(n_per=16, n_groups=5, seed=12)
 K6_AGREE, K6_RFINAL_TOL = 0.99, 1e-6   # anchors agreeing, frame max diff
@@ -320,16 +333,18 @@ def run_assembly(device, timings, cfg, structures, dmap, n_copies):
 
 def assembly_swaps():
     """The plain PyTorch versions of the kernels the assembly step launches
-    (K1 blur, K9, K17, K18, K20b, K19, K20), as (module, name, plain
+    (the simulation body: K9, K1's blur with its epilogues and the
+    scale-and-clamp pass; K17, K18, K19 and K20, whose plain versions
+    stage the overlap with sym_trim_plain), as (module, name, plain
     function)."""
     import mad_tpu_torch.ops.convolve as convolve
+    import mad_tpu_torch.ops.simulate as simulate
     from mad_tpu_torch.kernels import (ccc, conv1d, enumerate as k_enum,
-                                       hetero, overlap, scatter, symmetrize)
-    return [(convolve, "conv1d_along", conv1d.conv1d_along_plain),
-            (scatter, "scatter_atoms", scatter.scatter_atoms_plain),
+                                       hetero, overlap)
+    return [(simulate, "_simulate_batch", simulate.simulate_batch_plain),
+            (convolve, "conv1d_along", conv1d.conv1d_along_plain),
             (ccc, "batched_ccc", ccc.batched_ccc_plain),
             (overlap, "pack_overlap", overlap.pack_overlap_plain),
-            (symmetrize, "sym_trim", symmetrize.sym_trim_plain),
             (k_enum, "enumerate_head", k_enum.enumerate_head_plain),
             (hetero, "hetero_head", hetero.hetero_head_plain)]
 
@@ -386,8 +401,14 @@ def fit_swaps():
             + post_ccc_swaps())
 
 
-# the plain version of each entry of K1's module, which holds two
-SPLIT_PLAIN = {"conv1d": "conv1d_along_plain", "log_gauss": "log_gauss_plain"}
+# the plain version of each entry of K1's and K9's modules, which hold
+# several (the blur's epilogues and K9's closing pass are part of the
+# simulation body)
+SPLIT_PLAIN = {"conv1d": "conv1d_along_plain", "log_gauss": "log_gauss_plain",
+               "blur_divide": "simulate_batch_plain",
+               "blur_max": "simulate_batch_plain",
+               "scatter_atoms": "simulate_batch_plain",
+               "simulate_scale": "simulate_batch_plain"}
 
 
 def swapped_kernels(swaps):
@@ -830,26 +851,27 @@ def in_map_voxels(shape, box, starts):
 
 
 def post_ccc_checks(fit, cfg, device):
-    """K16, K17 and K20b against their plain versions at the inputs that
-    one more bench fit gives them, recorded at their call sites: K16's
-    first round (its lanes, and the table's rows that the rescue round
-    may take), K17 at both of its call sites (the solutions' score, then
-    score_models), K20b on the bench overlap. K16 and K20b equal (K16's
-    moved anchors within K16_ANCHOR_TOL), K17 within CCC_TOL."""
+    """K16, K17 and the simulation body against their plain versions at
+    the inputs that one more bench fit gives them, recorded at their call
+    sites: K16's first round (its lanes, and the table's rows that the
+    rescue round may take), K17 at both of its call sites (the solutions'
+    score, then score_models), the body at the fit's five simulate calls.
+    K16 equal (its moved anchors within K16_ANCHOR_TOL), K17 within
+    CCC_TOL, the body bit for bit."""
     import torch
     from mad_tpu_torch.engine import docking
     from mad_tpu_torch.kernels import ccc as k17, post as k16
-    from mad_tpu_torch.kernels import symmetrize as k20b
+    from mad_tpu_torch.ops import simulate
     from mad_tpu_torch.testing import recording
     out = {}
     with recording(docking, "post") as posts, \
             recording(k17, "batched_ccc") as cccs, \
-            recording(k20b, "sym_trim") as syms:
+            recording(simulate, "_simulate_batch") as sims:
         run_fit(device, None, cfg)
         torch.cuda.synchronize()
-    check(posts and len(cccs) == 2 and syms,
-          f"recorded {len(posts)} K16, {len(cccs)} K17 and {len(syms)} K20b "
-          "calls in the fit")
+    check(posts and len(cccs) == 2 and len(sims) == len(SIMULATE_CALLS),
+          f"recorded {len(posts)} K16, {len(cccs)} K17 and {len(sims)} "
+          "simulate calls in the fit")
 
     # K16, the first round: the whole round against post_plain, then each
     # stage entry against its plain version at the round's inputs. Work
@@ -921,19 +943,129 @@ def post_ccc_checks(fit, cfg, device):
             out["batched_ccc"] = r
     del cccs, args
 
-    # K20b on the bench overlap: equal. Work: the (t, t) block read once,
-    # the result written, one addition an element; library: block +
-    # block.T, one call on the (float32) block's view.
-    ov, t = syms[0]
-    check(torch.equal(k20b.sym_trim(ov, t), k20b.sym_trim_plain(ov, t)),
-          "K20b differs from the plain version")
-    block = ov[:t, :t].to(torch.float32)
-    out["sym_trim"] = measure(0.0, lambda: k20b.sym_trim(ov, t),
-                              lambda: k20b.sym_trim_plain(ov, t),
-                              8 * t * t, t * t,
-                              lambda: torch.add(block, block.T))
-    say(f"  K20b: ({t}, {t}) of the ({ov.shape[0]}, {ov.shape[1]}) bench "
-        f"overlap, equal")
+    out.update(simulate_body_checks(sims, device))
+    return out
+
+
+def plain_body(args):
+    """The plain simulation body on the card with its scatter on the CPU
+    (index_add_ on the card adds with atomics) and its blur the plain
+    shift-adds."""
+    import torch
+    import mad_tpu_torch.ops.convolve as convolve
+    from mad_tpu_torch.kernels import conv1d, scatter
+    from mad_tpu_torch.ops import simulate
+    cpu = [a.cpu() if torch.is_tensor(a) else a for a in args[:6]]
+    grids = scatter.scatter_atoms_plain(*cpu).to(args[0].device)
+    with plain_versions([(convolve, "conv1d_along",
+                          conv1d.conv1d_along_plain)]):
+        return simulate.finish_plain(grids, *args[6:])
+
+
+def plain_on_card(args):
+    """simulate_batch_plain on the card with the plain shift-adds for its
+    blur: the body's plain version throughout."""
+    import mad_tpu_torch.ops.convolve as convolve
+    from mad_tpu_torch.kernels import conv1d
+    from mad_tpu_torch.ops import simulate
+    with plain_versions([(convolve, "conv1d_along",
+                          conv1d.conv1d_along_plain)]):
+        return simulate.simulate_batch_plain(*args)
+
+
+def peak_bytes(fn):
+    """Device memory fn() holds at its peak beyond what was allocated
+    before it, in bytes (its result freed)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def simulate_body_checks(sims, device):
+    """The simulation body at each recorded call (SIMULATE_CALLS):
+    _simulate_batch on the card bit for bit with plain_body, its time and
+    peak memory beside simulate_batch_plain's on the card; then, at the
+    models' call, the blur's divide (x) and max (z) passes and the
+    scale-and-clamp pass against their plain versions, timed with their
+    bounds. Returns the report entries blur_divide, blur_max and
+    simulate_scale."""
+    import torch
+    from mad_tpu_torch.kernels import conv1d, maxkey, scatter
+    from mad_tpu_torch.ops import simulate
+    out = {}
+    for label, args in zip(SIMULATE_CALLS, sims):
+        got = simulate._simulate_batch(*args)
+        check(same_bits(got, plain_body(args)),
+              f"simulation body {label}: differs from the plain body")
+        M, box = args[1].shape[0], tuple(args[3])
+        del got
+        ms = cuda_ms(lambda: simulate._simulate_batch(*args))
+        plain = cuda_ms(lambda: plain_on_card(args))
+        peak = peak_bytes(lambda: simulate._simulate_batch(*args))
+        peak_plain = peak_bytes(lambda: plain_on_card(args))
+        say(f"  simulation body {label}: {M} x {args[1].shape[1]} atoms into "
+            f"{box}, taps {len(args[6])}, isovalue {args[7]:g}; bit for bit "
+            f"with the plain body (scatter on the CPU); kernels {ms:.4f} ms, "
+            f"plain body on the card {plain:.4f} ms; peak "
+            f"{peak / 2**20:.1f} MiB (plain {peak_plain / 2**20:.1f} MiB)")
+    # the models' call: each new pass at its inputs there
+    coords, masses, vox_min, box, margin, voxsp, taps, iso = sims[-1]
+    M = masses.shape[0]
+    gmax = maxkey.new_keys(M, device)
+    grids = scatter.scatter_atoms(coords, masses, vox_min, box, margin, voxsp,
+                                  max_into=gmax)
+    div = maxkey.divisors(gmax).view(-1, 1, 1, 1)
+    x_in = grids
+    x = conv1d.conv1d_along(grids, taps, 0, "full", divide_by=gmax)
+    check(same_bits(x, conv1d.conv1d_along_plain(grids / div, taps, 0,
+                                                 "full")),
+          "the blur's divide pass differs from its plain version")
+    k = int(np.count_nonzero(taps))
+    out["blur_divide"] = measure(
+        0.0, lambda: conv1d.conv1d_along(x_in, taps, 0, "full",
+                                         divide_by=gmax),
+        lambda: conv1d.conv1d_along_plain(x_in / div, taps, 0, "full"),
+        4 * (x_in.numel() + x.numel()) + 4 * M,
+        x_in.numel() + 2 * k * x.numel())
+    y = conv1d.conv1d_along(x, taps, 1, "full")
+    del x, grids
+    dmax = maxkey.new_keys(M, device)
+    z = conv1d.conv1d_along(y, taps, 2, "full", max_into=dmax)
+    zp = conv1d.conv1d_along_plain(y, taps, 2, "full")
+    check(same_bits(z, zp) and torch.equal(
+        maxkey.values(dmax), zp.amax(dim=(1, 2, 3))),
+        "the blur's max pass differs from its plain version")
+    del zp
+
+    def z_kernel():
+        keys = maxkey.new_keys(M, device)
+        return conv1d.conv1d_along(y, taps, 2, "full", max_into=keys)
+    out["blur_max"] = measure(
+        0.0, z_kernel,
+        lambda: conv1d.conv1d_along_plain(y, taps, 2, "full").amax(
+            dim=(1, 2, 3)),
+        4 * (y.numel() + z.numel()) + 4 * M, 2 * k * z.numel() + z.numel())
+    del y
+    want = scatter.scale_clamp_plain(z, dmax, iso)
+    got = scatter.scale_clamp(z.clone(), dmax, iso)
+    check(same_bits(got, want),
+          "the scale-and-clamp pass differs from its plain version")
+    del got, want
+
+    def torch_ops():
+        d = z / torch.clamp(z.amax(dim=(1, 2, 3), keepdim=True), min=1e-30)
+        return torch.where(d < iso, torch.zeros_like(d), d) if iso else d
+    work = z.clone()
+    out["simulate_scale"] = measure(
+        0.0, lambda: scatter.scale_clamp(work, dmax, iso),
+        lambda: scatter.scale_clamp_plain(z, dmax, iso),
+        8 * z.numel() + 4 * M, 2 * z.numel(), torch_ops)
+    say(f"  the models' blur ({tuple(z.shape)}): divide pass, max pass and "
+        "scale-and-clamp bit for bit with their plain versions")
     return out
 
 
@@ -1334,12 +1466,14 @@ def scatter_index_put(*args):
 def assembly_kernel_checks(fit, cfg, device):
     """K9 on the bench map, the subunit, the solutions' and the models'
     batches, K18, K19 at the shapes of the fit's assembly step and K20 at
-    16^5; K9 bit for bit with its plain version run on the CPU and
-    K9_REPEATS launches equal, the others equal."""
+    16^5; K9 bit for bit with its plain version run on the CPU,
+    K9_REPEATS launches equal and its maxima equal to amax's, the others
+    equal."""
     import torch
     from mad_tpu_torch.engine import assemble as asm
     from mad_tpu_torch.kernels import enumerate as k_enum
-    from mad_tpu_torch.kernels import hetero, overlap, scatter, symmetrize
+    from mad_tpu_torch.kernels import hetero, maxkey, overlap, scatter
+    from mad_tpu_torch.ops import simulate
     from mad_tpu_torch.ops.simulate import scatter_args, simulate_density
     from mad_tpu_torch.testing import recording
 
@@ -1352,18 +1486,19 @@ def assembly_kernel_checks(fit, cfg, device):
                              for m in a["models"]])
     sb, sm = asm.atom_batch([[s] for s in structures])
     # the map's and the subunit's scatters, as run_fit simulates them
-    with recording(scatter, "scatter_atoms") as sims:
+    with recording(simulate, "_simulate_batch") as sims:
         simulate_density(np.concatenate([c.coords for c in fit["copies"]]),
                          RES, VOXSP, device, masses=np.concatenate(
                              [c.masses for c in fit["copies"]]))
         simulate_density(fit["moved"], RES, fit["dmap"].voxsp, device,
                          shape_bucket=cfg.shape_bucket)
-    cases = [("map", sims[0]), ("subunit", sims[1]),
+    cases = [("map", sims[0][:6]), ("subunit", sims[1][:6]),
              ("solutions", scatter_args(sb, sm, cfg.assembly.sim_voxsp,
                                         device)),
              ("models", scatter_args(cb, mb, fit["dmap"].voxsp, device))]
     for label, args in cases:
-        g1 = scatter.scatter_atoms(*args)
+        keys = maxkey.new_keys(args[1].shape[0], device)
+        g1 = scatter.scatter_atoms(*args, max_into=keys)
         again = [scatter.scatter_atoms(*args)
                  for _ in range(K9_REPEATS - 1)]
         cpu = [x.cpu() if torch.is_tensor(x) else x for x in args]
@@ -1371,7 +1506,11 @@ def assembly_kernel_checks(fit, cfg, device):
               f"K9 {label}: differs from the plain version on the CPU")
         check(all(same_bits(g1, g) for g in again),
               f"K9 {label}: {K9_REPEATS} launches differ")
+        check(torch.equal(maxkey.values(keys), g1.amax(dim=(1, 2, 3))),
+              f"K9 {label}: its maxima differ from amax's")
         del again, cpu
+        put = scatter_index_put(*args)
+        put_same = same_bits(put().view(g1.shape), g1)
         # Work: each atom read (16 B) and the grids written once.
         c = args[0]
         n_atoms = c.shape[0] * c.shape[1]
@@ -1379,15 +1518,18 @@ def assembly_kernel_checks(fit, cfg, device):
                       lambda: scatter.scatter_atoms_plain(*args),
                       n_atoms * 16 + g1.numel() * 4, n_atoms * (6 + 8 * 5),
                       scatter_index_add(*args))
-        put_ms = cuda_ms(scatter_index_put(*args))
+        put_ms = cuda_ms(put)
+        del put
         say(f"  K9 {label}: {c.shape[0]} x {c.shape[1]} atoms into "
             f"{tuple(g1.shape[1:])}, equal to the plain version on the CPU "
             f"bit for bit, {K9_REPEATS} launches equal; kernel "
             f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
             f"index_add_ {res['library_ms']:.3f} ms, index_put_ "
-            f"(accumulate) {put_ms:.3f} ms, bound {res['bound_ms']:.4f} ms")
-        if label == "models":
-            out["scatter_atoms"] = res
+            f"(accumulate) {put_ms:.3f} ms (its grid "
+            + ("bit-equal to K9's" if put_same else "differs from K9's")
+            + f"), bound {res['bound_ms']:.4f} ms")
+        out["scatter_atoms" if label == "models"
+            else f"scatter_atoms_{label}"] = res
         del g1
 
     dens, off, frame = asm.overlap_inputs(structures, cfg.assembly, device)
@@ -1406,42 +1548,46 @@ def assembly_kernel_checks(fit, cfg, device):
     say(f"  K18: {n} solutions, boxes {tuple(dens.shape[1:])}, frame "
         f"{frame}")
 
+    # K19 and K20 read K18's upper-triangular overlap and symmetrize it
+    # as they stage it (once K20b's launch); their plain versions stage it
+    # with sym_trim_plain.
     k = min(N_COPIES, n)
-    sym = symmetrize.sym_trim_plain(torch.as_tensor(
-        a["overlap"], dtype=torch.float32, device=device), n)
+    ov = torch.as_tensor(a["overlap"], dtype=torch.float32, device=device)
     tab = torch.as_tensor(k_enum.comb_table(n, k), device=device)
-    e1 = k_enum.enumerate_head(sym, tab, 256)
-    e2 = k_enum.enumerate_head_plain(sym, tab, 256)
+    e1 = k_enum.enumerate_head(ov, tab, 256)
+    e2 = k_enum.enumerate_head_plain(ov, tab, 256)
     check(torch.equal(e1, e2), "K19 head differs from the plain version")
-    # Work per rank: a k-step decode and the max over k(k-1)/2 pairs.
+    # Work: the overlap's (n, n) block read once and one add an element;
+    # per rank a k-step decode and the max over k(k-1)/2 pairs.
     ranks = math.comb(n, k)
     out["enumerate_head"] = measure(
         float(np.abs(k_enum.split_keys(e1)[1]
                      - k_enum.split_keys(e2)[1]).max()),
-        lambda: k_enum.enumerate_head(sym, tab, 256),
-        lambda: k_enum.enumerate_head_plain(sym, tab, 256),
-        sym.numel() * 4 + tab.numel() * tab.element_size() + 256 * 8,
-        ranks * (2 * k + k * (k - 1) // 2))
-    say(f"  K19: C({n}, {k}) ranks, head {len(e1)}")
+        lambda: k_enum.enumerate_head(ov, tab, 256),
+        lambda: k_enum.enumerate_head_plain(ov, tab, 256),
+        n * n * 4 + tab.numel() * tab.element_size() + 256 * 8,
+        n * n + ranks * (2 * k + k * (k - 1) // 2))
+    say(f"  K19: C({n}, {k}) ranks from K18's ({n}, {n}) overlap, head "
+        f"{len(e1)}")
 
     ov, groups = hetero_problem()
-    sym = symmetrize.sym_trim_plain(torch.as_tensor(
-        ov, dtype=torch.float32, device=device), ov.shape[0])
+    ov = torch.as_tensor(ov, dtype=torch.float32, device=device)
     lists = torch.as_tensor(np.asarray(list(groups.values())),
                             dtype=torch.int32, device=device)
     sizes = [len(g) for g in groups.values()]
-    h1 = hetero.hetero_head(sym, lists, sizes, 256)
-    h2 = hetero.hetero_head_plain(sym, lists, sizes, 256)
+    h1 = hetero.hetero_head(ov, lists, sizes, 256)
+    h2 = hetero.hetero_head_plain(ov, lists, sizes, 256)
     check(torch.equal(h1, h2), "K20 head differs from the plain version")
-    # Work per tuple: a g-digit mixed-radix decode and g(g-1)/2 adds.
+    # Work: the overlap read once and one add an element; per tuple a
+    # g-digit mixed-radix decode and g(g-1)/2 adds.
     n_g, tuples = len(sizes), int(np.prod(sizes))
     out["hetero_head"] = measure(
         float(np.abs(k_enum.split_keys(h1)[1]
                      - k_enum.split_keys(h2)[1]).max()),
-        lambda: hetero.hetero_head(sym, lists, sizes, 256),
-        lambda: hetero.hetero_head_plain(sym, lists, sizes, 256),
-        sym.numel() * 4 + lists.numel() * 4 + 256 * 8,
-        tuples * (2 * n_g + n_g * (n_g - 1) // 2))
+        lambda: hetero.hetero_head(ov, lists, sizes, 256),
+        lambda: hetero.hetero_head_plain(ov, lists, sizes, 256),
+        ov.numel() * 4 + lists.numel() * 4 + 256 * 8,
+        ov.numel() + tuples * (2 * n_g + n_g * (n_g - 1) // 2))
     say(f"  K20: {tuples} tuples over {ov.shape[0]} solutions, head "
         f"{len(h1)}")
     return out
@@ -1548,9 +1694,9 @@ def session_phase(device, cfg, fit, root):
 
 def hetero_phase(device):
     """enumerate_heteromer on hetero_problem(), its counters reset just
-    before (K20 and K20b must launch); the same call with the plain
-    versions swapped in must give the same tuples. Returns K20's launch
-    count."""
+    before (K20 must launch: it stages the overlap itself); the same call
+    with the plain versions swapped in must give the same tuples. Returns
+    K20's launch count."""
     import torch
     from mad_tpu_torch.engine import assemble as asm
     from mad_tpu_torch.kernels import launch_counts, reset_launches
@@ -1562,8 +1708,6 @@ def hetero_phase(device):
     dt = time.perf_counter() - t0
     count = launch_counts()["hetero_head"]
     check(count >= 1, "K20 never launched in the heteromer ranking")
-    check(launch_counts()["sym_trim"] >= 1,
-          "K20b never launched in the heteromer ranking")
     with plain_versions(assembly_swaps()):
         t0 = time.perf_counter()
         ref = asm.enumerate_heteromer(groups, ov, device=device)

@@ -17,6 +17,27 @@ __device__ __forceinline__ float add_rn(float a, float b) {
   return __fadd_rn(a, b);
 }
 
+// An order key of a float for an order-free max: an unsigned integer
+// that orders as the floats do (-0.0 below +0.0), every NaN above all
+// (torch.amax propagates NaN). atomicMax on keys merges a max in any
+// order; key 0 is below every float (no value yet).
+__device__ __forceinline__ unsigned mad_max_key(float v) {
+  const unsigned b = __float_as_uint(v);
+  if (isnan(v)) return 0xffffffffu;
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+// The float of a key (a NaN key gives the quiet NaN torch.amax returns).
+__device__ __forceinline__ float mad_key_value(unsigned k) {
+  if (k == 0xffffffffu) return __uint_as_float(0x7fc00000u);
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+// The simulation's divisor max(m, 1e-30) of a max key, as torch.clamp(m,
+// min=1e-30) gives it (a NaN stays NaN).
+__device__ __forceinline__ float mad_norm_divisor(unsigned k) {
+  const float m = mad_key_value(k);
+  return isnan(m) ? m : fmaxf(m, 1e-30f);
+}
+
 // float32 of 2*pi, as the JAX and PyTorch code adds it to atan2 angles.
 #define MAD_TWO_PI_F 6.28318530717958647692f
 

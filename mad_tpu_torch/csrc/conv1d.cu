@@ -16,7 +16,19 @@
 // -0.0, which leaves its first term as it is, as the plain version's does.
 //
 // Entries:
-//   * mad_conv1d: one kernel along one axis (mode kSingle);
+//   * mad_conv1d: one kernel along one axis (mode kSingle), and its form
+//     with the epilogues of the simulation's 'full' blur of a batch of
+//     structures (mode kSingleEpi; ops/simulate.py, mad_tpu/ops/
+//     simulate.py:103-105): div_keys divides each in-range input by
+//     max(m_s, 1e-30), m_s its structure's max (an order key,
+//     common.cuh), with an IEEE division in shared memory once the tile
+//     has landed (the bits of dividing the volume first; the padding
+//     stays +0, as when the plain version pads the divided volume);
+//     max_keys merges the max of the outputs written into their
+//     structure's key with an order-free atomicMax (a warp reduction,
+//     then an atomic where it raises the key). A structure is outer_per_s
+//     consecutive outer rows. Without either pointer mad_conv1d runs
+//     kSingle, which has no epilogue code;
 //   * mad_log_pass: the LoG of ops/convolve.py's log_filter3d in three
 //     passes over its nine convolutions (g0, g2: order 0 and 2 taps):
 //       x: ax = g0(vol), bx = g2(vol);
@@ -60,7 +72,7 @@ constexpr int kRows = 8;           // thread rows of a strided tile
 constexpr int kTileA = kR * kRows; // outputs along the axis, strided tile
 constexpr int kMaxContig = 256;    // threads of a contiguous-axis tile
 
-enum { kSingle = 0, kLogX = 1, kLogY = 2, kLogZ = 3 };
+enum { kSingle = 0, kLogX = 1, kLogY = 2, kLogZ = 3, kSingleEpi = 4 };
 
 struct Taps {
   float init;                      // -0.0, or +0.0 when every tap is 0
@@ -74,6 +86,10 @@ struct Pass {
   float s2;                        // sigma^2 of the LoG epilogue
   int ksz, n, inner, out_n, lo;
   long long outer;
+  // kSingleEpi's epilogues (either may be null)
+  const unsigned* div_keys;        // divide inputs by their structure's max
+  unsigned* max_keys;              // merge the outputs' max per structure
+  long long outer_per_s;           // outer rows a structure
   // tiling: strided (a_tiles x q_tiles a row of outer, ta outputs a tile)
   // or contiguous (rows rows of seg outputs a tile, segs tiles along a row,
   // tpr threads a row)
@@ -85,11 +101,14 @@ struct Pass {
 
 // The convolutions of a pass: conv c reads input conv_in, with tap set
 // conv_tap (0 = g0, 1 = g2).
+__host__ __device__ constexpr bool single(int mode) {
+  return mode == kSingle || mode == kSingleEpi;
+}
 __host__ __device__ constexpr int n_in(int mode) {
   return mode == kLogY ? 2 : (mode == kLogZ ? 3 : 1);
 }
 __host__ __device__ constexpr int n_conv(int mode) {
-  return mode == kSingle ? 1 : (mode == kLogX ? 2 : (mode == kLogY ? 3 : 4));
+  return single(mode) ? 1 : (mode == kLogX ? 2 : (mode == kLogY ? 3 : 4));
 }
 __host__ __device__ constexpr int n_out(int mode) {
   return mode == kLogZ ? 2 : n_conv(mode);
@@ -99,7 +118,7 @@ __host__ __device__ constexpr int conv_in(int mode, int c) {
                        : (mode == kLogZ ? (c <= 1 ? 0 : c - 1) : 0);
 }
 __host__ __device__ constexpr int conv_tap(int mode, int c) {
-  return (mode != kSingle && c == 1) ? 1 : 0;
+  return (!single(mode) && c == 1) ? 1 : 0;
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
@@ -113,6 +132,32 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// kSingleEpi's divide: the divisor of outer row o's inputs, and one
+// input divided by a divisor that is not NaN (a zero divided by a positive
+// divisor is itself, with its sign, so zeros skip the division, whose zero
+// dividend takes its slow path; so does the staged padding, which stays
+// +0).
+__device__ __forceinline__ float row_divisor(const Pass& p, long long o) {
+  return mad_norm_divisor(p.div_keys[o / p.outer_per_s]);
+}
+__device__ __forceinline__ float divided(float v, float d) {
+  return v == 0.0f && !isnan(d) ? v : __fdiv_rn(v, d);
+}
+
+// kSingleEpi's max: merge this thread's max key k (0: it stored none) of
+// outputs in outer row o into its structure's key: a warp whose lanes
+// share a structure reduces first, and an atomic goes out only where it
+// raises the key (no barrier, no shared memory).
+__device__ __forceinline__ void merge_max(const Pass& p, long long o,
+                                          unsigned k) {
+  const long long s = o / p.outer_per_s;
+  if (__all_sync(0xffffffffu, s == __shfl_sync(0xffffffffu, s, 0))) {
+    k = __reduce_max_sync(0xffffffffu, k);
+    if ((threadIdx.x & 31) != 0) return;
+  }
+  if (k != 0 && k > p.max_keys[s]) atomicMax(p.max_keys + s, k);
 }
 
 // Sum the pass's convolutions of one input window into acc. win(j) is the
@@ -209,21 +254,65 @@ __global__ void __launch_bounds__(kQ * kRows) conv_strided(
   const long long t = blockIdx.x;
   strided_load<MODE>(p, t, smem);
   cp_async_wait_all();
-  __syncthreads();
   const int qt = static_cast<int>(t % p.q_tiles);
   const long long rest = t / p.q_tiles;
   const int at = static_cast<int>(rest % p.a_tiles);
   const long long o = rest / p.a_tiles;
+  // kSingleEpi's divide: as the window is read (the padding is +0, which
+  // divided() keeps), or, for a NaN divisor, of the in-range inputs in
+  // place first (the padding then stays +0 while the inputs become NaN)
+  float d = 1.0f;
+  bool divide_on_read = false;
+  if constexpr (MODE == kSingleEpi) {
+    if (p.div_keys != nullptr) {
+      d = row_divisor(p, o);
+      divide_on_read = !isnan(d);
+      if (!divide_on_read) {
+        // the thread's own copies have landed
+        const int rows = p.ta + p.ksz - 1;
+        for (int idx = threadIdx.x; idx < rows * kQ; idx += blockDim.x) {
+          const int src = at * p.ta - p.lo + idx / kQ;
+          const int q = qt * kQ + idx % kQ;
+          if (src >= 0 && src < p.n && q < p.inner)
+            smem[idx] = __fdiv_rn(smem[idx], d);
+        }
+      }
+    }
+  }
+  __syncthreads();
   const int q = qt * kQ + tx;
   float acc[4][kR];
   init_acc<MODE>(p, acc);
 #pragma unroll
   for (int i = 0; i < n_in(MODE); ++i) {
     const float* col = smem + i * p.buf_floats + ty * kR * kQ + tx;
-    auto win = [col](int j) { return col[j * kQ]; };
-    if (i == 0) convolve_input<MODE, KSZ, 0>(p, win, acc);
-    if (i == 1) convolve_input<MODE, KSZ, 1>(p, win, acc);
-    if (i == 2) convolve_input<MODE, KSZ, 2>(p, win, acc);
+    if constexpr (MODE == kSingleEpi) {
+      auto win = [col, d, divide_on_read](int j) {
+        const float v = col[j * kQ];
+        return divide_on_read ? divided(v, d) : v;
+      };
+      convolve_input<MODE, KSZ, 0>(p, win, acc);
+    } else {
+      auto win = [col](int j) { return col[j * kQ]; };
+      if (i == 0) convolve_input<MODE, KSZ, 0>(p, win, acc);
+      if (i == 1) convolve_input<MODE, KSZ, 1>(p, win, acc);
+      if (i == 2) convolve_input<MODE, KSZ, 2>(p, win, acc);
+    }
+  }
+  if constexpr (MODE == kSingleEpi) {
+    unsigned kmax = 0;
+    if (q < p.inner) {
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int a = ty * kR + r, i = at * p.ta + a;
+        if (a >= p.ta || i >= p.out_n) break;
+        p.out[0][(o * p.out_n + i) * static_cast<long long>(p.inner) + q] =
+            acc[0][r];
+        if (p.max_keys != nullptr) kmax = max(kmax, mad_max_key(acc[0][r]));
+      }
+    }
+    if (p.max_keys != nullptr) merge_max(p, o, kmax);
+    return;
   }
   if (q >= p.inner) return;
 #pragma unroll
@@ -272,7 +361,24 @@ __global__ void __launch_bounds__(kMaxContig) conv_contig(
   const long long t = blockIdx.x;
   contig_load<MODE>(p, t, smem);
   cp_async_wait_all();
+  if constexpr (MODE == kSingleEpi) {
+    // the thread's own copies have landed: divide them in place
+    if (p.div_keys != nullptr) {
+      const long long o0 = t / p.segs * p.rows;
+      const int s0 = static_cast<int>(t % p.segs) * p.seg;
+      const int len = p.tpr * kR + p.ksz - 1;
+      for (int r = 0; r < p.rows && o0 + r < p.outer; ++r) {
+        const float d = row_divisor(p, o0 + r);
+        for (int j = threadIdx.x; j < len; j += blockDim.x) {
+          const int src = s0 - p.lo + j;
+          float& v = smem[r * p.buf_floats + j];
+          if (src >= 0 && src < p.n) v = divided(v, d);
+        }
+      }
+    }
+  }
   __syncthreads();
+  unsigned kmax = 0;
   if (row < p.rows) {
     float acc[4][kR];
     init_acc<MODE>(p, acc);
@@ -303,6 +409,16 @@ __global__ void __launch_bounds__(kMaxContig) conv_contig(
         if (i == 2) convolve_input<MODE, KSZ, 2>(p, win, acc);
       }
     }
+    if constexpr (MODE == kSingleEpi) {
+      // the max of the outputs this thread holds that are stored
+      const long long o = t / p.segs * p.rows + row;
+      const int len = min(p.seg, p.out_n - static_cast<int>(t % p.segs)
+                                             * p.seg);
+      if (p.max_keys != nullptr && o < p.outer)
+#pragma unroll
+        for (int r = 0; r < kR; ++r)
+          if (lane * kR + r < len) kmax = max(kmax, mad_max_key(acc[0][r]));
+    }
 #pragma unroll
     for (int k = 0; k < n_out(MODE); ++k) {
       float4* dst = reinterpret_cast<float4*>(
@@ -327,6 +443,9 @@ __global__ void __launch_bounds__(kMaxContig) conv_contig(
             staged[(k * p.rows + r) * cap + j];
     }
   }
+  if constexpr (MODE == kSingleEpi)
+    if (p.max_keys != nullptr)
+      merge_max(p, min(o0 + row, p.outer - 1), kmax);
 }
 
 // ---- launch ----------------------------------------------------------------
@@ -392,13 +511,13 @@ template <int MODE>
 cudaError_t launch_taps(Pass& p, cudaStream_t stream) {
   switch (p.ksz) {
     case 17: return launch_mode<MODE, 17>(p, stream);
-    case 11: if constexpr (MODE == kSingle)
+    case 11: if constexpr (single(MODE))
                return launch_mode<MODE, 11>(p, stream);
              break;
-    case 9: if constexpr (MODE == kSingle)
+    case 9: if constexpr (single(MODE))
               return launch_mode<MODE, 9>(p, stream);
             break;
-    case 5: if constexpr (MODE == kSingle)
+    case 5: if constexpr (single(MODE))
               return launch_mode<MODE, 5>(p, stream);
             break;
     default: break;
@@ -418,10 +537,15 @@ void set_taps(Taps& t, const float* k, int ksz) {
 }  // namespace
 
 // taps: host array of ksz float32 (copied into the kernel's parameters).
+// div_keys, max_keys: null, or one uint32 order key per structure of
+// outer_per_s outer rows (kSingleEpi's epilogues).
 MAD_EXPORT int mad_conv1d(const float* in, float* out, const float* taps,
                           int ksz, long long outer, int n, int inner,
-                          int out_n, int lo, cudaStream_t stream) {
-  if (ksz < 1 || ksz > kMaxTaps || outer < 1 || n < 1 || inner < 1)
+                          int out_n, int lo, const unsigned* div_keys,
+                          unsigned* max_keys, long long outer_per_s,
+                          cudaStream_t stream) {
+  if (ksz < 1 || ksz > kMaxTaps || outer < 1 || n < 1 || inner < 1
+      || outer_per_s < 1 || outer % outer_per_s != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Pass p{};
   p.in[0] = in;
@@ -433,7 +557,12 @@ MAD_EXPORT int mad_conv1d(const float* in, float* out, const float* taps,
   p.out_n = out_n;
   p.lo = lo;
   p.outer = outer;
-  return static_cast<int>(launch_taps<kSingle>(p, stream));
+  p.div_keys = div_keys;
+  p.max_keys = max_keys;
+  p.outer_per_s = outer_per_s;
+  if (div_keys == nullptr && max_keys == nullptr)
+    return static_cast<int>(launch_taps<kSingle>(p, stream));
+  return static_cast<int>(launch_taps<kSingleEpi>(p, stream));
 }
 
 // One pass of the fused LoG of an (X, Y, Z) volume, 'same' mode: pass 0

@@ -6,7 +6,7 @@ Replaces MaD.build_assembly / _build_from_single / _build_models
   * per solution, a low-resolution occupancy grid (5 A / 2 A voxels /
     isovalue 0.2), all solutions in one batched simulation (K9 scatter);
   * pairwise overlap fractions in a common lattice frame (K18), kept on
-    the device and symmetrized there for the heads (K20b);
+    the device and symmetrized by the heads as they stage it;
   * homomultimers: the C(n_solutions, n_copies) tuples ranked by max pair
     overlap, the head on the device (K19) when the count is large;
   * heteromers: the cartesian product of per-subunit lists ranked by summed
@@ -39,7 +39,6 @@ from ..device import resolve
 from ..kernels import enumerate as k_enum
 from ..kernels import hetero as k_hetero
 from ..kernels import overlap as k_overlap
-from ..kernels import symmetrize as k_sym
 from ..ops.simulate import batched_simulate
 from .score import ccc_structures
 
@@ -117,7 +116,7 @@ def overlap_inputs(structures: Sequence[Structure], cfg: AssemblyConfig,
 def device_overlap(structures: Sequence[Structure], cfg: AssemblyConfig,
                    device) -> torch.Tensor:
     """K18's float32 upper-triangular (n, n) overlap matrix of a solution
-    set, left on ``device`` (the input of K20b): one batched simulation
+    set, left on ``device`` (the heads' input): one batched simulation
     (K9), then K18 on the boxes placed in a common frame."""
     n = len(structures)
     if n < 2:
@@ -207,13 +206,14 @@ def _unrank_combination(r: int, n: int, k: int) -> list:
 _ENUM_NMAX = 64     # solution frame of the device unranking (uint64 masks)
 
 
-def _sym_trim(overlap: np.ndarray, overlap_dev, t: int, device):
-    """ov + ov^T of the first t solutions as float32 on ``device`` (K20b),
-    from the device overlap when the caller kept it there."""
+def _device_overlap(overlap: np.ndarray, overlap_dev, device):
+    """The float32 overlap on ``device`` for the heads, which symmetrize
+    it as they stage it: the device overlap when the caller kept it
+    there."""
     if overlap_dev is None:
         overlap_dev = torch.as_tensor(np.asarray(overlap, dtype=np.float32),
                                       device=device)
-    return k_sym.sym_trim(overlap_dev, t)
+    return overlap_dev
 
 
 def enumerate_homomultimer(n_solutions: int, n_copies: int,
@@ -265,7 +265,7 @@ def enumerate_homomultimer(n_solutions: int, n_copies: int,
     tab = torch.as_tensor(k_enum.comb_table(n_solutions, n_copies),
                           device=device)
     keys = k_enum.enumerate_head(
-        _sym_trim(overlap, overlap_dev, n_solutions, device), tab, head)
+        _device_overlap(overlap, overlap_dev, device), tab, head)
     keep, _mx = k_enum.split_keys(keys)
     top = np.asarray([_unrank_combination(int(r), n_solutions, n_copies)
                       for r in keep], dtype=np.int32)
@@ -337,7 +337,7 @@ def enumerate_heteromer(groups: Dict[str, List[int]], overlap: np.ndarray,
     for g, lv in enumerate(lists):
         lists_p[g, : len(lv)] = lv
     keys = k_hetero.hetero_head(
-        _sym_trim(overlap, overlap_dev, overlap.shape[0], device),
+        _device_overlap(overlap, overlap_dev, device),
         torch.as_tensor(lists_p, device=device), sizes, head)
     ridx, _sums = k_enum.split_keys(keys)
     # decode head tuples on host (mixed radix), re-score for [sum, std, max]

@@ -10,8 +10,7 @@ sources are in ``mad_tpu_torch/csrc`` and build on first use
 
 from . import (approx, ccc, cluster, conv1d, describe, enumerate, field,
                gather_norm, gradient, hetero, localize, orient, overlap,
-               pairs, peaks, post, refine, repeat, scatter, symmetrize,
-               upsample)
+               pairs, peaks, post, refine, repeat, scatter, upsample)
 
 # name -> (wrapper module, CUDA source, the mad_tpu body it replaces), in
 # the order of the bodies' K numbers (ROADMAP Queue 2)
@@ -36,6 +35,12 @@ KERNELS = {
                     "mad_tpu/engine/pipeline.py:229"),
     "scatter_atoms": (scatter, "mad_tpu_torch/csrc/scatter.cu",
                       "mad_tpu/ops/simulate.py:78"),
+    "blur_divide": (conv1d, "mad_tpu_torch/csrc/conv1d.cu",
+                    "mad_tpu/ops/simulate.py:103"),
+    "blur_max": (conv1d, "mad_tpu_torch/csrc/conv1d.cu",
+                 "mad_tpu/ops/simulate.py:105"),
+    "simulate_scale": (scatter, "mad_tpu_torch/csrc/scatter.cu",
+                       "mad_tpu/ops/simulate.py:105"),
     "pair_head": (pairs, "mad_tpu_torch/csrc/pairs.cu",
                   "mad_tpu/engine/match.py:74"),
     "pair_merge": (pairs, "mad_tpu_torch/csrc/pairs.cu",
@@ -68,15 +73,17 @@ KERNELS = {
                        "mad_tpu/engine/assemble.py:338"),
     "hetero_head": (hetero, "mad_tpu_torch/csrc/enumerate.cu",
                     "mad_tpu/engine/assemble.py:500"),
-    "sym_trim": (symmetrize, "mad_tpu_torch/csrc/symmetrize.cu",
-                 "mad_tpu/engine/assemble.py:316"),
 }
 
 
 # the counter of each entry of a module with several (default "launches"):
-# K1's fused LoG passes, K10's merge of the shards' heads, K16's lane,
-# eligibility and compaction stages ("post" counts its dedup)
-COUNTERS = {"log_gauss": "log_launches", "pair_merge": "merge_launches",
+# K1's fused LoG passes and its blur epilogues (launches of the single-axis
+# entry, which "conv1d" counts as well), K9's scale-and-clamp pass, K10's
+# merge of the shards' heads, K16's lane, eligibility and compaction stages
+# ("post" counts its dedup)
+COUNTERS = {"log_gauss": "log_launches", "blur_divide": "divide_launches",
+            "blur_max": "max_launches", "simulate_scale": "scale_launches",
+            "pair_merge": "merge_launches",
             "post_lanes": "lane_launches",
             "post_points": "point_launches", "post_rows": "row_launches",
             "post_compact": "compact_launches"}

@@ -41,7 +41,7 @@ _L = ctypes.c_longlong
 
 # C signatures of the exported launchers (csrc/*.cu, extern "C").
 SIGNATURES = {
-    "mad_conv1d": [_P, _P, _P, _I, _L, _I, _I, _I, _I, _P],
+    "mad_conv1d": [_P, _P, _P, _I, _L, _I, _I, _I, _I, _P, _P, _L, _P],
     "mad_log_pass": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                      _P],
     "mad_peak_mask_compact": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -51,12 +51,13 @@ SIGNATURES = {
                             _F, _F, _P, _P, _P],
     "mad_exact_repeat": [_P, _I, _P, _I, _P, _P, _P, _I, _F, _P, _P],
     "mad_scatter_atoms": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
-                          _P, _P, _P, _P],
+                          _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
+    "mad_simulate_scale": [_P, _I, _L, _P, _F, _I, _P],
     "mad_pack_overlap": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                          _P],
-    "mad_enumerate_head": [_P, _P, _I, _I, _L, _I, _I, _I, _P, _P, _P],
-    "mad_hetero_head": [_P, _I, _I, _P, _I, _P, _I, _L, _I, _I, _I, _P, _P,
-                        _P],
+    "mad_enumerate_head": [_P, _I, _P, _I, _I, _L, _I, _I, _I, _P, _P, _P],
+    "mad_hetero_head": [_P, _I, _I, _I, _P, _I, _P, _I, _L, _I, _I, _I, _P,
+                        _P, _P],
     "mad_orient": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I,
                    _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _F,
                    _P, _P, _P, _P, _P],
@@ -84,7 +85,6 @@ SIGNATURES = {
     "mad_post_compact": [_P, _I, _I, _P, _P],
     "mad_batched_ccc": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P,
                         _P],
-    "mad_sym_trim": [_P, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -7,7 +7,11 @@ out):
 
 * :func:`conv1d_along` convolves a volume, or a batch of volumes with a
   leading batch axis, along one spatial axis; :func:`conv1d_along_plain`
-  is the plain PyTorch shift-add of the JAX original;
+  is the plain PyTorch shift-add of the JAX original. For the
+  simulation's 'full' blur of a batch (mad_tpu/ops/simulate.py:103-105)
+  it takes two optional epilogues, per structure (each leading slice):
+  ``divide_by`` divides the input by max(its max, 1e-30) as it is loaded,
+  ``max_into`` merges the output's max into order keys (:mod:`.maxkey`);
 * :func:`log_gauss` is the scale-normalized LoG and the Gaussian of one
   volume in three launches (x, y, z); :func:`log_gauss_plain` is the
   sequence of nine shift-adds and five torch ops that ``log_filter3d``
@@ -22,10 +26,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import build
+from . import build, maxkey
 
 launches = 0            # single-axis kernel launches since the last reset
 log_launches = 0        # fused LoG pass launches (three a volume)
+divide_launches = 0     # single-axis launches with the divide epilogue
+max_launches = 0        # single-axis launches with the max epilogue
 
 MAX_TAPS = 129          # taps the kernels take (their parameter block)
 
@@ -86,17 +92,33 @@ def _check_volume(name: str, vol: torch.Tensor, dims) -> None:
 
 
 def conv1d_along(vol: torch.Tensor, kernel: np.ndarray, axis: int,
-                 mode: str = "same") -> torch.Tensor:
+                 mode: str = "same", divide_by: torch.Tensor = None,
+                 max_into: torch.Tensor = None) -> torch.Tensor:
     """Convolve a 3D volume, or a (B, X, Y, Z) batch, with a 1D kernel
     along spatial axis ``axis`` ('same': zero padded, size kept; 'full':
-    grows by len(kernel) - 1)."""
+    grows by len(kernel) - 1). ``divide_by``, ``max_into``: (B,) int32
+    max keys (one for a 3D volume): the input divided by max(max, 1e-30)
+    per structure first; the output's max per structure merged in."""
+    B = vol.shape[0] if vol.dim() == 4 else 1
+    for keys in (divide_by, max_into):
+        if keys is not None and (keys.shape != (B,)
+                                 or keys.dtype != torch.int32):
+            raise ValueError(f"conv1d_along: max keys {tuple(keys.shape)} "
+                             f"{keys.dtype} for {B} structures")
     if vol.device.type == "cpu":
-        return conv1d_along_plain(vol, kernel, axis, mode)
-    global launches
+        if divide_by is not None:
+            vol = vol / maxkey.divisors(divide_by).view(
+                (-1,) + (1,) * (vol.dim() - 1))
+        out = conv1d_along_plain(vol, kernel, axis, mode)
+        if max_into is not None:
+            maxkey.merge_(max_into, out.reshape((B,) + out.shape[-3:]))
+        return out
+    global launches, divide_launches, max_launches
     k = _host_taps(kernel)
     _check_volume("conv1d_along", vol, (3, 4))
     vol = vol.contiguous()
-    build.require_cuda("conv1d_along", vol)
+    build.require_cuda("conv1d_along", vol, *[t for t in (divide_by, max_into)
+                                              if t is not None])
     dim = vol.dim() - 3 + axis
     n, lo, _hi, out_n = _geometry(vol.shape, dim, k.shape[0], mode)
     shape = list(vol.shape)
@@ -109,8 +131,11 @@ def conv1d_along(vol: torch.Tensor, kernel: np.ndarray, axis: int,
     build.launch(
         build.library().mad_conv1d, vol.device, vol.data_ptr(),
         out.data_ptr(), k.ctypes.data, k.shape[0], outer, n, inner, out_n,
-        lo)
+        lo, 0 if divide_by is None else divide_by.data_ptr(),
+        0 if max_into is None else max_into.data_ptr(), outer // B)
     launches += 1
+    divide_launches += divide_by is not None
+    max_launches += max_into is not None
     return out
 
 

@@ -1,6 +1,13 @@
 """K19: head of the C(n, k) homomultimer ranking by max pair overlap.
 
-Replaces mad_tpu/engine/assemble.py:336-402 (``_compiled_enumerate_head``).
+Replaces mad_tpu/engine/assemble.py:336-402 (``_compiled_enumerate_head``)
+and, folded into its staging, :316-333 (``_compiled_embed_sym``). The heads
+read K18's (n, n) upper-triangular overlap ``ov`` and symmetrize its first
+t rows and columns as they stage them: ``sym = ov[:t, :t] + ov[:t, :t].T``
+(one float32 add an element; one of each off-diagonal pair is 0, so it
+equals the float64 sum rounded). :func:`sym_trim_plain` is that staging in
+PyTorch, which the heads' plain versions call.
+
 The CUDA source ``csrc/enumerate.cu`` takes one rank per thread: it decodes
 the combination from the binomial table into a uint64 membership mask,
 takes the largest ``sym[a][b]`` over the tuple's pairs and keeps the
@@ -43,6 +50,20 @@ def comb_table(n: int, k: int) -> np.ndarray:
     return tab
 
 
+def check_overlap(name: str, ov: torch.Tensor, t: int) -> None:
+    """Raise unless ov is a square matrix of at least t rows, t >= 0."""
+    if ov.dim() != 2 or ov.shape[0] != ov.shape[1] or not 0 <= t <= len(ov):
+        raise ValueError(f"{name}: need a square overlap of at least {t} "
+                         f"rows, got {tuple(ov.shape)}")
+
+
+def sym_trim_plain(ov: torch.Tensor, t: int) -> torch.Tensor:
+    """(t, t) float32 ov[:t, :t] + ov[:t, :t]^T of an (n, n) overlap."""
+    check_overlap("sym_trim", ov, t)
+    block = ov[:t, :t].to(torch.float32)
+    return block + block.T
+
+
 def keys_of(scores: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
     """int64 keys (bits of max(score, 0)) << 32 | rank."""
     s = torch.where(scores > 0, scores, torch.zeros_like(scores))
@@ -83,9 +104,10 @@ def head_buffers(blocks: int, head: int, device):
     return partial, out
 
 
-def enumerate_head_plain(sym: torch.Tensor, tab: torch.Tensor, head: int,
+def enumerate_head_plain(ov: torch.Tensor, tab: torch.Tensor, head: int,
                          chunk: int = 1 << 14) -> torch.Tensor:
     n, k = tab.shape
+    sym = sym_trim_plain(ov, n)
     total = math.comb(n, k)
     dev = sym.device
     tab = tab.to(torch.int64)
@@ -107,27 +129,30 @@ def enumerate_head_plain(sym: torch.Tensor, tab: torch.Tensor, head: int,
     return best
 
 
-def enumerate_head(sym: torch.Tensor, tab: torch.Tensor,
+def enumerate_head(ov: torch.Tensor, tab: torch.Tensor,
                    head: int) -> torch.Tensor:
     """The ``head`` smallest keys (max pair overlap, rank) over the C(n, k)
-    ranks, ascending; sym (n, n) float32 symmetric, tab = comb_table(n, k)
-    as int32 on the same device, n <= 64."""
-    if sym.device.type == "cpu":
-        return enumerate_head_plain(sym, tab, head)
+    ranks, ascending; ov (n_ov, n_ov) float32 overlap, of which the first
+    n rows and columns give sym = ov + ov^T, tab = comb_table(n, k) as
+    int32 on the same device, n <= 64."""
+    if ov.device.type == "cpu":
+        return enumerate_head_plain(ov, tab, head)
     global launches
-    sym = sym.to(torch.float32).contiguous()
+    ov = ov.to(torch.float32).contiguous()
     tab = tab.to(torch.int32).contiguous()
-    build.require_cuda("enumerate_head", sym, tab)
+    build.require_cuda("enumerate_head", ov, tab)
     n, k = tab.shape
-    if sym.shape != (n, n) or n > 64 or k < 1:
-        raise ValueError(f"enumerate_head: bad shapes {tuple(sym.shape)}, "
-                         f"{tuple(tab.shape)} (n <= 64)")
+    check_overlap("enumerate_head", ov, n)
+    if n > 64 or k < 1:
+        raise ValueError(f"enumerate_head: bad table {tuple(tab.shape)} "
+                         "(n <= 64)")
     total = math.comb(n, k)
-    S, blocks = plan(total, head, 4 * n * (n + k), sym.device)
-    partial, out = head_buffers(blocks, head, sym.device)
+    S, blocks = plan(total, head, 4 * n * (n + k), ov.device)
+    partial, out = head_buffers(blocks, head, ov.device)
     lib = build.library()
     build.launch(
-        lib.mad_enumerate_head, sym.device, sym.data_ptr(), tab.data_ptr(), n,
-        k, total, head, S, blocks, partial.data_ptr(), out.data_ptr())
+        lib.mad_enumerate_head, ov.device, ov.data_ptr(), ov.shape[0],
+        tab.data_ptr(), n, k, total, head, S, blocks, partial.data_ptr(),
+        out.data_ptr())
     launches += 1
     return out[out != -1]

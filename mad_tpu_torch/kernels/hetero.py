@@ -6,10 +6,12 @@ per thread decodes in mixed radix, (r / stride_g) % size_g, on demand, so
 the group count has no compile-time bound; maps through the padded group
 lists; adds sym over the pairs i0 < i1 in ``itertools.combinations`` order,
 one f32 add at a time; and keeps the smallest ``head`` (sum, rank) keys
-as K19 does (:mod:`.enumerate`). ``sym`` sits in shared memory when it
-fits in 64 KB (up to 128 solutions) and is read from device memory
-otherwise. :func:`hetero_head_plain` is the plain PyTorch version: the
-chunked torch form of the JAX body, with the same sequential sum.
+as K19 does (:mod:`.enumerate`). It reads K18's overlap ``ov`` as K19
+does: ``sym = ov + ov^T`` is formed as it is staged in shared memory when
+it fits in 64 KB (up to 128 solutions), and at each read from device
+memory otherwise. :func:`hetero_head_plain` is the plain PyTorch version:
+``sym_trim_plain``, then the chunked torch form of the JAX body, with the
+same sequential sum.
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ from itertools import combinations
 import torch
 
 from . import build
-from .enumerate import (MAX_RANKS, head_buffers, keys_of, merge_head,
-                        plan)
+from .enumerate import (MAX_RANKS, check_overlap, head_buffers, keys_of,
+                        merge_head, plan, sym_trim_plain)
 
 launches = 0            # kernel launches since the last reset
 
@@ -38,8 +40,9 @@ def _radix(sizes):
     return sizes, strides[::-1], acc
 
 
-def hetero_head_plain(sym: torch.Tensor, lists: torch.Tensor, sizes,
+def hetero_head_plain(ov: torch.Tensor, lists: torch.Tensor, sizes,
                       head: int, chunk: int = 1 << 16) -> torch.Tensor:
+    sym = sym_trim_plain(ov, len(ov))
     sizes, strides, total = _radix(sizes)
     lists = lists.to(torch.int64)
     pairs = list(combinations(range(len(sizes)), 2))
@@ -55,34 +58,35 @@ def hetero_head_plain(sym: torch.Tensor, lists: torch.Tensor, sizes,
     return best
 
 
-def hetero_head(sym: torch.Tensor, lists: torch.Tensor, sizes,
+def hetero_head(ov: torch.Tensor, lists: torch.Tensor, sizes,
                 head: int) -> torch.Tensor:
     """The ``head`` smallest keys (summed pair overlap, rank) over the
-    prod(sizes) tuples, ascending. sym (nsol, nsol) float32 symmetric,
-    lists (G, max_n) int32 global solution indices per group (row g holds
-    sizes[g] valid entries), on one device."""
-    if sym.device.type == "cpu":
-        return hetero_head_plain(sym, lists, sizes, head)
+    prod(sizes) tuples, ascending. ov (nsol, nsol) float32 overlap (sym =
+    ov + ov^T), lists (G, max_n) int32 global solution indices per group
+    (row g holds sizes[g] valid entries), on one device."""
+    if ov.device.type == "cpu":
+        return hetero_head_plain(ov, lists, sizes, head)
     global launches
-    sym = sym.to(torch.float32).contiguous()
+    ov = ov.to(torch.float32).contiguous()
     lists = lists.to(torch.int32).contiguous()
-    build.require_cuda("hetero_head", sym, lists)
+    build.require_cuda("hetero_head", ov, lists)
+    check_overlap("hetero_head", ov, 0)
     sizes, strides, total = _radix(sizes)
     G, max_n = lists.shape
-    nsol = sym.shape[0]
-    if sym.shape != (nsol, nsol) or G != len(sizes) or max(sizes) > max_n:
-        raise ValueError(f"hetero_head: bad shapes {tuple(sym.shape)}, "
+    nsol = ov.shape[0]
+    if G != len(sizes) or max(sizes) > max_n:
+        raise ValueError(f"hetero_head: bad shapes {tuple(ov.shape)}, "
                          f"{tuple(lists.shape)}, sizes {sizes}")
     radix = torch.tensor(sizes + strides, dtype=torch.int32,
-                         device=sym.device)
+                         device=ov.device)
     in_smem = 4 * nsol * nsol <= SYM_SMEM
     S, blocks = plan(total, head, 8 * G + (4 * nsol * nsol if in_smem else 0),
-                     sym.device)
-    partial, out = head_buffers(blocks, head, sym.device)
+                     ov.device)
+    partial, out = head_buffers(blocks, head, ov.device)
     lib = build.library()
     build.launch(
-        lib.mad_hetero_head, sym.device, sym.data_ptr(), nsol, int(in_smem),
-        lists.data_ptr(), max_n, radix.data_ptr(), G, total, head, S, blocks,
-        partial.data_ptr(), out.data_ptr())
+        lib.mad_hetero_head, ov.device, ov.data_ptr(), nsol, nsol,
+        int(in_smem), lists.data_ptr(), max_n, radix.data_ptr(), G, total,
+        head, S, blocks, partial.data_ptr(), out.data_ptr())
     launches += 1
     return out[out != -1]

@@ -7,8 +7,13 @@ Replaces PDB.structure_to_density (mad/PDB.py:131-208):
      at ceil(3*sigma), *full* convolution (the box grows by the radius),
      through kernel K1, three launches for a whole batch;
   3. normalize to max 1, clamp below the isovalue.
-The scatter of a whole batch is one call of kernel K9
-(:mod:`mad_tpu_torch.kernels.scatter`).
+On the card the whole body of a batch runs in kernels, with no torch op
+on the volume: K9 (:mod:`mad_tpu_torch.kernels.scatter`) scatters and
+takes each structure's max, K1's blur divides its x pass's inputs by it
+and takes the blurred max in its z pass
+(:mod:`mad_tpu_torch.kernels.conv1d`), and K9's scale-and-clamp pass
+finishes in place. :func:`simulate_batch_plain` is the plain version of
+the body (the torch sequence), which a CPU tensor takes.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import torch
 from ..core.config import bucket
 from ..core.grid import DensityGrid
 from ..core.structure import Structure
-from ..kernels import scatter
+from ..kernels import conv1d, maxkey, scatter
 from .convolve import separable_conv3d
 
 
@@ -75,13 +80,11 @@ def _blur_taps(sigma: float, radius: int) -> np.ndarray:
     return (k1 / k1.sum()).astype(np.float32)
 
 
-def _simulate_batch(coords: torch.Tensor, masses: torch.Tensor,
-                    vox_min: torch.Tensor, box, margin: int, voxsp: float,
-                    taps: np.ndarray, isovalue: float) -> torch.Tensor:
-    """M structures: one trilinear mass scatter (K9), then per structure
-    normalize, 'full' blur (K1, the batch at once), normalize, clamp
-    (mad_tpu/ops/simulate.py:86-108)."""
-    grids = scatter.scatter_atoms(coords, masses, vox_min, box, margin, voxsp)
+def finish_plain(grids: torch.Tensor, taps: np.ndarray,
+                 isovalue: float) -> torch.Tensor:
+    """The body after the scatter, as torch ops on (M, X, Y, Z) grids:
+    normalize, 'full' blur (the batch at once), normalize, clamp
+    (mad_tpu/ops/simulate.py:103-107)."""
     grids = grids / torch.clamp(grids.amax(dim=(1, 2, 3), keepdim=True),
                                 min=1e-30)
     dens = separable_conv3d(grids, (taps, taps, taps), mode="full")
@@ -91,6 +94,41 @@ def _simulate_batch(coords: torch.Tensor, masses: torch.Tensor,
     if isovalue:
         dens = torch.where(dens < isovalue, torch.zeros_like(dens), dens)
     return dens
+
+
+def simulate_batch_plain(coords: torch.Tensor, masses: torch.Tensor,
+                         vox_min: torch.Tensor, box, margin: int,
+                         voxsp: float, taps: np.ndarray,
+                         isovalue: float) -> torch.Tensor:
+    """The plain version of the body of M structures: the plain scatter,
+    then :func:`finish_plain` (mad_tpu/ops/simulate.py:86-108)."""
+    return finish_plain(scatter.scatter_atoms_plain(coords, masses, vox_min,
+                                                    box, margin, voxsp),
+                        taps, isovalue)
+
+
+def _simulate_batch(coords: torch.Tensor, masses: torch.Tensor,
+                    vox_min: torch.Tensor, box, margin: int, voxsp: float,
+                    taps: np.ndarray, isovalue: float) -> torch.Tensor:
+    """M structures: the trilinear mass scatter, normalize, 'full' blur,
+    normalize, clamp (mad_tpu/ops/simulate.py:86-108). On the card: K9
+    with the grids' maxima, K1's three blur passes (the x pass divides its
+    inputs by the maxima, the z pass takes the blurred maxima), then the
+    scale-and-clamp pass in place; bit for bit with the plain version
+    whose scatter runs on the CPU. A CPU tensor takes the plain version."""
+    if coords.device.type == "cpu":
+        return simulate_batch_plain(coords, masses, vox_min, box, margin,
+                                    voxsp, taps, isovalue)
+    M = masses.shape[0]
+    # the grids' and the blurred volumes' maxima, zeroed at once
+    gmax, dmax = maxkey.new_keys(2 * M, coords.device).split(M)
+    grids = scatter.scatter_atoms(coords, masses, vox_min, box, margin, voxsp,
+                                  max_into=gmax)
+    dens = conv1d.conv1d_along(grids, taps, 0, "full", divide_by=gmax)
+    del grids
+    dens = conv1d.conv1d_along(dens, taps, 1, "full")
+    dens = conv1d.conv1d_along(dens, taps, 2, "full", max_into=dmax)
+    return scatter.scale_clamp(dens, dmax, isovalue)
 
 
 def simulate_density(struct_or_coords, resolution: float, voxsp: float,

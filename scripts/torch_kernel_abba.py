@@ -4,19 +4,24 @@ port, timed in interleaved order on one NVIDIA card.
 
     python3 scripts/torch_kernel_abba.py DIR_A DIR_B [--order ABBA]
         [--kernels peak_mask_compact,localize,orient,descriptor_hist]
-        [--fits 0]
+        [--fits 0] [--bodies] [--echo "  K9 ,  K19"]
 
 Each DIR holds a checkout (its chip_smoke.py and mad_tpu_torch/). For
 every letter of ``--order`` (A the first directory, B the second), one
 process in that directory builds the checkout's kernels, runs
 chip_smoke's bench fit once (warm), then ``--fits`` timed fits (stage
 seconds, peak device memory, K1's launches: ``conv1d`` plus ``log_gauss``
-where the checkout has it), then its kernel_checks (each kernel at the
-bench fit's inputs against its plain version, CUDA events, mean of three
-after a warm call), and prints the chosen rows' kernel and plain ms (a
-row the checkout lacks is skipped). Then, per checkout, each row's mean
-and each stage's median over its fits. Prints the card's name and power
-limit first. Needs a card.
+where the checkout has it, and all kernel launches), then its
+kernel_checks (each kernel at the bench fit's inputs against its plain
+version, CUDA events, mean of three after a warm call), and prints the
+chosen rows' kernel and plain ms (a row the checkout lacks is skipped).
+``--bodies``: the simulation body (``ops/simulate._simulate_batch``) at
+each of the fit's simulate calls, recorded in one more fit, timed (CUDA
+events, mean of three after a warm call) with the device memory it holds
+at its peak. ``--echo``: the child's output lines that start with one of
+the comma-separated prefixes (kernel_checks' per-shape lines). Then, per
+checkout, each row's mean and each stage's median over its fits. Prints
+the card's name and power limit first. Needs a card.
 """
 
 import argparse
@@ -31,7 +36,9 @@ CHILD = r"""
 import json, sys, time, torch
 import chip_smoke as cs
 from mad_tpu_torch import kernels
-names, fits = sys.argv[1].split(","), int(sys.argv[2])
+from mad_tpu_torch.ops import simulate
+from mad_tpu_torch.testing import recording
+names, fits, bodies = sys.argv[1].split(","), int(sys.argv[2]), sys.argv[3]
 device, _smi = cs.device_phase()
 cs.build_phase()
 cfg = cs.bench_config()
@@ -50,8 +57,25 @@ for _ in range(fits):
     t["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     counts = kernels.launch_counts()
     t["k1_launches"] = counts["conv1d"] + counts.get("log_gauss", 0)
+    t["launches"] = sum(counts.values())
     passes.append(t)
 print("FITS " + json.dumps(passes))
+body = {}
+if bodies == "1":
+    with recording(simulate, "_simulate_batch") as sims:
+        cs.run_fit(device, None, cfg)
+    for label, args in zip(("map", "subunit", "score", "overlap",
+                            "score_models"), sims):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        simulate._simulate_batch(*args)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        body[label] = [cs.cuda_ms(lambda: simulate._simulate_batch(*args)),
+                       peak]
+    del sims
+print("BODY " + json.dumps(body))
 rows = cs.kernel_checks(fit, cfg, device) if names != [""] else {}
 print("ROWS " + json.dumps({n: [rows[n]["ms"], rows[n]["plain_ms"]]
                             for n in names if n in rows}))
@@ -66,7 +90,10 @@ def main():
                     default="peak_mask_compact,localize,orient,"
                             "descriptor_hist")
     ap.add_argument("--fits", type=int, default=0)
+    ap.add_argument("--bodies", action="store_true")
+    ap.add_argument("--echo", default="")
     args = ap.parse_args()
+    echo = tuple(p for p in args.echo.split(",") if p)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
@@ -76,11 +103,11 @@ def main():
     for i, side in enumerate(args.order):
         root = os.path.abspath(args.dirs["AB".index(side)])
         proc = subprocess.run([sys.executable, "-c", CHILD, args.kernels,
-                               str(args.fits)],
+                               str(args.fits), str(int(args.bodies))],
                               cwd=root, capture_output=True, text=True)
         lines = {x[:5]: x[5:].strip() for x in proc.stdout.splitlines()
-                 if x.startswith(("ROWS ", "FITS "))}
-        if proc.returncode != 0 or len(lines) != 2:
+                 if x.startswith(("ROWS ", "FITS ", "BODY "))}
+        if proc.returncode != 0 or len(lines) != 3:
             print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n")
             raise SystemExit(f"run {i} ({side}, {root}) failed")
         rows, passes = json.loads(lines["ROWS "]), json.loads(lines["FITS "])
@@ -89,6 +116,12 @@ def main():
         print(f"run {i} {side} ({root}): " + ", ".join(
             f"{n} {k:.4f} ms (plain {p:.4f})" for n, (k, p) in rows.items()),
             flush=True)
+        for label, (ms, mib) in json.loads(lines["BODY "]).items():
+            print(f"  body {side} {label}: {ms:.4f} ms, peak {mib:.1f} MiB",
+                  flush=True)
+        for x in proc.stdout.splitlines():
+            if echo and x.startswith(echo):
+                print(f"  {side}|{x}", flush=True)
         for t in passes:
             print(f"  fit {side}: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in t.items()), flush=True)

@@ -79,9 +79,9 @@ def test_k18_pack_overlap(cuda, solutions):
     assert float(got.max()) > 0.3                 # the duplicates overlap
 
 
-def _sym(ov, cuda):
-    t = torch.as_tensor(ov, dtype=torch.float32, device=cuda)
-    return t + t.T
+def _ov(ov, cuda):
+    """K18's upper-triangular float32 overlap, which the heads read."""
+    return torch.as_tensor(ov, dtype=torch.float32, device=cuda)
 
 
 def _overlap(n, seed, ties):
@@ -102,12 +102,12 @@ def _overlap(n, seed, ties):
 def test_k19_enumerate_head(cuda, n, k, head, ties):
     """C(25, 6) = 177,100 ranks span many blocks and the second pass; the
     tie-heavy case pins the (max, rank) order."""
-    sym = _sym(_overlap(n, n + k, ties), cuda)
+    ov = _ov(_overlap(n, n + k, ties), cuda)
     tab = torch.as_tensor(k_enum.comb_table(n, k), device=cuda)
     before = k_enum.launches
-    got = k_enum.enumerate_head(sym, tab, head)
+    got = k_enum.enumerate_head(ov, tab, head)
     assert k_enum.launches == before + 1
-    want = k_enum.enumerate_head_plain(sym, tab, head)
+    want = k_enum.enumerate_head_plain(ov, tab, head)
     assert len(got) == head and torch.equal(got, want)
     ranks, _scores = k_enum.split_keys(got)
     assert len(set(ranks.tolist())) == head < math.comb(n, k)
@@ -119,14 +119,14 @@ def test_k20_hetero_head(cuda, n_per, n_groups):
     and 50^3 over 150 solutions (sym read from device memory)."""
     rng = np.random.default_rng(12)
     n_sol = n_per * n_groups
-    sym = _sym(np.triu(rng.random((n_sol, n_sol)) * 0.2, k=1), cuda)
+    ov = _ov(np.triu(rng.random((n_sol, n_sol)) * 0.2, k=1), cuda)
     lists = torch.arange(n_sol, dtype=torch.int32, device=cuda).reshape(
         n_groups, n_per)
     sizes = [n_per] * n_groups
     before = hetero.launches
-    got = hetero.hetero_head(sym, lists, sizes, 256)
+    got = hetero.hetero_head(ov, lists, sizes, 256)
     assert hetero.launches == before + 1
-    want = hetero.hetero_head_plain(sym, lists, sizes, 256)
+    want = hetero.hetero_head_plain(ov, lists, sizes, 256)
     assert len(got) == 256 and torch.equal(got, want)
 
 

@@ -1,6 +1,7 @@
 """Port parity: the plain PyTorch versions of K16 (post-refine merge and
-rescue eligibility), K17 (batched model CCC) and K20b (overlap symmetrize
-and trim), and K5 at exclude_border 0, against the mad_tpu code they
+rescue eligibility), K17 (batched model CCC), the enumeration heads'
+overlap staging (symmetrize and trim, once K20b's kernel) and K5 at
+exclude_border 0, against the mad_tpu code they
 replace, on the CPU. Inputs come from a numpy seed and go through both
 packages. Tolerances:
   * K16 with the host rebuild (engine/docking._merge_refined): the same
@@ -9,7 +10,8 @@ packages. Tolerances:
     the centroid summed in another order); the eligible rows equal to
     cKDTree's;
   * K17: within 1e-5 of mad_tpu's CCC (float32 sums in another order);
-  * K20b: equal to _compiled_embed_sym's block (one float32 addition);
+  * the heads' staging (``sym_trim_plain``): equal to
+    _compiled_embed_sym's block (one float32 addition);
   * K5 (through detect_anchors) at exclude_border 0, a peak on each x
     face: equal coords and valid flags, subvoxel coordinates within 1e-4
     voxel (mad_tpu's determinant is an LU).
@@ -39,7 +41,7 @@ from mad_tpu_torch.engine.score import batched_ccc as tccc
 from mad_tpu_torch.kernels import ccc as k17
 from mad_tpu_torch.kernels import localize as k5
 from mad_tpu_torch.kernels import post as k16
-from mad_tpu_torch.kernels import symmetrize as k20b
+from mad_tpu_torch.kernels import enumerate as k_enum
 from mad_tpu_torch.ops import detect as tdet
 from mad_tpu_torch.testing import post_round, post_scenario
 
@@ -150,7 +152,7 @@ def test_k20b_plain_matches_embed_sym():
     n, t = 11, 7
     ov = np.triu(rng.random((n, n)), k=1).astype(np.float32)
     want = np.asarray(_compiled_embed_sym(n, 16)(jnp.asarray(ov), t))
-    got = k20b.sym_trim(torch.as_tensor(ov), t).numpy()
+    got = k_enum.sym_trim_plain(torch.as_tensor(ov), t).numpy()
     assert got.shape == (t, t)
     np.testing.assert_array_equal(got, want[:t, :t])
     assert not want[t:].any() and not want[:, t:].any()
@@ -191,7 +193,7 @@ def test_k5_exclude_border_zero_matches_mad_tpu(face):
 
 
 def test_cpu_tensors_take_the_plain_versions():
-    for mod in (k5, k16, k17, k20b):
+    for mod in (k5, k16, k17, k_enum):
         mod.launches = 0
     sc = post_scenario(seed=5)
     cands, res = post_round(sc, 0, "cpu")
@@ -200,11 +202,13 @@ def test_cpu_tensors_take_the_plain_versions():
                          SimpleNamespace(voxsp=2.0), _table(sc), TConfig(),
                          "cpu", N_TOP)
     ov = torch.triu(torch.rand(5, 5), diagonal=1)
-    assert torch.equal(k20b.sym_trim(ov, 4), k20b.sym_trim_plain(ov, 4))
+    tab = torch.as_tensor(k_enum.comb_table(4, 2))
+    assert torch.equal(k_enum.enumerate_head(ov, tab, 3),
+                       k_enum.enumerate_head_plain(ov, tab, 3))
     vol = torch.as_tensor(_blob(N - 1.0))
     seeds = torch.tensor([[N - 1, 12, 12], [0, 0, 0]])
     got = k5.localize(vol, seeds, vol.shape, 0.6, 5)
     ref = k5.localize_plain(vol, seeds, vol.shape, 0.6, 5)
     assert all(torch.equal(x, y) for x, y in zip(got, ref))
-    assert [m.launches for m in (k5, k16, k17, k20b)] == [0, 0, 0, 0]
+    assert [m.launches for m in (k5, k16, k17, k_enum)] == [0, 0, 0, 0]
     assert len(sols) == 3

@@ -1,6 +1,7 @@
-"""K16 (post-refine merge and rescue eligibility), K17 (batched model CCC)
-and K20b (overlap symmetrize and trim) against their plain PyTorch
-versions on the card, and K5 at exclude_border 0. Every test here needs a
+"""K16 (post-refine merge and rescue eligibility) and K17 (batched model
+CCC) against their plain PyTorch versions on the card, and K5 at
+exclude_border 0 (the overlap staging that K20b ran is folded into K19 and
+K20: tests/test_torch_simulate_tiles_cuda.py). Every test here needs a
 CUDA card and skips without one; the file imports neither JAX nor mad_tpu:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -11,8 +12,8 @@ Tolerances:
     moved anchors s_a within 1e-12 A (the centroid is summed in another
     order; every other product and sum rounds as in the plain version);
   * K17: within 1e-5 (float64 sums against the plain version's float32);
-  * K20b and K5: equal (one float32 addition; K5 rounds every operation as
-    its plain version does, the patch placed by the same rule).
+  * K5: equal (it rounds every operation as its plain version does, the
+    patch placed by the same rule).
 The parity of the plain versions with mad_tpu is held on the CPU by
 tests/test_torch_post.py.
 """
@@ -28,7 +29,7 @@ from mad_tpu_torch.engine import docking
 from mad_tpu_torch.kernels import ccc as k17
 from mad_tpu_torch.kernels import localize as k5
 from mad_tpu_torch.kernels import post as k16
-from mad_tpu_torch.kernels import symmetrize as k20b
+from mad_tpu_torch.kernels import enumerate as k_enum
 from mad_tpu_torch.testing import post_round, post_scenario, recording
 
 pytestmark = pytest.mark.cuda
@@ -99,16 +100,6 @@ def test_k17_matches_plain(cuda):
     assert float(got[0]) > 0.5
 
 
-def test_k20b_bitwise(cuda):
-    rng = np.random.default_rng(13)
-    ov = torch.as_tensor(np.triu(rng.random((23, 23)), k=1),
-                         dtype=torch.float32, device=cuda)
-    for t in (1, 7, 23):
-        got = launched(k20b, k20b.sym_trim, ov, t)
-        assert got.shape == (t, t)
-        assert torch.equal(got, k20b.sym_trim_plain(ov, t))
-
-
 def test_k5_exclude_border_zero_bitwise(cuda):
     """Peaks on the x = 0 and x = X - 1 faces and seeds in two opposite
     corners of the volume, where the patch start is wrapped or clamped."""
@@ -133,7 +124,8 @@ def test_wrappers_raise_on_mixed_devices(cuda):
     with pytest.raises(ValueError):
         k17.batched_ccc(data, models, torch.zeros((1, 3), dtype=torch.int32))
     with pytest.raises(ValueError):
-        k20b.sym_trim(torch.zeros((4, 5), device=cuda), 2)
+        k_enum.enumerate_head(torch.zeros((4, 5), device=cuda), torch.as_tensor(
+            k_enum.comb_table(4, 2), device=cuda), 2)
     sc = post_scenario(seed=4)
     cands, res = post_round(sc, 0, cuda)
     table = SimpleNamespace(hi_cloud=sc["hi_cloud"], lo_cloud=sc["lo_cloud"],

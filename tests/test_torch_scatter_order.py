@@ -5,10 +5,12 @@ A voxel's value is the float32 sum, from 0, of its contributions in
 scatters (mad_tpu/ops/simulate.py:94-101). ``scatter_atoms_plain`` must
 be ``np.add.at`` applied corner by corner, bit for bit, on inputs built to
 collide (many atoms on one cell, 60,000+ updates, corners out of the box,
-zero masses); a torch rendering of ``csrc/scatter.cu``'s bucket order
-(count per floor cell, exclusive scan, fill, then per voxel the cells
-v - corner in corner order, each bucket's atoms in ascending index) must
-equal it bit for bit. ``simulate_density`` and ``batched_simulate`` stay
+zero masses); a rendering of ``csrc/scatter.cu``'s tile order (count
+per voxel tile of the shifted floor cells, exclusive scan, fill in any
+order, each tile's candidates sorted by (cell, atom), then per voxel the
+cells v - corner in corner order, each cell's atoms in ascending index:
+``tile_order`` of test_torch_simulate_tiles.py) must equal it bit for
+bit. ``simulate_density`` and ``batched_simulate`` stay
 within test_torch_simulate_scalespace.py's tolerance of mad_tpu.
 """
 
@@ -20,6 +22,7 @@ from mad_tpu.ops import simulate as jsim
 from mad_tpu.testing import make_assembly
 from mad_tpu_torch.kernels import build, scatter
 from mad_tpu_torch.ops import simulate as tsim
+from test_torch_simulate_tiles import tile_order
 
 torch.set_num_threads(1)
 
@@ -67,50 +70,6 @@ def numpy_order(c, m, vm):
     return out
 
 
-def bucket_order(c, m, vm):
-    """The kernel's order in torch: buckets per (structure, floor cell in
-    [-1, dim - 1]) counted, scanned and filled in any order, then each
-    voxel sums the buckets of v - corner in corner order, each bucket's
-    atoms in ascending index."""
-    M, N = m.shape
-    i0, w0, w1 = positions(c, vm)
-    dims = np.asarray(BOX)
-    keep = (m != 0) & ((i0 >= -1) & (i0 <= dims - 1)).all(-1)
-    cell_dims = dims + 1
-    per = int(cell_dims.prod())
-    cell = (np.ravel_multi_index(tuple(np.clip(i0 + 1, 0, dims).T),
-                                 cell_dims).T
-            + np.arange(M)[:, None] * per)
-    cell = torch.as_tensor(cell[keep])
-    atom = torch.arange(M * N).reshape(M, N)[torch.as_tensor(keep)]
-    counts = torch.bincount(cell, minlength=M * per)
-    start = torch.cat([torch.zeros(1, dtype=torch.int64),
-                       torch.cumsum(counts, 0)])
-    # fill: each bucket's atoms in whatever order the atomics give (here a
-    # seeded shuffle); the gather takes them in ascending index
-    perm = torch.randperm(len(cell),
-                          generator=torch.Generator().manual_seed(0))
-    by_cell = torch.argsort(cell[perm], stable=True)
-    ids, key = atom[perm][by_cell], cell[perm][by_cell]
-    ids = ids[torch.argsort(key * (M * N) + ids)]
-    mw = {corner: torch.as_tensor(weight(m, w0, w1, corner)).reshape(-1)
-          for corner in CORNERS}
-    vox = np.stack(np.meshgrid(*[np.arange(d) for d in BOX], indexing="ij"),
-                   -1).reshape(-1, 3)
-    grids = torch.zeros((M,) + BOX, dtype=torch.float32)
-    for s in range(M):
-        g = torch.zeros(len(vox), dtype=torch.float32)
-        for corner in CORNERS:
-            cc = torch.as_tensor(np.ravel_multi_index(
-                tuple((vox - np.asarray(corner) + 1).T), cell_dims) + s * per)
-            beg, end = start[cc], start[cc + 1]
-            for k in range(int((end - beg).max())):
-                have = end - beg > k
-                g[have] = g[have] + mw[corner][ids[beg[have] + k]]
-        grids[s] = g.reshape(BOX)
-    return grids
-
-
 def test_plain_is_np_add_at_corner_by_corner():
     c, m, vm = colliding()
     got = scatter.scatter_atoms_plain(torch.as_tensor(c), torch.as_tensor(m),
@@ -126,8 +85,11 @@ def test_plain_is_np_add_at_corner_by_corner():
 
 
 def test_kernel_bucket_order_is_the_plain_order():
+    """The tile order on a box of one ragged tile, with a crowded cell."""
     c, m, vm = colliding(seed=1, N=3000)
-    got = bucket_order(c, m, vm)
+    got, crowded, _pool = tile_order(c, m, vm, box=BOX)
+    assert crowded == 2
+    got = torch.as_tensor(got)
     ref = scatter.scatter_atoms_plain(torch.as_tensor(c), torch.as_tensor(m),
                                       torch.as_tensor(vm), BOX, MARGIN,
                                       VOXSP)
