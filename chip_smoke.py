@@ -31,12 +31,15 @@ Phases, each of which raises (non-zero exit) when it fails:
      front on the bench's pairs: K10's head, K11 and K14 equal, K12 equal
      except pairs with a moved anchor within 1e-4 voxel of a .5 rounding
      edge, counted;
-     the describe stage's K2 (the three axes of the upsample), K3 (the
-     upsampled Gaussian volume, float32 and bfloat16), K5 (the LoG volumes
-     of both map octaves with K4's seeds) and K8 (the map's two octave
-     tables and keep indices) bit for bit, at the inputs a describe_grid
-     of the bench map gives them; K16 (the first docking round's 28 lanes
-     and the table rows the rescue round may take: hits, counts, accepted,
+     the describe stage's K2 (the map's and the subunit's bases, all three
+     axes in one launch, and ragged shapes cut from the map's base), K3
+     (the upsampled Gaussian volume and ragged shapes cut from it, float32
+     and bfloat16), both also with their 64-bit offsets forced on the
+     ragged shapes, K5 (the LoG volumes of both map octaves with K4's
+     seeds) and K8 (the map's two octave tables and keep indices) bit for
+     bit, at the inputs a describe_grid of the bench map gives them; K16
+     (the first docking round's 28 lanes and the table rows the rescue
+     round may take: hits, counts, accepted,
      slots and rows equal, moved anchors within 1e-12 A; the hits and rows
      also equal to cKDTree's on its poses; then each of its five stage
      entries, lanes, dedup ("post"), cloud points, table rows and
@@ -63,7 +66,8 @@ Phases, each of which raises (non-zero exit) when it fails:
   5. timed pass of the main path (after one more warm pass) with every
      launch counter reset first;
      fails unless every kernel of the path launched, K1 (both entries)
-     at most K1_FIT_LAUNCHES times, the solutions are
+     at most K1_FIT_LAUNCHES times, K2 K2_FIT_LAUNCHES times (once a
+     described structure), the solutions are
      finite, at least 9 of 10 copies are recovered (best CA-RMSD < 10 A)
      and at least one model comes back, with a finite CCC, its first
      model made of 10 distinct solutions; then the fit once more with the
@@ -144,6 +148,11 @@ K9_REPEATS = 5                  # K9 launches on the same inputs, all equal
 # the fit's simulate calls, in order (ops/simulate._simulate_batch)
 SIMULATE_CALLS = ("map", "subunit", "score", "overlap", "score_models")
 K1_FIT_LAUNCHES = 40            # K1 launches (both entries) in the timed fit
+K2_FIT_LAUNCHES = 2             # K2: one a described structure (map, subunit)
+# K2 and K3 also at ragged shapes cut from the bench map's base: axes of 1,
+# 2 and 3 samples, and tiles cut short on every axis
+K2_SHAPES = ((1, 2, 3), (3, 1, 2), (2, 3, 1), (9, 17, 35), (5, 9, 67))
+K3_SHAPES = ((2, 2, 2), (3, 2, 33), (35, 10, 37), (33, 9, 65))
 HETERO = dict(n_per=16, n_groups=5, seed=12)
 K6_AGREE, K6_RFINAL_TOL = 0.99, 1e-6   # anchors agreeing, frame max diff
 # (at the default settings every anchor of both map octaves must agree)
@@ -167,14 +176,14 @@ PEAK_BYTES_S, PEAK_F32_S, PEAK_F64_S = 3.35e12, 67e12, 34e12
 ASSEMBLY_STAGES = ("overlap", "enumerate", "score_models")
 # kernels the session's first run must launch (K1's LoG, K2, K3, K5, K6,
 # K8, K15, K16, K17)
-SESSION_KERNELS = ("log_gauss", "upsample_axis", "gradient", "localize",
+SESSION_KERNELS = ("log_gauss", "upsample2", "gradient", "localize",
                    "orient", "gather_norm", "refine", "post", "batched_ccc")
 # capacity mode: the shard counts, the kernels its octave chain must
 # launch, the DescriptorSet fields held bit for bit, and the report rows of
 # the shard bodies: name -> (the kernels whose launches it counts, source,
 # the mad_tpu body)
 CAPACITY_SHARDS = (4, 3)
-CAPACITY_KERNELS = ("conv1d", "log_gauss", "upsample_axis", "gradient",
+CAPACITY_KERNELS = ("conv1d", "log_gauss", "upsample2", "gradient",
                     "peak_mask_compact", "localize", "orient",
                     "descriptor_hist")
 SET_FIELDS = ("coords", "map_coords", "subv_coords", "rfinal", "octave",
@@ -204,7 +213,7 @@ DOCK_ROWS = {
                      "mad_tpu/engine/refine.py:164"),
 }
 CAPACITY_ROWS = {
-    "sharded_scalespace": (("conv1d", "log_gauss", "upsample_axis",
+    "sharded_scalespace": (("conv1d", "log_gauss", "upsample2",
                             "gradient"),
                            "mad_tpu_torch/csrc/conv1d.cu",
                            "mad_tpu/parallel/volume.py:79"),
@@ -376,9 +385,9 @@ def describe_swaps():
     from mad_tpu_torch.kernels import (conv1d, gather_norm as k8,
                                        gradient as k3, localize as k5,
                                        upsample as k2)
-    from mad_tpu_torch.ops import convolve, detect
+    from mad_tpu_torch.ops import convolve, detect, scalespace
     return [(convolve, "log_gauss", conv1d.log_gauss_plain),
-            (convolve, "upsample_axis", k2.upsample_axis_plain),
+            (scalespace, "upsample2", k2.upsample2_plain),
             (pipeline, "gradient", k3.gradient_plain),
             (refine, "gradient", k3.gradient_plain),
             (detect, "localize", k5.localize_plain),
@@ -465,8 +474,10 @@ def best_rmsds(structs, copies):
 def same_bits(a, b):
     """Equal bit for bit (a float's sign of zero included)."""
     import torch
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[a.element_size()]
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+        a.contiguous().view(ints), b.contiguous().view(ints))
 
 
 def cuda_ms(fn, reps=3):
@@ -679,6 +690,17 @@ def kernel_checks(fit, cfg, device):
     return out
 
 
+@contextlib.contextmanager
+def wide_offsets(kernel):
+    """Calls of K2 or K3 (``kernel``, its module) take the 64-bit offset
+    path, which the bench map's volumes, below 2^32 elements, never do."""
+    wide_from, kernel.WIDE_FROM = kernel.WIDE_FROM, 0
+    try:
+        yield
+    finally:
+        kernel.WIDE_FROM = wide_from
+
+
 def describe_checks(fit, cfg, device):
     """K2, K3, K5 and K8 against their plain versions, bit for bit, at the
     inputs that a describe_grid of the bench map gives them; then that
@@ -689,55 +711,77 @@ def describe_checks(fit, cfg, device):
     from mad_tpu_torch.engine import pipeline
     from mad_tpu_torch.kernels import (gather_norm as k8, gradient as k3,
                                        localize as k5, upsample as k2)
-    from mad_tpu_torch.ops import detect
-    from mad_tpu_torch.ops.scalespace import iter_octaves
+    from mad_tpu_torch.ops import detect, scalespace
     from mad_tpu_torch.testing import recording
     out = {}
     dmap = fit["dmap"]
     t0 = time.perf_counter()
     with recording(pipeline, "gradient") as grads, \
             recording(detect, "localize") as newton, \
-            recording(pipeline, "gather_norm") as gathers:
+            recording(pipeline, "gather_norm") as gathers, \
+            recording(scalespace, "upsample2") as ups:
         a = pipeline.describe_grid(dmap, cfg, name="bench_map",
                                    device=device)
         torch.cuda.synchronize()
     t_kernels = time.perf_counter() - t0
+    with recording(scalespace, "upsample2") as sub_ups:
+        pipeline.describe_structure(fit["moved"], RES, dmap.voxsp, cfg,
+                                    device=device)
 
-    # K2: the three axes of the upsample, each on the last one's output.
-    # Work per axis: the input read and the output written once, 7 flops
-    # per half sample.
-    up = next(o for _org, o in iter_octaves(dmap, cfg.scalespace)
-              if o.upsampled)
-    vols = [up.base]
-    for axis in range(3):
-        vols.append(k2.upsample_axis(vols[-1], axis))
-        check(torch.equal(vols[-1], k2.upsample_axis_plain(vols[-2], axis)),
-              f"K2 differs from the plain version on axis {axis}")
-    check(tuple(vols[-1].shape) == up.real_shape, "K2 output shape")
-    nbytes = sum(4 * (vols[i].numel() + vols[i + 1].numel())
-                 for i in range(3))
-    ops = sum(7 * (vols[i + 1].numel() - vols[i].numel()) for i in range(3))
-
-    def three(f):
-        v = up.base
-        for axis in range(3):
-            v = f(v, axis)
-    out["upsample_axis"] = measure(0.0, lambda: three(k2.upsample_axis),
-                                   lambda: three(k2.upsample_axis_plain),
-                                   nbytes, ops)
-    say(f"  K2: {tuple(up.base.shape)} -> {tuple(vols[-1].shape)}, equal")
-    del vols
+    # K2: the upsampled octave's base, all three axes in one launch, bit
+    # for bit with the three per-axis passes; also the subunit's base and
+    # ragged shapes cut from the map's. Work: the function's own, the base
+    # read once and the octave written once, 7 flops a half sample of each
+    # axis (the per-axis passes' own traffic printed beside).
+    check(len(ups) == len(sub_ups) == 1, "K2 runs once a describe_grid")
+    base, sub_base = ups[0][0], sub_ups[0][0]
+    for v in [base, sub_base] + [base[:x, :y, :z] for x, y, z in K2_SHAPES]:
+        got = k2.upsample2(v)
+        check(same_bits(got, k2.upsample2_plain(v)),
+              f"K2 differs from the plain version on {tuple(v.shape)}")
+        check(tuple(got.shape) == tuple(2 * n - 1 for n in v.shape),
+              f"K2's output shape {tuple(got.shape)}")
+    with wide_offsets(k2):
+        for x, y, z in K2_SHAPES:
+            v = base[:x, :y, :z]
+            check(same_bits(k2.upsample2(v), k2.upsample2_plain(v)),
+                  f"K2's 64-bit offset path differs from the plain version "
+                  f"on {tuple(v.shape)}")
+    del got
+    X, Y, Z = base.shape
+    sizes = upsample_sizes(base.shape)
+    nbytes = 4 * (sizes[0] + sizes[3])
+    axes = 4 * sum(sizes[i] + sizes[i + 1] for i in range(3))
+    out["upsample2"] = measure(
+        0.0, lambda: k2.upsample2(base), lambda: k2.upsample2_plain(base),
+        nbytes, upsample_ops(base.shape))
+    say(f"  K2: {tuple(base.shape)} -> {(2 * X - 1, 2 * Y - 1, 2 * Z - 1)}, "
+        f"the subunit's {tuple(sub_base.shape)} and {len(K2_SHAPES)} ragged "
+        f"shapes, equal; one launch {out['upsample2']['ms']:.4f} ms, bound "
+        f"{nbytes:.4g} B (the per-axis passes' {axes:.4g} B, "
+        f"{axes / PEAK_BYTES_S * 1e3:.4f} ms)")
+    del ups, sub_ups, base, sub_base
 
     # K3: the upsampled octave's Gaussian volume (the path's first call),
     # float32 as on the bench path and bfloat16 as above the 250 M voxel
-    # gate. Work: the volume read once, the field written, 2 flops a
-    # component; library: torch.gradient, stacked (and cast).
+    # gate, bit for bit, also on ragged shapes cut from it. Work: the
+    # volume read once, the field written, 2 flops a component; library:
+    # torch.gradient, stacked (and cast).
     gauss = grads[0][0]
     V = gauss.numel()
     for dtype in (torch.float32, torch.bfloat16):
-        check(torch.equal(k3.gradient(gauss, dtype),
-                          k3.gradient_plain(gauss, dtype)),
-              f"K3 {dtype} differs from the plain version")
+        for v in [gauss] + [gauss[:x, :y, :z] for x, y, z in K3_SHAPES]:
+            check(same_bits(k3.gradient(v, dtype),
+                            k3.gradient_plain(v, dtype)),
+                  f"K3 {dtype} differs from the plain version on "
+                  f"{tuple(v.shape)}")
+        with wide_offsets(k3):
+            for x, y, z in K3_SHAPES:
+                v = gauss[:x, :y, :z]
+                check(same_bits(k3.gradient(v, dtype),
+                                k3.gradient_plain(v, dtype)),
+                      f"K3 {dtype}'s 64-bit offset path differs from the "
+                      f"plain version on {tuple(v.shape)}")
         r = measure(0.0, lambda: k3.gradient(gauss, dtype),
                     lambda: k3.gradient_plain(gauss, dtype),
                     4 * V + 3 * V * (4 if dtype == torch.float32 else 2),
@@ -808,6 +852,21 @@ def describe_checks(fit, cfg, device):
         f"kernels ({t_kernels:.4f} s) and with the plain versions of K1's "
         f"LoG, K2, K3, K5, K8 ({t_plain:.4f} s)")
     return out
+
+
+def upsample_sizes(shape):
+    """The volume's voxels before and after each axis of the x2 upsample
+    (x, then y, then z)."""
+    X, Y, Z = shape
+    return [X * Y * Z, (2 * X - 1) * Y * Z, (2 * X - 1) * (2 * Y - 1) * Z,
+            (2 * X - 1) * (2 * Y - 1) * (2 * Z - 1)]
+
+
+def upsample_ops(shape):
+    """K2's flops: 7 a half sample (four products, three sums) of each
+    axis."""
+    sizes = upsample_sizes(shape)
+    return sum(7 * (sizes[i + 1] - sizes[i]) for i in range(3))
 
 
 def newton_work(vol, seeds, real_shape, max_offset, n_iter, goff=0,
@@ -1863,11 +1922,11 @@ def slab_spy():
     and the octave's rows."""
     from mad_tpu_torch.engine import pipeline
     from mad_tpu_torch.kernels import orient as k6
-    from mad_tpu_torch.ops import convolve, describe, detect
+    from mad_tpu_torch.ops import convolve, describe, detect, scalespace
     from mad_tpu_torch.parallel import volume
     seen, bound = [], {}
     sites = [(convolve, "conv1d_along"), (convolve, "log_gauss"),
-             (convolve, "upsample_axis"),
+             (scalespace, "upsample2"),
              (volume, "gradient"), (detect, "peak_topk"),
              (detect, "localize"), (k6, "orient"),
              (describe, "descriptor_hist")]
@@ -1985,7 +2044,7 @@ def shard_checks(device, cfg, dmap):
     from mad_tpu_torch.kernels import conv1d, describe as k7, gradient as k3
     from mad_tpu_torch.kernels import localize as k5, orient as k6
     from mad_tpu_torch.kernels import peaks as k4, upsample as k2
-    from mad_tpu_torch.ops import convolve, describe, detect
+    from mad_tpu_torch.ops import convolve, describe, detect, scalespace
     from mad_tpu_torch.ops.scalespace import iter_octaves, octave_volume
     from mad_tpu_torch.parallel.mesh import make_mesh
     from mad_tpu_torch.parallel.volume import halo_block
@@ -2021,8 +2080,8 @@ def shard_checks(device, cfg, dmap):
         with plain_versions([(convolve, "conv1d_along",
                               conv1d.conv1d_along_plain),
                              (convolve, "log_gauss", conv1d.log_gauss_plain),
-                             (convolve, "upsample_axis",
-                              k2.upsample_axis_plain)]):
+                             (scalespace, "upsample2",
+                              k2.upsample2_plain)]):
             return build(k3.gradient_plain)
 
     def counted(fn, name):
@@ -2039,16 +2098,17 @@ def shard_checks(device, cfg, dmap):
             elif name == "log_gauss":
                 work["ops"] += 2 * (6 * nnz(args[1]) + 3 * nnz(args[2])) \
                     * n_in
-            elif name == "upsample_axis":
-                work["ops"] += 7 * (n_out - n_in)
+            elif name == "upsample2":
+                work["ops"] += upsample_ops(first_input(args).shape)
             else:
                 work["ops"] += 6 * n_in
             return res
         return run
 
-    with plain_versions([(convolve, n, counted(getattr(convolve, n), n))
-                         for n in ("conv1d_along", "log_gauss",
-                                   "upsample_axis")]):
+    with plain_versions([(mod, n, counted(getattr(mod, n), n))
+                         for mod, n in ((convolve, "conv1d_along"),
+                                        (convolve, "log_gauss"),
+                                        (scalespace, "upsample2"))]):
         got = build(counted(k3.gradient, "gradient"))
     ref = plain_build()
     check(all(torch.equal(x, y) for x, y in zip(got, ref)),
@@ -2527,6 +2587,8 @@ def phases(work):
           f"a kernel of the main path never launched: {counts}")
     k1 = counts["conv1d"] + counts["log_gauss"]
     check(k1 <= K1_FIT_LAUNCHES, f"K1 launched {k1} times in the fit")
+    check(counts["upsample2"] == K2_FIT_LAUNCHES,
+          f"K2 launched {counts['upsample2']} times in the fit")
     check(len(sols) > 0 and all(
         np.isfinite(s.structure.coords).all() and np.isfinite(s.ccc)
         and s.structure.coords.shape == fit["moved"].coords.shape

@@ -17,6 +17,31 @@ __device__ __forceinline__ float add_rn(float a, float b) {
   return __fadd_rn(a, b);
 }
 
+// A 4-byte copy from device to shared memory with cp.async (zero-filled
+// when !valid), then the thread's copies committed as one group and
+// waited for; a __syncthreads() then shows every thread's copies. The
+// port's volumes have odd row lengths, so their rows are not 16-byte
+// aligned: neither TMA nor 16-byte copies can describe them.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of the thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
 // An order key of a float for an order-free max: an unsigned integer
 // that orders as the floats do (-0.0 below +0.0), every NaN above all
 // (torch.amax propagates NaN). atomicMax on keys merges a max in any

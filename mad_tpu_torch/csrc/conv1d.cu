@@ -121,19 +121,6 @@ __host__ __device__ constexpr int conv_tap(int mode, int c) {
   return (!single(mode) && c == 1) ? 1 : 0;
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-// The thread's copies landed; a __syncthreads() then shows all of them.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // kSingleEpi's divide: the divisor of outer row o's inputs, and one
 // input divided by a divisor that is not NaN (a zero divided by a positive
 // divisor is itself, with its sign, so zeros skip the division, whose zero

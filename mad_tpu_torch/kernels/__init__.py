@@ -19,8 +19,8 @@ KERNELS = {
                "mad_tpu/ops/convolve.py:79"),
     "log_gauss": (conv1d, "mad_tpu_torch/csrc/conv1d.cu",
                   "mad_tpu/ops/convolve.py:144"),
-    "upsample_axis": (upsample, "mad_tpu_torch/csrc/upsample.cu",
-                      "mad_tpu/ops/convolve.py:184"),
+    "upsample2": (upsample, "mad_tpu_torch/csrc/upsample.cu",
+                  "mad_tpu/ops/convolve.py:184"),
     "gradient": (gradient, "mad_tpu_torch/csrc/gradient.cu",
                  "mad_tpu/ops/scalespace.py:238"),
     "peak_mask_compact": (peaks, "mad_tpu_torch/csrc/peaks.cu",

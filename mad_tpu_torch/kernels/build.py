@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,7 +40,8 @@ _F = ctypes.c_float
 _D = ctypes.c_double
 _L = ctypes.c_longlong
 
-# C signatures of the exported launchers (csrc/*.cu, extern "C").
+# C signatures of the exported launchers (csrc/*.cu, extern "C"); each
+# ends with the stream, a pointer.
 SIGNATURES = {
     "mad_conv1d": [_P, _P, _P, _I, _L, _I, _I, _I, _I, _P, _P, _L, _P],
     "mad_log_pass": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
@@ -70,8 +72,8 @@ SIGNATURES = {
                           _P, _P],
     "mad_cluster_select": [_P, _P, _P, _P, _P, _P, _I, _D, _I, _D, _I, _P,
                            _P, _P, _P],
-    "mad_upsample_axis": [_P, _P, _L, _L, _L, _P],
-    "mad_gradient": [_P, _I, _I, _I, _I, _P, _P],
+    "mad_upsample2": [_P, _P, _I, _I, _I, _L, _P],
+    "mad_gradient": [_P, _I, _I, _I, _I, _P, _L, _P],
     "mad_localize": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P,
                      _P, _P, _P],
     "mad_gather_norm": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
@@ -91,6 +93,23 @@ _lock = threading.Lock()
 _lib = None
 build_seconds = None      # wall time of the build this process ran (or 0)
 build_log = ""            # nvcc's output (ptxas register / smem report)
+
+
+def constants(source: str) -> dict:
+    """The ``constexpr int`` values of ``csrc/<source>`` by name (integer
+    literals and arithmetic on earlier ones), read from the source text so
+    that the host side's copy of a kernel's tiling cannot go stale; no
+    build needed."""
+    text = re.sub(r"//[^\n]*", "", (CSRC / source).read_text())
+    out = {}
+    for decl in re.findall(r"\bconstexpr\s+int\s+([^;]+);", text):
+        for item in decl.split(","):
+            name, expr = (s.strip() for s in item.split("=", 1))
+            expr = re.sub(r"\b[A-Za-z_]\w*\b",
+                          lambda m: str(out.get(m.group(), m.group())), expr)
+            if re.fullmatch(r"[\d\s+\-*/%()]+", expr):
+                out[name] = int(eval(expr.replace("/", "//")))
+    return out
 
 
 def _nvcc() -> str:
@@ -175,8 +194,13 @@ def launch(fn, device, *args) -> None:
     stream of ``device``, with ``device`` made the current card for the
     call (a launch goes to the current card, which need not be the
     inputs': a mesh's shards, a session on cuda:1); raise on its error
-    code."""
+    code. ``args`` must fill every parameter but the stream: ctypes would
+    pass an argument beyond ``fn.argtypes`` as a C int, cutting the stream
+    handle to 32 bits."""
     import torch
+    if len(fn.argtypes) != len(args) + 1:
+        raise TypeError(f"{fn.__name__}: {len(args)} arguments and the "
+                        f"stream for {len(fn.argtypes)} parameters")
     with torch.cuda.device(device):
         code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if code != 0:

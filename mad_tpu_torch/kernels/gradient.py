@@ -7,10 +7,12 @@ float32 and its bfloat16 branch). Per axis the interior is
 bfloat16 field holds the float32 differences rounded to nearest even, as
 the JAX body's ``astype`` and as ``copy_`` into a bfloat16 tensor do.
 
-The CUDA kernel ``csrc/gradient.cu`` gives one thread to each voxel, which
-writes its interleaved 3-component record; it rounds as
-:func:`gradient_plain` (the torch-op version) does, so the two are equal
-bit for bit in both types.
+The CUDA kernel ``csrc/gradient.cu`` is a plane-marching stencil: a block
+owns a ``FOOTPRINT`` of (y, z) columns, two rows a thread, and marches
+along x over ``CHUNK`` planes, keeping planes x - 1, x and x + 1 with
+their one-voxel y / z halo in shared memory, and its warps store the
+rows' interleaved 3-component records as contiguous runs. It rounds as :func:`gradient_plain` (the
+torch-op version) does, so the two are equal bit for bit in both types.
 """
 
 from __future__ import annotations
@@ -22,6 +24,15 @@ from . import build
 launches = 0            # kernel launches since the last reset
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# A block's (y, z) columns, the planes it marches along x, the planes it
+# has in flight past x + 1 and its ring of planes, as csrc/gradient.cu
+# declares them (kTY, kTZ, kChunk, kAhead, kRing).
+_C = build.constants("gradient.cu")
+FOOTPRINT, CHUNK, AHEAD, RING = ((_C["kTY"], _C["kTZ"]), _C["kChunk"],
+                                 _C["kAhead"], _C["kRing"])
+# The kernel takes 64-bit offsets once 3 * X * Y * Z reaches this (it
+# clamps it to 2^32); a test lowers it to run that path on a small field.
+WIDE_FROM = 1 << 32
 
 
 def gradient_plain(vol: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -59,6 +70,6 @@ def gradient(vol: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     lib = build.library()
     build.launch(
         lib.mad_gradient, vol.device, vol.data_ptr(), X, Y, Z, _DTYPES[dtype],
-        out.data_ptr())
+        out.data_ptr(), WIDE_FROM)
     launches += 1
     return out

@@ -1,13 +1,16 @@
-"""K2: x2 Catmull-Rom upsampling of a 3D float32 volume along one axis.
+"""K2: x2 Catmull-Rom upsampling of a 3D float32 volume,
+(X, Y, Z) -> (2X - 1, 2Y - 1, 2Z - 1).
 
-Replaces mad_tpu/ops/convolve.py:184-215 (``_upsample_axis``; its banded
-``_upsample_matrix`` is a TPU matrix-unit form and stays behind). Along
-the axis, n samples become 2n - 1: even outputs copy the input, odd output
-2i + 1 is ``((t0 + t1) + t2) + t3`` with ``t_m = w[3-m] * v[clamp(i+m-1)]``
-(edges replicated). The CUDA kernel ``csrc/upsample.cu`` gives one thread
-to each output voxel and rounds every product and sum in that order, so it
-equals :func:`upsample_axis_plain` (the shift-add of the JAX original in
-torch ops) bit for bit.
+Replaces mad_tpu/ops/convolve.py:184-215 (``upsample2`` and its
+``_upsample_axis``; the banded ``_upsample_matrix`` is a TPU matrix-unit
+form and stays behind). Along each axis in turn, n samples become 2n - 1:
+even outputs copy the input, odd output 2i + 1 is ``((t0 + t1) + t2) + t3``
+with ``t_m = w[3-m] * v[clamp(i+m-1)]`` (edges replicated). The CUDA kernel
+``csrc/upsample.cu`` does all three axes in one launch: a block copies a
+tile of ``TILE`` input cells with the taps' halo into shared memory and
+runs the x, y and z passes there, rounding every product and sum in the
+per-axis order, so it equals :func:`upsample2_plain` (the three passes of
+the JAX original's shift-add in torch ops) bit for bit.
 """
 
 from __future__ import annotations
@@ -22,6 +25,15 @@ launches = 0            # kernel launches since the last reset
 # Catmull-Rom weights for the half-sample points of a x2 upsampling.
 CR_HALF = np.array([-1.0 / 16, 9.0 / 16, 9.0 / 16, -1.0 / 16],
                    dtype=np.float32)
+# A block's input cells along x, y, z, as csrc/upsample.cu declares them
+# (kTX, kTY, kTZ); its tile holds one more cell before and two after along
+# each axis.
+_C = build.constants("upsample.cu")
+TILE = (_C["kTX"], _C["kTY"], _C["kTZ"])
+# The kernel takes 64-bit offsets once the output reaches this many
+# elements (it clamps it to 2^32); a test lowers it to run that path on a
+# small volume.
+WIDE_FROM = 1 << 32
 
 
 def upsample_axis_plain(vol: torch.Tensor, axis: int) -> torch.Tensor:
@@ -47,30 +59,31 @@ def upsample_axis_plain(vol: torch.Tensor, axis: int) -> torch.Tensor:
     return out
 
 
-def upsample_axis(vol: torch.Tensor, axis: int) -> torch.Tensor:
-    """(.., n, ..) -> (.., 2n - 1, ..) along ``axis`` of a 3D volume."""
+def upsample2_plain(vol: torch.Tensor) -> torch.Tensor:
+    """Separable x2 upsampling: :func:`upsample_axis_plain` along x, y,
+    then z."""
+    for axis in range(3):
+        vol = upsample_axis_plain(vol, axis)
+    return vol
+
+
+def upsample2(vol: torch.Tensor) -> torch.Tensor:
+    """(X, Y, Z) -> (2X - 1, 2Y - 1, 2Z - 1) of a 3D float32 volume."""
     if vol.device.type == "cpu":
-        return upsample_axis_plain(vol, axis)
+        return upsample2_plain(vol)
     global launches
-    if vol.dim() != 3 or vol.dtype != torch.float32 or not 0 <= axis < 3:
-        raise ValueError(f"upsample_axis: need a 3D float32 volume and an "
-                         f"axis in 0-2, got {tuple(vol.shape)} {vol.dtype} "
-                         f"axis {axis}")
-    if vol.shape[axis] < 1:
-        raise ValueError("upsample_axis: empty axis")
+    if vol.dim() != 3 or vol.dtype != torch.float32:
+        raise ValueError(f"upsample2: need a 3D float32 volume, got "
+                         f"{tuple(vol.shape)} {vol.dtype}")
+    if min(vol.shape) < 1:
+        raise ValueError(f"upsample2: empty axis in {tuple(vol.shape)}")
     vol = vol.contiguous()
-    build.require_cuda("upsample_axis", vol)
-    shape = list(vol.shape)
-    n = shape[axis]
-    outer = int(np.prod(shape[:axis], dtype=np.int64))
-    inner = int(np.prod(shape[axis + 1:], dtype=np.int64))
-    shape[axis] = 2 * n - 1
-    out = torch.empty(shape, dtype=torch.float32, device=vol.device)
-    if out.numel() == 0:
-        return out
+    build.require_cuda("upsample2", vol)
+    X, Y, Z = vol.shape
+    out = torch.empty((2 * X - 1, 2 * Y - 1, 2 * Z - 1), dtype=torch.float32,
+                      device=vol.device)
     lib = build.library()
-    build.launch(
-        lib.mad_upsample_axis, vol.device, vol.data_ptr(), out.data_ptr(),
-        outer, n, inner)
+    build.launch(lib.mad_upsample2, vol.device, vol.data_ptr(),
+                 out.data_ptr(), X, Y, Z, WIDE_FROM)
     launches += 1
     return out

@@ -3,8 +3,9 @@
 Gaussian smoothing and the simulator's blur (of one volume or a batch)
 are 1D convolutions along each axis, and the scale-normalized LoG is three
 fused passes, all through kernel K1 (:mod:`mad_tpu_torch.kernels.conv1d`:
-``conv1d_along`` and ``log_gauss``); the x2 Catmull-Rom upsampling goes
-axis by axis through kernel K2 (:mod:`mad_tpu_torch.kernels.upsample`).
+``conv1d_along`` and ``log_gauss``); the x2 Catmull-Rom upsampling,
+``upsample2``, is kernel K2's wrapper (:mod:`mad_tpu_torch.kernels.upsample`,
+all three axes in one launch).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 from ..kernels.conv1d import conv1d_along, log_gauss
-from ..kernels.upsample import upsample_axis
+from ..kernels.upsample import upsample2  # noqa: F401  (K2)
 
 
 def gaussian_kernel1d(sigma: float, order: int = 0, truncate: float = 4.0
@@ -69,11 +70,3 @@ def log_filter3d(vol: torch.Tensor, sigma: float, truncate: float = 4.0):
     held = [vol]
     del vol
     return log_gauss(held, g0, g2, sigma)
-
-
-def upsample2(vol: torch.Tensor) -> torch.Tensor:
-    """Separable x2 cubic upsampling: (X,Y,Z) -> (2X-1, 2Y-1, 2Z-1)."""
-    out = vol
-    for axis in range(3):
-        out = upsample_axis(out, axis)
-    return out

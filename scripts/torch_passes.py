@@ -67,7 +67,7 @@ def profiled_pass(device, cfg):
            f"time, {len(events)} device events, idle "
            f"{1 - dev_us / 1e6 / wall:.1%} of the pass")
     table = prof.key_averages().table(sort_by="device_time_total",
-                                      row_limit=12)
+                                      row_limit=16)
     cs.say(table)
 
 

@@ -261,7 +261,7 @@ FIELDS = ("coords", "map_coords", "subv_coords", "rfinal", "octave",
 def test_describe_grid_mesh(dimer, n, monkeypatch):
     from mad_tpu_torch.engine import pipeline
     from mad_tpu_torch.kernels import orient as k6
-    from mad_tpu_torch.ops import convolve, describe, detect
+    from mad_tpu_torch.ops import convolve, describe, detect, scalespace
     from mad_tpu_torch.parallel import volume
 
     cfg, dmap, want = dimer
@@ -280,7 +280,7 @@ def test_describe_grid_mesh(dimer, n, monkeypatch):
     real_octave = pipeline._describe_octave
     monkeypatch.setattr(pipeline, "_describe_octave", octave_spy)
     for mod, name in ((convolve, "conv1d_along"), (convolve, "log_gauss"),
-                      (convolve, "upsample_axis"), (volume, "gradient"),
+                      (scalespace, "upsample2"), (volume, "gradient"),
                       (detect, "peak_topk"), (detect, "localize"),
                       (k6, "orient"), (describe, "descriptor_hist")):
         def spy(*args, _fn=getattr(mod, name), _name=name, **kw):
@@ -297,7 +297,7 @@ def test_describe_grid_mesh(dimer, n, monkeypatch):
     for k in FIELDS:
         np.testing.assert_array_equal(getattr(got, k), getattr(want, k), k)
     assert {r[0] for r in rows} == {"conv1d_along", "log_gauss",
-                                    "upsample_axis", "gradient", "peak_topk",
+                                    "upsample2", "gradient", "peak_topk",
                                     "localize", "orient", "descriptor_hist"}
     for name, r, b in rows:
         assert r <= b["rows"] and r < b["full"], (name, r, b)
@@ -339,9 +339,10 @@ def test_launch_makes_the_inputs_card_current(monkeypatch):
         seen.append((args, current[0]))
         return 0 if args[0] else 101
 
+    mad_fake.argtypes = [None] * 3          # two arguments and the stream
     build.launch(mad_fake, torch.device("cuda", 1), 7, 8)
     assert seen == [((7, 8, 1001), "cuda:1")] and current == ["cuda:0"]
     with pytest.raises(RuntimeError, match="mad_fake: CUDA launch failed: "
                        "invalid device ordinal"):
-        build.launch(mad_fake, torch.device("cuda", 2), 0)
-    assert seen[-1] == ((0, 1002), "cuda:2") and current == ["cuda:0"]
+        build.launch(mad_fake, torch.device("cuda", 2), 0, 8)
+    assert seen[-1] == ((0, 8, 1002), "cuda:2") and current == ["cuda:0"]

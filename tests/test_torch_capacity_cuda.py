@@ -140,7 +140,7 @@ def test_describe_grid_on_shards_of_one_card(system, cuda, n):
     got = pipeline.describe_grid(dmap, cfg, name="m",
                                  mesh=make_mesh(n, devices=[cuda] * n))
     counts = launch_counts()
-    for name in ("conv1d", "upsample_axis", "gradient", "peak_mask_compact",
+    for name in ("conv1d", "upsample2", "gradient", "peak_mask_compact",
                  "localize", "orient", "descriptor_hist"):
         assert counts[name] > 0, name
     assert got.n == want.n > 0

@@ -29,7 +29,7 @@ from mad_tpu_torch.kernels import gather_norm as k8
 from mad_tpu_torch.kernels import gradient as k3
 from mad_tpu_torch.kernels import localize as k5
 from mad_tpu_torch.kernels import upsample as k2
-from mad_tpu_torch.ops import convolve, detect
+from mad_tpu_torch.ops import detect, scalespace
 from mad_tpu_torch.ops.scalespace import iter_octaves
 from mad_tpu_torch.ops.simulate import simulate_density
 from mad_tpu_torch.testing import make_assembly, recording
@@ -37,7 +37,7 @@ from mad_tpu_torch.testing import make_assembly, recording
 pytestmark = pytest.mark.cuda
 
 # (module, name, plain version): the four kernels' call sites on the path
-SWAPS = ((convolve, "upsample_axis", k2.upsample_axis_plain),
+SWAPS = ((scalespace, "upsample2", k2.upsample2_plain),
          (pipeline, "gradient", k3.gradient_plain),
          (detect, "localize", k5.localize_plain),
          (pipeline, "gather_norm", k8.gather_norm_plain))
@@ -75,17 +75,12 @@ def launched(mod, fn, *args):
 def test_k2_upsample_bitwise(system):
     cfg, dmap = system
     _org, up = next(iter(iter_octaves(dmap, cfg.scalespace)))
-    vol = up.base
-    for axis in range(3):
-        got = launched(k2, k2.upsample_axis, vol, axis)
-        assert torch.equal(got, k2.upsample_axis_plain(vol, axis))
-        vol = got
-    assert tuple(vol.shape) == up.real_shape
+    got = launched(k2, k2.upsample2, up.base)
+    assert torch.equal(got, k2.upsample2_plain(up.base))
+    assert tuple(got.shape) == up.real_shape
     # an axis of length 2 and one of length 1
     small = up.base[:2, :1, :9]
-    for axis in range(3):
-        assert torch.equal(k2.upsample_axis(small, axis),
-                           k2.upsample_axis_plain(small, axis))
+    assert torch.equal(k2.upsample2(small), k2.upsample2_plain(small))
 
 
 def test_k3_gradient_bitwise(system):
@@ -190,7 +185,7 @@ def test_describe_grid_same_with_the_plain_versions(system, monkeypatch):
 def test_wrappers_reject_what_they_do_not_take(cuda):
     vol = torch.zeros((4, 4, 4), device=cuda)
     with pytest.raises(ValueError):
-        k2.upsample_axis(vol.double(), 0)
+        k2.upsample2(vol.double())
     with pytest.raises(ValueError):
         k3.gradient(vol[:1], torch.float32)
     with pytest.raises(ValueError):

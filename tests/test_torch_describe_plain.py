@@ -197,8 +197,7 @@ def test_cpu_tensors_take_the_plain_versions():
     for mod in (k2, k3, k5, k8):
         mod.launches = 0
     vol = torch.as_tensor(_vol(10, (6, 5, 7)))
-    assert torch.equal(k2.upsample_axis(vol, 1),
-                       k2.upsample_axis_plain(vol, 1))
+    assert torch.equal(k2.upsample2(vol), k2.upsample2_plain(vol))
     assert torch.equal(k3.gradient(vol, torch.bfloat16),
                        k3.gradient_plain(vol, torch.bfloat16))
     seeds = torch.tensor([[2, 2, 3]])
