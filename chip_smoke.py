@@ -37,7 +37,14 @@ Phases, each of which raises (non-zero exit) when it fails:
      and bfloat16), both also with their 64-bit offsets forced on the
      ragged shapes, K5 (the LoG volumes of both map octaves with K4's
      seeds) and K8 (the map's two octave tables and keep indices) bit for
-     bit, at the inputs a describe_grid of the bench map gives them; K16
+     bit, at the inputs a describe_grid of the bench map gives them; K4 bit
+     for bit at the fit's four LoG volumes (the map's and the subunit's
+     upsampled and base octaves: the voxels above threshold, the kernel
+     alone beside the wrapper) and at ragged cuts of the map's upsampled
+     one, own rows off a 16-byte boundary in the offset form; K18 bit for
+     bit on the fit's solutions and on 80 (the heteromer phase's count),
+     the kernel alone beside the wrapper, torch.mm of the frame-placed
+     occupancy (the counts only) as its library yardstick; K16
      (the first docking round's 28 lanes and the table rows the rescue
      round may take: hits, counts, accepted,
      slots and rows equal, moved anchors within 1e-12 A; the hits and rows
@@ -59,7 +66,9 @@ Phases, each of which raises (non-zero exit) when it fails:
      and index_put_(accumulate=True) printed beside it), and the
      kernel's bound: the larger of the bytes it must move over 3.35 TB/s
      and the operations it does over 67 TFLOP/s (float32, no tensor cores;
-     K14's, K16's and K17's over 34 TFLOP/s, float64); then describe_grid
+     K14's, K16's and K17's over 34 TFLOP/s, float64); a kernel alone is
+     timed on preallocated buffers with the stream held back while the
+     host enqueues its launches (kernel_ms); then describe_grid
      on the bench map with the kernels and with the plain versions of K1's
      LoG, K2, K3, K5 and K8 must give the same DescriptorSet (desc,
      desc_norm, coords, subv_coords, rfinal) bit for bit;
@@ -173,6 +182,18 @@ K12_EDGE = 1e-4                 # voxel, K12's .5 rounding edge
 # outside the tensor cores (NVIDIA's data sheet), the denominators of each
 # bound.
 PEAK_BYTES_S, PEAK_F32_S, PEAK_F64_S = 3.35e12, 67e12, 34e12
+HOLD_CYCLES = 20_000_000        # kernel_ms's spin, ~10 ms at the card's clock
+# K4 at the fit's four LoG volumes (describe_grid's two octaves, then
+# describe_structure's), and at ragged cuts of the map's upsampled one:
+# (cut, own row0, own rows or None, x0), own rows off a 16-byte boundary
+# where row0 * Y * Z is not a multiple of 4
+K4_SHAPES = ("map upsampled", "map base", "subunit upsampled",
+             "subunit base")
+K4_CUTS = (((1, 2, 3), 0, None, 0), ((5, 9, 67), 0, None, 0),
+           ((37, 29, 31), 1, 20, 17), ((64, 65, 63), 3, 50, 0),
+           ((291, 294, 279), 5, 200, 40))
+K4_RAGGED_THRESHOLD = -1.0      # every voxel of the LoG a candidate
+K18_HETERO_M = 80               # the heteromer phase's solution count
 ASSEMBLY_STAGES = ("overlap", "enumerate", "score_models")
 # kernels the session's first run must launch (K1's LoG, K2, K3, K5, K6,
 # K8, K15, K16, K17)
@@ -494,6 +515,26 @@ def cuda_ms(fn, reps=3):
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(launch, reps=20):
+    """Mean milliseconds of the device work of launch() alone (a wrapper's
+    bare kernel launch, on preallocated buffers): one warm call, then the
+    stream held back by a spin kernel (torch.cuda._sleep) while the host
+    enqueues the launches, so that the events around them time the card's
+    work and none of the host's."""
+    import torch
+    launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(nbytes, ops, peak_ops=PEAK_F32_S):
     """The least time the card could take: the larger of the bytes the
     work must move over PEAK_BYTES_S and its operations over peak_ops
@@ -534,8 +575,8 @@ def kernel_checks(fit, cfg, device):
     from mad_tpu_torch.core.eqsp import get_eqsp
     from mad_tpu_torch.engine.match import match_descriptors
     from mad_tpu_torch.engine.pipeline import octave_lanes
-    from mad_tpu_torch.kernels import conv1d, describe, peaks, repeat
-    from mad_tpu_torch.ops.convolve import gaussian_kernel1d, log_filter3d
+    from mad_tpu_torch.kernels import conv1d, describe, repeat
+    from mad_tpu_torch.ops.convolve import gaussian_kernel1d
     from mad_tpu_torch.ops.describe import descriptor_lattice, region_ids
     from mad_tpu_torch.ops.orient import ref_zone_bounds
     from mad_tpu_torch.ops.scalespace import iter_octaves
@@ -607,23 +648,7 @@ def kernel_checks(fit, cfg, device):
         f"plain version bit for bit; kernel {out['log_gauss']['ms']:.3f} "
         f"ms, plain {out['log_gauss']['plain_ms']:.3f} ms")
 
-    # K4: the octave's LoG; integer-exact (same peaks, values, order).
-    # Work: one read of the LoG, 27 compares a voxel, the peaks written.
-    log_vol, _gauss = log_filter3d(vol, ss.detect_sigma, ss.truncate)
-    del _gauss
-    dc = cfg.detect
-    args = (log_vol, up_octave.real_shape, float(dc.threshold_abs),
-            int(dc.exclude_border), int(dc.max_anchors))
-    v1, i1 = peaks.peak_topk(*args)
-    v2, i2 = peaks.peak_topk_plain(*args)
-    check(torch.equal(i1, i2) and torch.equal(v1, v2),
-          f"K4 peaks differ ({len(i1)} vs {len(i2)})")
-    out["peak_mask_compact"] = measure(
-        float((v1 - v2).abs().max()) if len(v1) else 0.0,
-        lambda: peaks.peak_topk(*args), lambda: peaks.peak_topk_plain(*args),
-        4 * V + 12 * len(v1), 27 * V)
-    say(f"  K4: {len(i1)} peaks")
-    del log_vol, vol
+    del vol
 
     # K7: the octave's lanes. Rows equal in >= 99 %, the rest within an L1
     # of 8 counts (zone-bound ulps of atan2f / acosf). Work per lattice
@@ -719,14 +744,18 @@ def describe_checks(fit, cfg, device):
     with recording(pipeline, "gradient") as grads, \
             recording(detect, "localize") as newton, \
             recording(pipeline, "gather_norm") as gathers, \
-            recording(scalespace, "upsample2") as ups:
+            recording(scalespace, "upsample2") as ups, \
+            recording(detect, "peak_topk") as k4_calls:
         a = pipeline.describe_grid(dmap, cfg, name="bench_map",
                                    device=device)
         torch.cuda.synchronize()
     t_kernels = time.perf_counter() - t0
-    with recording(scalespace, "upsample2") as sub_ups:
+    with recording(scalespace, "upsample2") as sub_ups, \
+            recording(detect, "peak_topk") as sub_k4_calls:
         pipeline.describe_structure(fit["moved"], RES, dmap.voxsp, cfg,
                                     device=device)
+    out.update(k4_checks(k4_calls + sub_k4_calls))
+    del k4_calls, sub_k4_calls
 
     # K2: the upsampled octave's base, all three axes in one launch, bit
     # for bit with the three per-axis passes; also the subunit's base and
@@ -851,6 +880,67 @@ def describe_checks(fit, cfg, device):
     say(f"  describe_grid of the bench map: {a.n} rows, the same with the "
         f"kernels ({t_kernels:.4f} s) and with the plain versions of K1's "
         f"LoG, K2, K3, K5, K8 ({t_plain:.4f} s)")
+    return out
+
+
+def k4_checks(calls):
+    """K4 at the fit's four LoG volumes (``calls``: the recorded arguments
+    of detect.peak_topk in one describe_grid of the bench map and one
+    describe_structure of the subunit, in K4_SHAPES' order) and at
+    K4_CUTS of the map's upsampled one, bit for bit with the plain
+    version; at the four, the voxels above threshold, the kernel alone
+    (kernel_ms) beside the wrapper's time. Work: the own rows read once,
+    the top-k's values and indices written; a compare a voxel, and 27 for
+    each voxel above threshold (this run's data)."""
+    import torch
+    from mad_tpu_torch.kernels import peaks
+    check(len(calls) == len(K4_SHAPES),
+          f"K4 ran {len(calls)} times in the describe calls, not "
+          f"{len(K4_SHAPES)}")
+    out = {}
+    for label, args in zip(K4_SHAPES, calls):
+        vol, real, thr = args[:3]
+        v1, i1 = peaks.peak_topk(*args)
+        v2, i2 = peaks.peak_topk_plain(*args)
+        check(same_bits(v1, v2) and torch.equal(i1, i2),
+              f"K4 {label}: peaks differ ({len(i1)} vs {len(i2)})")
+        V = vol.numel()
+        above = int((vol > thr).sum())
+        keys = torch.empty(peaks._FIRST_CAPACITY, dtype=torch.int64,
+                           device=vol.device)
+        cand = torch.empty(peaks._FIRST_CANDIDATES, dtype=torch.int32,
+                           device=vol.device)
+        counter = torch.empty(3, dtype=torch.int32, device=vol.device)
+        top = (torch.empty(args[4], device=vol.device),
+               torch.empty(args[4], dtype=torch.int64, device=vol.device))
+        r = measure(0.0, lambda: peaks.peak_topk(*args),
+                    lambda: peaks.peak_topk_plain(*args),
+                    4 * V + 12 * len(v1), V + 27 * above)
+        r["kernel_ms"] = kernel_ms(lambda: peaks.compact(
+            vol, real, thr, args[3], 0, vol.shape[0], 0, keys, cand,
+            counter, *top))
+        say(f"  K4 {label}: {tuple(vol.shape)}, {above} of {V} voxels above "
+            f"threshold ({above / V:.3%}), {len(v1)} peaks, equal; kernel "
+            f"alone {r['kernel_ms']:.4f} ms, wrapper {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['bound_ms'] / r['kernel_ms']:.1%} of the "
+            "kernel alone)")
+        out["peak_mask_compact" if label == "map upsampled"
+            else "peak_mask_compact_" + label.replace(" ", "_")] = r
+    log, _real, thr, border, cap = calls[0][:5]
+    for (x, y, z), row0, rows, x0 in K4_CUTS:
+        cut = log[:x, :y, :z].contiguous()
+        for t in (thr, K4_RAGGED_THRESHOLD):
+            args = (cut, (x0 + x, y, z), t, border if t == thr else 1, cap,
+                    row0, rows, x0)
+            v1, i1 = peaks.peak_topk(*args)
+            v2, i2 = peaks.peak_topk_plain(*args)
+            check(same_bits(v1, v2) and torch.equal(i1, i2),
+                  f"K4 differs from the plain version on {(x, y, z)}, own "
+                  f"rows from {row0}, threshold {t}")
+    say(f"  K4 at {len(K4_CUTS)} ragged cuts of the map's upsampled LoG "
+        "(own rows off a 16-byte boundary, offset form), thresholds "
+        f"{thr} and {K4_RAGGED_THRESHOLD}: equal")
     return out
 
 
@@ -1531,7 +1621,7 @@ def assembly_kernel_checks(fit, cfg, device):
     import torch
     from mad_tpu_torch.engine import assemble as asm
     from mad_tpu_torch.kernels import enumerate as k_enum
-    from mad_tpu_torch.kernels import hetero, maxkey, overlap, scatter
+    from mad_tpu_torch.kernels import hetero, maxkey, scatter
     from mad_tpu_torch.ops import simulate
     from mad_tpu_torch.ops.simulate import scatter_args, simulate_density
     from mad_tpu_torch.testing import recording
@@ -1591,21 +1681,7 @@ def assembly_kernel_checks(fit, cfg, device):
             else f"scatter_atoms_{label}"] = res
         del g1
 
-    dens, off, frame = asm.overlap_inputs(structures, cfg.assembly, device)
-    o1 = overlap.pack_overlap(dens, off, frame)
-    o2 = overlap.pack_overlap_plain(dens, off, frame)
-    check(torch.equal(o1, o2), "K18 overlap differs from the plain version")
-    # Work: the boxes read once, one compare a voxel to pack, and per pair
-    # an AND and a popcount per 32-voxel word of the frame.
-    words = int(np.prod(frame)) // 32
-    out["pack_overlap"] = measure(
-        float((o1 - o2).abs().max()),
-        lambda: overlap.pack_overlap(dens, off, frame),
-        lambda: overlap.pack_overlap_plain(dens, off, frame),
-        dens.numel() * 4 + n * 12 + n * n * 4,
-        dens.numel() + n * (n + 1) // 2 * words * 2)
-    say(f"  K18: {n} solutions, boxes {tuple(dens.shape[1:])}, frame "
-        f"{frame}")
+    out.update(k18_checks(structures, cfg, device))
 
     # K19 and K20 read K18's upper-triangular overlap and symmetrize it
     # as they stage it (once K20b's launch); their plain versions stage it
@@ -1649,6 +1725,70 @@ def assembly_kernel_checks(fit, cfg, device):
         ov.numel() + tuples * (2 * n_g + n_g * (n_g - 1) // 2))
     say(f"  K20: {tuples} tuples over {ov.shape[0]} solutions, head "
         f"{len(h1)}")
+    return out
+
+
+def k18_checks(structures, cfg, device):
+    """K18 on the fit's solutions and on K18_HETERO_M solutions (the
+    fit's, each again at small lattice shifts), bit for bit with the plain
+    version; the kernel alone (kernel_ms) beside the wrapper's time; at the
+    fit's, torch.mm of the frame-placed float32 occupancy as the library
+    yardstick, which computes the counts only (not the fractions; every
+    count is below 2^24, so its float32 sums are exact and are held equal
+    to the kernel's). Work: the boxes read once, one compare a voxel, and
+    per pair an AND and a popcount a 32-voxel word of the frame."""
+    import torch
+    from mad_tpu_torch.engine import assemble as asm
+    from mad_tpu_torch.kernels import overlap
+    rng = np.random.default_rng(SEED)
+    n = len(structures)
+    shifted = [s.with_coords(s.coords + rng.integers(-3, 4, 3)
+                             * cfg.assembly.sim_voxsp)
+               for s in structures * (K18_HETERO_M // n)]
+    out = {}
+    for label, sols in (("fit", structures), ("heteromer", shifted)):
+        dens, off, frame = asm.overlap_inputs(sols, cfg.assembly, device)
+        m = dens.shape[0]
+        o1 = overlap.pack_overlap(dens, off, frame)
+        o2 = overlap.pack_overlap_plain(dens, off, frame)
+        check(same_bits(o1, o2), f"K18 {label} ({m} solutions) differs "
+              "from the plain version")
+        counts = torch.empty(m * m + 1, dtype=torch.int32, device=device)
+        ov = torch.empty((m, m), dtype=torch.float32, device=device)
+        k_ms = kernel_ms(lambda: overlap.launch_overlap(dens, off, frame,
+                                                        counts, ov))
+        check(same_bits(ov, o1), f"K18 {label}: the bare launch differs")
+        words = int(np.prod(frame)) // 32
+        library = None
+        if label == "fit":
+            occ = torch.zeros((m,) + tuple(frame), device=device)
+            X, Y, Z = dens.shape[1:]
+            for s, (ox, oy, oz) in enumerate(off.tolist()):
+                occ[s, ox:ox + X, oy:oy + Y, oz:oz + Z] = (dens[s] > 0).float()
+            occ = occ.reshape(m, -1)
+            mm = torch.mm(occ, occ.T)
+            tri = torch.triu(torch.ones((m, m), dtype=torch.bool,
+                                        device=device))
+            check(torch.equal(mm.to(torch.int32)[tri],
+                              counts[:m * m].view(m, m)[tri]),
+                  "K18's counts differ from torch.mm's")
+            library = lambda: torch.mm(occ, occ.T)
+        r = measure(0.0, lambda: overlap.pack_overlap(dens, off, frame),
+                    lambda: overlap.pack_overlap_plain(dens, off, frame),
+                    dens.numel() * 4 + m * 12 + m * m * 4,
+                    dens.numel() + m * (m + 1) // 2 * words * 2, library)
+        r["kernel_ms"] = k_ms
+        say(f"  K18 {label}: {m} solutions, boxes {tuple(dens.shape[1:])}, "
+            f"frame {frame}, equal; kernel alone {k_ms:.4f} ms, wrapper "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+            + ("" if library is None else
+               f"; torch.mm of the frame-placed occupancy (the counts "
+               f"only) {r['library_ms']:.4f} ms"))
+        out["pack_overlap" if label == "fit" else "pack_overlap_" + label] = r
+        del dens, off, counts, ov, o1, o2
+        if library is not None:
+            del occ, mm, library
     return out
 
 

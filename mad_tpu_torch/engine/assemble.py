@@ -101,7 +101,9 @@ def overlap_inputs(structures: Sequence[Structure], cfg: AssemblyConfig,
     (n, X, Y, Z), their integer lattice offsets (n, 3) in a common frame
     and the frame's extent (z a multiple of 32). ``batched_simulate``
     registers every origin on the voxel lattice, so the offsets reproduce
-    the per-pair origin arithmetic of the reference exactly."""
+    the per-pair origin arithmetic of the reference exactly. The boxes are
+    checked to fit the frame here, on the host offsets (K18 does not read
+    them back from the card)."""
     dens, origins = _solution_densities(structures, cfg, device,
                                         cfg.sim_isovalue)
     off = np.rint((origins - origins.min(axis=0)) / cfg.sim_voxsp).astype(
@@ -110,6 +112,7 @@ def overlap_inputs(structures: Sequence[Structure], cfg: AssemblyConfig,
     box = dens.shape[1:]
     frame = (int(box[0] + off[:, 0].max()), int(box[1] + off[:, 1].max()),
              bucket(int(box[2] + off[:, 2].max()), 32))
+    k_overlap.check_frame(off, box, frame)
     return dens, torch.as_tensor(off, device=device), frame
 
 

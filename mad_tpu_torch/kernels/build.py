@@ -47,7 +47,7 @@ SIGNATURES = {
     "mad_log_pass": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                      _P],
     "mad_peak_mask_compact": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _F, _P, _P, _P, _I, _P],
+                              _F, _P, _I, _P, _L, _P, _P, _P, _I, _P],
     "mad_descriptor_hist": [_P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P, _P, _P, _I, _P, _P, _I, _P, _I, _I,
                             _F, _F, _P, _P, _P],
@@ -55,8 +55,7 @@ SIGNATURES = {
     "mad_scatter_atoms": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
                           _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
     "mad_simulate_scale": [_P, _I, _L, _P, _F, _I, _P],
-    "mad_pack_overlap": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                         _P],
+    "mad_pack_overlap": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "mad_enumerate_head": [_P, _I, _P, _I, _I, _L, _I, _I, _I, _P, _P, _P],
     "mad_hetero_head": [_P, _I, _I, _I, _P, _I, _P, _I, _L, _I, _I, _I, _P,
                         _P, _P],

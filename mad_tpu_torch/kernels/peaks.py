@@ -2,11 +2,15 @@
 
 Replaces mad_tpu/ops/detect.py:48-52 and 165-212 (``_maxpool3``, the peak
 mask of ``detect_counts`` and ``topk_flat``). The CUDA kernel
-``csrc/peaks.cu`` appends every peak as (value, flat index) through one
-atomic counter; :func:`peak_topk` then orders the survivors by
-(-value, flat index) -- the tie order of ``lax.top_k`` -- and keeps the
-first ``capacity``. :func:`peak_topk_plain` is the plain version:
-``max_pool3d`` + mask + ``nonzero`` + the same ordering.
+``csrc/peaks.cu`` streams the own rows and appends every peak as one
+64-bit key (:func:`peak_keys_plain`: the value's descending order, then
+the flat index), sorts up to ``SORT_MAX`` keys in one block and writes the
+first ``capacity`` with their values read back from the volume; the
+wrapper sorts more keys with ``torch.sort`` to the same effect
+(:func:`topk_from_keys`). Either gives the order (-value, flat index) of
+``lax.top_k``, +0.0 above -0.0 included. :func:`peak_topk_plain` is the
+plain version: ``max_pool3d`` + mask + ``nonzero`` + a stable sort by
+(-value, index) (:func:`_order`).
 
 Both take an offset form for capacity mode (mad_tpu/ops/detect.py:236-275,
 ``detect_shard``): ``vol`` is a shard's x-slab extended by its neighbours'
@@ -28,18 +32,63 @@ from . import build
 
 launches = 0            # kernel launches since the last reset
 
-# First guess of the survivor buffer; a volume with more peaks is rerun
-# with a buffer of the exact count the first pass measured.
+# First guesses of the key buffer and of the candidate buffer (csrc/
+# peaks.cu: a fill count and a region a warp of its stream); a volume with
+# more peaks, or a warp with more candidates than its region, is rerun
+# with the room the first launch measured.
 _FIRST_CAPACITY = 1 << 16
+_FIRST_CANDIDATES = 1 << 21
+# the most peaks the kernel's own order pass sorts (more: torch.sort of
+# the keys, topk_from_keys)
+SORT_MAX = build.constants("peaks.cu")["kSortMax"]
+
+
+_LOW = 0xFFFFFFFF
+_SIGN = 0x80000000
+
+
+def value_keys(vals: torch.Tensor) -> torch.Tensor:
+    """int64 keys in [-2^31, 2^31) whose ascending order is the float32
+    values' descending order as ``lax.top_k`` ranks them: a total order of
+    the float's bits, +0.0 above -0.0 (``torch.sort`` ties the two)."""
+    bits = vals.contiguous().view(torch.int32).to(torch.int64) & _LOW
+    up = torch.where(bits >= _SIGN, _LOW - bits, bits | _SIGN)
+    return (_SIGN - 1) - up
 
 
 def _order(vals: torch.Tensor, idx: torch.Tensor, capacity: int):
-    """Sort by (-value, index) and keep the first ``capacity``."""
+    """Sort by (-value, index), values in ``lax.top_k``'s order
+    (:func:`value_keys`), and keep the first ``capacity``."""
     idx, perm = torch.sort(idx, stable=True)
     vals = vals[perm]
-    vals, perm = torch.sort(vals, descending=True, stable=True)
-    idx = idx[perm]
-    return vals[:capacity], idx[:capacity]
+    _, perm = torch.sort(value_keys(vals), stable=True)
+    return vals[perm][:capacity], idx[perm][:capacity]
+
+
+def peak_keys_plain(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The kernel's int64 key of each (float32 value, own-row index < 2^31):
+    the high 32 bits :func:`value_keys`, the low 32 bits the index.
+    Ascending keys are :func:`_order`'s order."""
+    return value_keys(vals) * (1 << 32) + idx.to(torch.int64)
+
+
+def key_index(keys: torch.Tensor) -> torch.Tensor:
+    """The own-row flat index (int64) of each key."""
+    return keys & _LOW
+
+
+def topk_from_keys(vol: torch.Tensor, keys: torch.Tensor, capacity: int,
+                   row0: int, rows: int, x0: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first ``capacity`` peaks of the own rows' keys (in any order):
+    their values read from ``vol`` and their global flat indices (int64),
+    in :func:`_order`'s order."""
+    Y, Z = vol.shape[1:]
+    idx = key_index(torch.sort(keys).values[:capacity])
+    vals = vol[row0:row0 + rows].reshape(-1)[idx]
+    if x0:
+        idx += int(x0) * Y * Z
+    return vals, idx
 
 
 def _interior(shape, real_shape, border: int, device, x0: int = 0
@@ -73,6 +122,35 @@ def peak_topk_plain(vol: torch.Tensor, real_shape, threshold: float,
                   idx + x0 * vol.shape[1] * vol.shape[2], capacity)
 
 
+def compact(vol: torch.Tensor, real_shape, threshold: float, border: int,
+            row0: int, rows: int, x0: int, keys: torch.Tensor,
+            cand: torch.Tensor, counter: torch.Tensor, vals: torch.Tensor,
+            idx: torch.Tensor) -> None:
+    """One launch of K4 on a contiguous CUDA volume: the own rows' peaks as
+    keys into ``keys`` (int64, in no order); ``cand`` (int32) the
+    candidates' scratch; ``counter`` (3,) int32: the number of peaks, the
+    most candidates one warp of the stream found and its warps. Peaks past
+    ``len(keys)``, or candidates past a warp's region
+    (:func:`candidate_room`), are lost and call for a rerun with room. With
+    at most ``SORT_MAX`` peaks, ``vals`` (float32) and ``idx`` (int64,
+    global) get the first ``len(vals)`` in :func:`_order`'s order."""
+    global launches
+    X, Y, Z = vol.shape
+    rx, ry, rz = (int(s) for s in real_shape)
+    build.launch(
+        build.library().mad_peak_mask_compact, vol.device, vol.data_ptr(), X,
+        Y, Z, int(row0), int(rows), int(x0), rx, ry, rz, int(border),
+        float(threshold), keys.data_ptr(), len(keys), cand.data_ptr(),
+        len(cand), counter.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+        len(vals))
+    launches += 1
+
+
+def candidate_room(n_cand: int, warps: int) -> int:
+    """The candidates a warp's region holds in a buffer of ``n_cand``."""
+    return (n_cand - warps) // warps
+
+
 def peak_topk(vol: torch.Tensor, real_shape, threshold: float, border: int,
               capacity: int, row0: int = 0, rows=None, x0: int = 0
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -82,7 +160,6 @@ def peak_topk(vol: torch.Tensor, real_shape, threshold: float, border: int,
     if vol.device.type == "cpu":
         return peak_topk_plain(vol, real_shape, threshold, border, capacity,
                                row0, rows, x0)
-    global launches
     if vol.dim() != 3 or vol.dtype != torch.float32:
         raise ValueError(f"peak_topk: need a 3D float32 volume, got "
                          f"{tuple(vol.shape)} {vol.dtype}")
@@ -92,24 +169,24 @@ def peak_topk(vol: torch.Tensor, real_shape, threshold: float, border: int,
         raise ValueError("peak_topk: own rows too large for int32 indices")
     vol = vol.contiguous()
     build.require_cuda("peak_topk", vol)
-    lib = build.library()
-    rx, ry, rz = (int(s) for s in real_shape)
-    cap = _FIRST_CAPACITY
+    dev = vol.device
+    counter = torch.empty(3, dtype=torch.int32, device=dev)
+    vals = torch.empty(capacity, dtype=torch.float32, device=dev)
+    idx = torch.empty(capacity, dtype=torch.int64, device=dev)
+    cap, n_cand = _FIRST_CAPACITY, _FIRST_CANDIDATES
     while True:
-        vals = torch.empty(cap, dtype=torch.float32, device=vol.device)
-        idx = torch.empty(cap, dtype=torch.int32, device=vol.device)
-        counter = torch.zeros(1, dtype=torch.int32, device=vol.device)
-        build.launch(
-            lib.mad_peak_mask_compact, vol.device, vol.data_ptr(), X, Y, Z,
-            int(row0), rows, int(x0), rx, ry, rz, int(border),
-            float(threshold), vals.data_ptr(), idx.data_ptr(),
-            counter.data_ptr(), cap)
-        launches += 1
-        n = int(counter.item())
-        if n <= cap:
+        keys = torch.empty(cap, dtype=torch.int64, device=dev)
+        cand = torch.empty(n_cand, dtype=torch.int32, device=dev)
+        compact(vol, real_shape, threshold, border, row0, rows, x0, keys,
+                cand, counter, vals, idx)
+        n, most, warps = counter.tolist()     # sizes the output: one sync
+        if warps and most > candidate_room(n_cand, warps):
+            n_cand = warps * (most + 1)
+        elif n > cap:
+            cap = n
+        else:
             break
-        cap = n
-    idx = idx[:n].long()
-    if x0:
-        idx += int(x0) * Y * Z
-    return _order(vals[:n], idx, capacity)
+    if n <= SORT_MAX:
+        k = min(n, capacity)
+        return vals[:k], idx[:k]
+    return topk_from_keys(vol, keys[:n], capacity, row0, rows, x0)

@@ -14,7 +14,8 @@ seconds, peak device memory, K1's launches: ``conv1d`` plus ``log_gauss``
 where the checkout has it, and all kernel launches), then its
 kernel_checks (each kernel at the bench fit's inputs against its plain
 version, CUDA events, mean of three after a warm call), and prints the
-chosen rows' kernel and plain ms (a row the checkout lacks is skipped;
+chosen rows' kernel and plain ms, and the kernel alone where the row has
+it (``kernel_ms``: K4's and K18's rows; a row the checkout lacks is skipped;
 the parent's ``upsample_axis``, K2's three per-axis launches, stands for
 ``upsample2``, the same work in one launch).
 ``--bodies``: the simulation body (``ops/simulate._simulate_batch``) at
@@ -84,7 +85,8 @@ rows = cs.kernel_checks(fit, cfg, device) if names != [""] else {}
 for new, old in (("upsample2", "upsample_axis"),):
     if new not in rows and old in rows:
         rows[new] = rows[old]
-print("ROWS " + json.dumps({n: [rows[n]["ms"], rows[n]["plain_ms"]]
+print("ROWS " + json.dumps({n: [rows[n]["ms"], rows[n]["plain_ms"],
+                                rows[n].get("kernel_ms")]
                             for n in names if n in rows}))
 """
 
@@ -121,8 +123,9 @@ def main():
         got[side].append(rows)
         fits[side] += passes
         print(f"run {i} {side} ({root}): " + ", ".join(
-            f"{n} {k:.4f} ms (plain {p:.4f})" for n, (k, p) in rows.items()),
-            flush=True)
+            f"{n} {k:.4f} ms (plain {p:.4f}"
+            + ("" if a is None else f", kernel alone {a:.4f}") + ")"
+            for n, (k, p, a) in rows.items()), flush=True)
         for label, (ms, mib) in json.loads(lines["BODY "]).items():
             print(f"  body {side} {label}: {ms:.4f} ms, peak {mib:.1f} MiB",
                   flush=True)
@@ -137,6 +140,9 @@ def main():
         if runs and runs[0]:
             print(f"mean {side} over {len(runs)} runs: " + ", ".join(
                 f"{n} {sum(r[n][0] for r in runs) / len(runs):.4f} ms"
+                + ("" if runs[0][n][2] is None else
+                   f" (kernel alone "
+                   f"{sum(r[n][2] for r in runs) / len(runs):.4f})")
                 for n in runs[0]))
         if fits[side]:
             keys = fits[side][0].keys()
