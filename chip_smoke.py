@@ -27,7 +27,8 @@ Phases, each of which raises (non-zero exit) when it fails:
      asserted); K6 on every anchor of both octaves, equal
      on every anchor, and on the base octave also at patch sizes 12 and
      24 and with a Gaussian window (>= 99 % of the anchors), each
-     launched twice; K15 on the first-round candidates; the matching
+     launched twice; K15 on the first-round candidates (its steps, and
+     the kernel alone beside the wrapper); the matching
      front on the bench's pairs: K10's head, K11 and K14 equal, K12 equal
      except pairs with a moved anchor within 1e-4 voxel of a .5 rounding
      edge, counted;
@@ -37,14 +38,18 @@ Phases, each of which raises (non-zero exit) when it fails:
      and bfloat16), both also with their 64-bit offsets forced on the
      ragged shapes, K5 (the LoG volumes of both map octaves with K4's
      seeds) and K8 (the map's two octave tables and keep indices) bit for
-     bit, at the inputs a describe_grid of the bench map gives them; K4 bit
+     bit, at the inputs a describe_grid of the bench map gives them; K7 at
+     the fit's four octaves (the map's and the subunit's upsampled and
+     base octaves, as describe_grid and describe_structure call it: its
+     lanes out of bounds, rows within K7's tolerance, the kernel alone
+     beside the wrapper); K4 bit
      for bit at the fit's four LoG volumes (the map's and the subunit's
      upsampled and base octaves: the voxels above threshold, the kernel
      alone beside the wrapper) and at ragged cuts of the map's upsampled
      one, own rows off a 16-byte boundary in the offset form; K18 bit for
      bit on the fit's solutions and on 80 (the heteromer phase's count),
      the kernel alone beside the wrapper, torch.mm of the frame-placed
-     occupancy (the counts only) as its library yardstick; K16
+     occupancy (the counts only) as its library yardstick at both; K16
      (the first docking round's 28 lanes and the table rows the rescue
      round may take: hits, counts, accepted,
      slots and rows equal, moved anchors within 1e-12 A; the hits and rows
@@ -66,9 +71,11 @@ Phases, each of which raises (non-zero exit) when it fails:
      and index_put_(accumulate=True) printed beside it), and the
      kernel's bound: the larger of the bytes it must move over 3.35 TB/s
      and the operations it does over 67 TFLOP/s (float32, no tensor cores;
-     K14's, K16's and K17's over 34 TFLOP/s, float64); a kernel alone is
-     timed on preallocated buffers with the stream held back while the
-     host enqueues its launches (kernel_ms); then describe_grid
+     K14's, K16's and K17's over 34 TFLOP/s, float64); a kernel alone
+     (K4, K5, K7, K14, K15, K16's five entries, K18) is timed on
+     preallocated buffers with the stream held back while the host
+     enqueues its launches (kernel_ms; bare: the wrapper's launch
+     recorded once and repeated alone); then describe_grid
      on the bench map with the kernels and with the plain versions of K1's
      LoG, K2, K3, K5 and K8 must give the same DescriptorSet (desc,
      desc_norm, coords, subv_coords, rfinal) bit for bit;
@@ -535,6 +542,44 @@ def kernel_ms(launch, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def bare(fn):
+    """The one kernel launch that fn() makes, to be repeated alone: fn()
+    runs once with kernels/build.launch recorded and every tensor it makes
+    kept alive (a TorchDispatchMode), and the function returned calls the
+    launcher again with the same arguments on the same buffers, without
+    the wrapper's checks, allocations, conversions and launch count (the
+    launcher's arguments are its ``call``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from mad_tpu_torch.kernels import build
+    calls, kept = [], []
+
+    class Keep(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            kept.append(out)
+            return out
+
+    real = build.launch
+    build.launch = lambda *args: (calls.append(args), real(*args))[1]
+    try:
+        with Keep():
+            fn()
+    finally:
+        build.launch = real
+    check(len(calls) == 1, f"bare: {len(calls)} launches, not one")
+
+    def launch():
+        real(*calls[0])
+
+    launch.kept, launch.call = kept, calls[0]
+    return launch
+
+
+def alone_ms(fn):
+    """kernel_ms of fn()'s one launch (bare)."""
+    return kernel_ms(bare(fn))
+
+
 def bound(nbytes, ops, peak_ops=PEAK_F32_S):
     """The least time the card could take: the larger of the bytes the
     work must move over PEAK_BYTES_S and its operations over peak_ops
@@ -572,13 +617,9 @@ def kernel_checks(fit, cfg, device):
     {name: measure(...)}."""
     import torch
     import torch.nn.functional as F
-    from mad_tpu_torch.core.eqsp import get_eqsp
     from mad_tpu_torch.engine.match import match_descriptors
-    from mad_tpu_torch.engine.pipeline import octave_lanes
-    from mad_tpu_torch.kernels import conv1d, describe, repeat
+    from mad_tpu_torch.kernels import conv1d, repeat
     from mad_tpu_torch.ops.convolve import gaussian_kernel1d
-    from mad_tpu_torch.ops.describe import descriptor_lattice, region_ids
-    from mad_tpu_torch.ops.orient import ref_zone_bounds
     from mad_tpu_torch.ops.scalespace import iter_octaves
     from mad_tpu_torch.ops.simulate import _blur_taps
 
@@ -650,37 +691,6 @@ def kernel_checks(fit, cfg, device):
 
     del vol
 
-    # K7: the octave's lanes. Rows equal in >= 99 %, the rest within an L1
-    # of 8 counts (zone-bound ulps of atan2f / acosf). Work per lattice
-    # sample: a 12 B gather, 15 flops to place it, 8 to normalize, 15 to
-    # rotate, ~40 for atan2 / acos, 6 compares a zone; the rows written.
-    lanes = octave_lanes(up_octave, cfg)
-    dcfg = cfg.describe
-    radius = (dcfg.patch_size - dcfg.patch_size % 2) // 2
-    valid = torch.ones(lanes.coords.shape[0], dtype=torch.bool,
-                       device=device)
-    lattice = descriptor_lattice(radius, True)
-    bounds = ref_zone_bounds(get_eqsp(dcfg.subeqsp_size))
-    args = (lanes.grad, lanes.coords, lanes.rfinal, valid,
-            up_octave.real_shape, lattice,
-            region_ids(radius, dcfg.subregions), bounds, dcfg.subregions,
-            float(dcfg.cutoff_magn), float(dcfg.zero_magn))
-    d1, ok1 = describe.descriptor_hist(*args)
-    d2, ok2 = describe.descriptor_hist_plain(*args)
-    diff = (d1.long() - d2.long()).abs()
-    same = float((diff.sum(dim=1) == 0).float().mean())
-    check(torch.equal(ok1, ok2), "K7 in-bounds flags differ")
-    check(same >= 0.99 and int(diff.sum(dim=1).max()) <= 8,
-          f"K7 rows equal {same:.4f}, max row L1 {int(diff.sum(1).max())}")
-    L, P, nz = len(ok1), len(lattice), len(bounds)
-    out["descriptor_hist"] = measure(
-        float(diff.max()), lambda: describe.descriptor_hist(*args),
-        lambda: describe.descriptor_hist_plain(*args),
-        L * P * 12 + L * (12 + 36 + 1) + d1.numel() * 2 + L,
-        L * P * (15 + 8 + 15 + 40 + 6 * nz))
-    say(f"  K7: {L} lanes, rows equal {same:.5f}")
-    del lanes, args, d1, d2
-
     # K13: the head pairs that the match stage scores exactly. Equal except
     # pairs with an anchor within 1e-4 A of the 4 A radius. Work per pair:
     # each subunit anchor moved (15 flops) and its distance to every map
@@ -736,7 +746,7 @@ def describe_checks(fit, cfg, device):
     from mad_tpu_torch.engine import pipeline
     from mad_tpu_torch.kernels import (gather_norm as k8, gradient as k3,
                                        localize as k5, upsample as k2)
-    from mad_tpu_torch.ops import detect, scalespace
+    from mad_tpu_torch.ops import describe, detect, scalespace
     from mad_tpu_torch.testing import recording
     out = {}
     dmap = fit["dmap"]
@@ -745,17 +755,20 @@ def describe_checks(fit, cfg, device):
             recording(detect, "localize") as newton, \
             recording(pipeline, "gather_norm") as gathers, \
             recording(scalespace, "upsample2") as ups, \
-            recording(detect, "peak_topk") as k4_calls:
+            recording(detect, "peak_topk") as k4_calls, \
+            recording(describe, "descriptor_hist") as k7_calls:
         a = pipeline.describe_grid(dmap, cfg, name="bench_map",
                                    device=device)
         torch.cuda.synchronize()
     t_kernels = time.perf_counter() - t0
     with recording(scalespace, "upsample2") as sub_ups, \
-            recording(detect, "peak_topk") as sub_k4_calls:
+            recording(detect, "peak_topk") as sub_k4_calls, \
+            recording(describe, "descriptor_hist") as sub_k7_calls:
         pipeline.describe_structure(fit["moved"], RES, dmap.voxsp, cfg,
                                     device=device)
     out.update(k4_checks(k4_calls + sub_k4_calls))
-    del k4_calls, sub_k4_calls
+    out.update(k7_checks(k7_calls + sub_k7_calls))
+    del k4_calls, sub_k4_calls, k7_calls, sub_k7_calls
 
     # K2: the upsampled octave's base, all three axes in one launch, bit
     # for bit with the three per-axis passes; also the subunit's base and
@@ -826,7 +839,7 @@ def describe_checks(fit, cfg, device):
     # K5: both octaves' LoG volumes with K4's seeds; times and work summed
     # over the two. Work: the active Newton steps of this run's peaks and
     # the distinct voxels their patches read (newton_work).
-    total = dict(ms=0.0, plain_ms=0.0)
+    total = dict(ms=0.0, plain_ms=0.0, kernel_ms=0.0)
     nbytes = ops = 0
     for args in newton:
         got, ref = k5.localize(*args), k5.localize_plain(*args)
@@ -840,6 +853,7 @@ def describe_checks(fit, cfg, device):
                     lambda: k5.localize_plain(*args), 0, 0)
         total["ms"] += r["ms"]
         total["plain_ms"] += r["plain_ms"]
+        total["kernel_ms"] += alone_ms(lambda: k5.localize(*args))
         say(f"  K5: {K} peaks on {tuple(args[0].shape)}, {steps} Newton "
             f"steps, {int(got[2].sum())} good, equal")
     out["localize"] = dict(max_abs_err=0.0, library_ms=None,
@@ -941,6 +955,53 @@ def k4_checks(calls):
     say(f"  K4 at {len(K4_CUTS)} ragged cuts of the map's upsampled LoG "
         "(own rows off a 16-byte boundary, offset form), thresholds "
         f"{thr} and {K4_RAGGED_THRESHOLD}: equal")
+    return out
+
+
+def k7_checks(calls):
+    """K7 at the fit's four octaves (``calls``: the recorded arguments of
+    ops/describe.descriptor_hist in one describe_grid of the bench map and
+    one describe_structure of the subunit, in K4_SHAPES' order) against
+    its plain version: the same in-bounds flags, rows equal in >= 99 %,
+    the rest within an L1 of 8 counts (zone-bound ulps of atan2f /
+    acosf); the lanes its bounds test puts out of bounds; the kernel
+    alone (kernel_ms) beside the wrapper's time. Work per lattice sample
+    of a valid lane in bounds (this run's data: the kernel gathers for no
+    other lane): the field's 3 components read, 15 flops to place it, 8
+    to normalize, 15 to rotate, ~40 for atan2 / acos, 6 compares a zone;
+    the frames, coords and flags read, the rows and flags written."""
+    import torch
+    from mad_tpu_torch.kernels import describe
+    check(len(calls) == len(K4_SHAPES),
+          f"K7 ran {len(calls)} times in the describe calls, not "
+          f"{len(K4_SHAPES)}")
+    out = {}
+    for label, args in zip(K4_SHAPES, calls):
+        d1, ok1 = describe.descriptor_hist(*args)
+        d2, ok2 = describe.descriptor_hist_plain(*args)
+        diff = (d1.long() - d2.long()).abs()
+        row_l1 = diff.sum(dim=1)
+        same = float((row_l1 == 0).float().mean())
+        check(torch.equal(ok1, ok2), f"K7 {label}: in-bounds flags differ")
+        check(same >= 0.99 and int(row_l1.max()) <= 8,
+              f"K7 {label}: rows equal {same:.4f}, max row L1 "
+              f"{int(row_l1.max())}")
+        grad, valid, lattice, bounds = args[0], args[3], args[5], args[7]
+        L, P, nz, n_ok = len(ok1), len(lattice), len(bounds), int(ok1.sum())
+        oob = int((valid & ~ok1).sum())
+        r = measure(float(diff.max()), lambda: describe.descriptor_hist(*args),
+                    lambda: describe.descriptor_hist_plain(*args),
+                    n_ok * P * 3 * grad.element_size() + L * (12 + 36 + 1)
+                    + d1.numel() * 2 + L,
+                    n_ok * P * (15 + 8 + 15 + 40 + 6 * nz))
+        r["kernel_ms"] = alone_ms(lambda: describe.descriptor_hist(*args))
+        say(f"  K7 {label}: field {tuple(grad.shape)} {grad.dtype}, {L} "
+            f"lanes, {int(valid.sum())} valid, {oob} out of bounds, rows "
+            f"equal {same:.5f}; kernel alone {r['kernel_ms']:.4f} ms, "
+            f"wrapper {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        out["descriptor_hist" if label == "map upsampled"
+            else "descriptor_hist_" + label.replace(" ", "_")] = r
     return out
 
 
@@ -1333,8 +1394,11 @@ def match_kernel_checks(fit, cfg, device):
         lambda: cluster.cluster_select_plain(*args),
         n * (36 + 48 + 4) + 8 * 12 + (4 * n + 2) * 4,
         int(founded_before.sum()) * R2_FLOPS, peak_ops=PEAK_F64_S)
+    out["cluster_select"]["kernel_ms"] = alone_ms(
+        lambda: cluster.cluster_select(*args))
     say(f"  K14: {n} rows, {len(found)} clusters, {n_cands} candidates, "
-        f"equal to filter_pairs")
+        f"equal to filter_pairs; kernel alone "
+        f"{out['cluster_select']['kernel_ms']:.4f} ms")
     return out
 
 
@@ -1493,7 +1557,7 @@ def refine_check(fit, cfg, device):
     from mad_tpu_torch.engine.docking import start_poses
     from mad_tpu_torch.engine.match import match_descriptors
     from mad_tpu_torch.engine.refine import refine_inputs
-    from mad_tpu_torch.kernels import refine as k15
+    from mad_tpu_torch.kernels import build, refine as k15
     from mad_tpu_torch.testing import ca_rmsds
     m, s, dmap, moved = (fit["map_set"], fit["sub_set"], fit["dmap"],
                          fit["moved"])
@@ -1524,13 +1588,17 @@ def refine_check(fit, cfg, device):
                 lambda: k15.refine_loop(*args, rc),
                 lambda: k15.refine_loop_plain(*args, rc), nbytes,
                 int(steps.sum()) * N * REFINE_FLOPS)
+    r["kernel_ms"] = alone_ms(lambda: k15.refine_loop(*args, rc))
     q = np.quantile(d, [0.0, 0.5, 0.9, 1.0])
     say(f"  K15: C {C} candidates x N {N} atoms, {int(failed.sum())} "
         f"failed, steps {int(steps.min())}-{int(steps.max())} "
         f"(sum {int(steps.sum())}); CA-RMSD to plain min/median/p90/max "
         f"{q[0]:.4f}/{q[1]:.4f}/{q[2]:.4f}/{q[3]:.4f} A, "
-        f"{int((d > K15_MEDIAN).sum())} above {K15_MEDIAN}; kernel "
-        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+        f"{int((d > K15_MEDIAN).sum())} above {K15_MEDIAN}; kernel alone "
+        f"{r['kernel_ms']:.4f} ms ({r['kernel_ms'] / steps.max() * 1e3:.3f}"
+        f" us a step of the longest candidate; kCluster "
+        f"{build.constants('refine.cu')['kCluster']}), wrapper "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms")
     return r
 
 
@@ -1731,8 +1799,8 @@ def assembly_kernel_checks(fit, cfg, device):
 def k18_checks(structures, cfg, device):
     """K18 on the fit's solutions and on K18_HETERO_M solutions (the
     fit's, each again at small lattice shifts), bit for bit with the plain
-    version; the kernel alone (kernel_ms) beside the wrapper's time; at the
-    fit's, torch.mm of the frame-placed float32 occupancy as the library
+    version; the kernel alone (kernel_ms) beside the wrapper's time; at
+    both, torch.mm of the frame-placed float32 occupancy as the library
     yardstick, which computes the counts only (not the fractions; every
     count is below 2^24, so its float32 sums are exact and are held equal
     to the kernel's). Work: the boxes read once, one compare a voxel, and
@@ -1759,20 +1827,17 @@ def k18_checks(structures, cfg, device):
                                                         counts, ov))
         check(same_bits(ov, o1), f"K18 {label}: the bare launch differs")
         words = int(np.prod(frame)) // 32
-        library = None
-        if label == "fit":
-            occ = torch.zeros((m,) + tuple(frame), device=device)
-            X, Y, Z = dens.shape[1:]
-            for s, (ox, oy, oz) in enumerate(off.tolist()):
-                occ[s, ox:ox + X, oy:oy + Y, oz:oz + Z] = (dens[s] > 0).float()
-            occ = occ.reshape(m, -1)
-            mm = torch.mm(occ, occ.T)
-            tri = torch.triu(torch.ones((m, m), dtype=torch.bool,
-                                        device=device))
-            check(torch.equal(mm.to(torch.int32)[tri],
-                              counts[:m * m].view(m, m)[tri]),
-                  "K18's counts differ from torch.mm's")
-            library = lambda: torch.mm(occ, occ.T)
+        occ = torch.zeros((m,) + tuple(frame), device=device)
+        X, Y, Z = dens.shape[1:]
+        for s, (ox, oy, oz) in enumerate(off.tolist()):
+            occ[s, ox:ox + X, oy:oy + Y, oz:oz + Z] = (dens[s] > 0).float()
+        occ = occ.reshape(m, -1)
+        mm = torch.mm(occ, occ.T)
+        tri = torch.triu(torch.ones((m, m), dtype=torch.bool, device=device))
+        check(torch.equal(mm.to(torch.int32)[tri],
+                          counts[:m * m].view(m, m)[tri]),
+              f"K18 {label}: the counts differ from torch.mm's")
+        library = lambda: torch.mm(occ, occ.T)
         r = measure(0.0, lambda: overlap.pack_overlap(dens, off, frame),
                     lambda: overlap.pack_overlap_plain(dens, off, frame),
                     dens.numel() * 4 + m * 12 + m * m * 4,
@@ -1781,14 +1846,11 @@ def k18_checks(structures, cfg, device):
         say(f"  K18 {label}: {m} solutions, boxes {tuple(dens.shape[1:])}, "
             f"frame {frame}, equal; kernel alone {k_ms:.4f} ms, wrapper "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
-            + ("" if library is None else
-               f"; torch.mm of the frame-placed occupancy (the counts "
-               f"only) {r['library_ms']:.4f} ms"))
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); torch.mm of the "
+            f"frame-placed occupancy (the counts only) "
+            f"{r['library_ms']:.4f} ms")
         out["pack_overlap" if label == "fit" else "pack_overlap_" + label] = r
-        del dens, off, counts, ov, o1, o2
-        if library is not None:
-            del occ, mm, library
+        del dens, off, counts, ov, o1, o2, occ, mm, library
     return out
 
 
@@ -1987,6 +2049,8 @@ def post_stage_checks(args, n_acc, blocks=None):
         + nl * A * 32 + nl * 8,
         nl * N * POSE_FLOPS + nl * A * (36 + B * DIST_FLOPS),
         peak_ops=PEAK_F64_S)
+    out["post_lanes"]["kernel_ms"] = (
+        alone_ms(lambda: k16.post_lanes(*la)) if nl else None)
     counts_all = k16.post_lanes_plain(*la[:10], 0, C)[2]
     da = (coords_m, failed, counts_all, prev, idx, dedup)
     acc, slot = k16.post_dedup(*da)
@@ -1997,6 +2061,7 @@ def post_stage_checks(args, n_acc, blocks=None):
         0.0, lambda: k16.post_dedup(*da), lambda: k16.post_dedup_plain(*da),
         C * N * 12 + S * N * 24 + C * 9 + n_idx * 8 + C * 16,
         C * (S + C) * n_idx * DIST_FLOPS, peak_ops=PEAK_F64_S)
+    out["post"]["kernel_ms"] = alone_ms(lambda: k16.post_dedup(*da))
     pa = (lo_cloud, prev, coords_m, acc, ad, p0, npt)
     g, w = k16.post_points(*pa), k16.post_points_plain(*pa)
     check(torch.equal(g, w), "K16 points differ from the plain version")
@@ -2004,6 +2069,8 @@ def post_stage_checks(args, n_acc, blocks=None):
         0.0, lambda: k16.post_points(*pa), lambda: k16.post_points_plain(*pa),
         npt * 25 + S * N * 24 + C * N * 12 + C * 8,
         npt * (S + n_acc) * N * DIST_FLOPS, peak_ops=PEAK_F64_S)
+    out["post_points"]["kernel_ms"] = (
+        alone_ms(lambda: k16.post_points(*pa)) if npt else None)
     elig = k16.post_points_plain(*pa[:5], 0, B)
     ra = (lo_rows, lo_cloud, elig, prev, coords_m, acc, ad, r0, nr)
     g, w = k16.post_rows(*ra), k16.post_rows_plain(*ra)
@@ -2015,6 +2082,8 @@ def post_stage_checks(args, n_acc, blocks=None):
         nr * 25 + B * 25 + (nr - on) * (S + n_acc) * N * 12,
         nr * B * 3 + (nr - on) * (S + n_acc) * N * DIST_FLOPS,
         peak_ops=PEAK_F64_S)
+    out["post_rows"]["kernel_ms"] = (
+        alone_ms(lambda: k16.post_rows(*ra)) if nr else None)
     flags = k16.post_rows_plain(*ra[:7], 0, P)
     g = k16.post_compact(flags, n_top)
     check(torch.equal(g, k16.post_compact_plain(flags, n_top)),
@@ -2023,6 +2092,8 @@ def post_stage_checks(args, n_acc, blocks=None):
         0.0, lambda: k16.post_compact(flags, n_top),
         lambda: k16.post_compact_plain(flags, n_top), P + (1 + n_top) * 8, P,
         peak_ops=PEAK_F64_S)
+    out["post_compact"]["kernel_ms"] = alone_ms(
+        lambda: k16.post_compact(flags, n_top))
     return out
 
 
@@ -2801,11 +2872,13 @@ def phases(work):
             "library_ms")
     report = [dict({"name": name, "route": "cuda", "source": src,
                     "replaces": rep, "launches": counts[name]},
-                   **{k: checks[name][k] for k in keys})
+                   **{k: checks[name][k] for k in keys},
+                   kernel_ms=checks[name].get("kernel_ms"))
               for name, (_mod, src, rep) in KERNELS.items()]
     report += [dict({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": rows[name]["launches"]},
-                    **{k: rows[name][k] for k in keys})
+                    **{k: rows[name][k] for k in keys},
+                    kernel_ms=rows[name].get("kernel_ms"))
                for table, rows in ((CAPACITY_ROWS, capacity),
                                    (DOCK_ROWS, dock))
                for name, (_k, src, rep) in table.items()]

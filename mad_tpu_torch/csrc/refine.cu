@@ -15,29 +15,69 @@
 //      since the last checkpoint is below it;
 //   6. the candidate freezes at step < min_step, or on a non-finite
 //      coordinate or translation (then it is flagged failed).
-// A frozen candidate never changes again, so its block exits at once; the
-// plain version's collective exit every batch_size steps gives the same
-// result. Sums over atoms are taken in another order than PyTorch's
-// sum(dim=1) (per thread, then a warp tree, then the warps in order), so a
-// last-bit difference can flip a step halving; everything else rounds as
-// the plain version does (IEEE division and square root, no contraction).
+// A frozen candidate never changes again, so its cluster exits at once;
+// the plain version's collective exit every batch_size steps gives the
+// same result. Sums over atoms are taken in another order than PyTorch's
+// sum(dim=1) (256 logical threads each over its atoms t, t + 256, ... in
+// turn, then a __shfl_down tree within each warp of 32, then the 8 warp
+// sums in warp order), so a last-bit difference can flip a step halving;
+// everything else rounds as the plain version does (IEEE division and
+// square root, no contraction).
 //
 // Bound: the work is small (C candidates x N atoms x up to 500 steps x 8
-// corner gathers of 12 B, mostly L2 hits since a candidate's atoms stay in
-// a small box); what bounds it is latency: each step is a dependent chain
-// of gather -> block reduction -> one-thread pose update. Design: one
-// block of 256 threads per candidate for all its steps, the pose and the
-// checkpoint pose in shared memory, no device-memory state between steps
-// and no host sync; the plain version needs ~30 launches per step and a
-// host sync every batch_size steps. The checkpoint coordinates are rebuilt
-// from the checkpoint pose (the same arithmetic gives the same bits) so no
-// (C, N, 3) scratch is kept.
+// corner gathers of 12 B, mostly L1 and L2 hits since a candidate's atoms
+// stay in a small box); what bounds it is each step's chain: gather ->
+// reduction over the candidate -> pose update. Measured on the H100
+// (scripts/torch_refine_describe_probe.py): with one CTA a candidate a
+// step is bound by that SM's throughput over the candidate's atoms (this
+// form at kCluster 1 takes the time of the form before it, 6.8 us a
+// step); spread over 8 SMs the step takes ~4.3 us, of which the field
+// loads ~40 % and the cluster barrier, with its wait for the CTA whose
+// threads hold one atom more, ~20 %. Design, for that chain:
+//   * a candidate runs on a thread-block cluster of kCluster CTAs
+//     (cudaLaunchKernelEx with a cluster dimension); CTA r holds warps
+//     r * 8 / kCluster ... of the 256-thread layout above, so the sum's
+//     order does not depend on kCluster (the bench's 28 candidates, H100:
+//     kCluster 1, 2, 4, 8 took 0.92, 0.74, 0.58, 0.54 ms);
+//   * each thread loads its atoms' arms y0 - c once into a register tile
+//     (kTile atoms, up to kAtomsPerThread; beyond 256 * kAtomsPerThread
+//     atoms a looped form walks them in tiles of kLoopTile, arms
+//     reloaded, in the same order) and, each step, issues the 24 field
+//     loads of every atom of its tile before it uses any of them: one
+//     gather round trip a step, not one an atom;
+//   * one pass over the atoms a step: the coordinates moved by step s are
+//     those step s + 1's gathers are taken at, so that pass also tests
+//     their finiteness and, after a checkpoint step, their displacement
+//     from the checkpoint pose (or y0); the force or torque sum, the flag
+//     and the displacement max are reduced together, and a last pass
+//     without gathers settles the last step;
+//   * each warp's partials go into every CTA's shared memory (distributed
+//     shared memory, cluster.map_shared_rank), double-buffered, so a step
+//     needs one cluster.sync() and nothing else: every thread then adds
+//     the 8 warp partials in warp order and runs the step's decisions and
+//     pose update itself (the same arithmetic on the same values in every
+//     thread: no single-thread section, no broadcast barrier);
+//   * the pose, the checkpoint pose and the step size live in registers;
+//     no device-memory state between steps and no host sync; the plain
+//     version needs ~30 launches a step and a host sync every batch_size
+//     steps.
 #include "common.cuh"
+
+#include <cooperative_groups.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;           // logical threads of a candidate
 constexpr int kWarps = kThreads / 32;
+constexpr int kCluster = 8;             // CTAs a candidate: 1, 2, 4 or 8
+constexpr int kCtaThreads = kThreads / kCluster;
+constexpr int kAtomsPerThread = 6;      // register tile's largest size
+constexpr int kLoopTile = 4;            // the looped form's tile
+constexpr int kParts = 5;               // a warp's sum (3), flag, max
+
+static_assert(kCluster == 1 || kCluster == 2 || kCluster == 4 ||
+                  kCluster == 8,
+              "kCluster must divide the 8 warps of a candidate");
 
 __device__ __forceinline__ float sub_rn(float a, float b) {
   return __fsub_rn(a, b);
@@ -61,13 +101,13 @@ __device__ __forceinline__ void pose_apply(const float a[3], const float* R,
                   t[j]);
 }
 
-// ops/interp.trilinear of a (X, Y, Z, 3) field at voxel coords p.
-__device__ __forceinline__ void trilinear3(const float* __restrict__ field,
-                                           int X, int Y, int Z,
-                                           const float p_in[3], float out[3]) {
-  const int dims[3] = {X, Y, Z};
+// ops/interp.trilinear of a (X, Y, Z, 3) field at voxel coords p, split in
+// two: the first corner's element index and the weights, then (corner_sum)
+// the weighted sum of the 8 corners' 3 components loaded beforehand.
+__device__ __forceinline__ long long corner_setup(const int dims[3],
+                                                  const float p_in[3],
+                                                  float w0[3], float w1[3]) {
   int p0[3];
-  float w0[3], w1[3];
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     float p = p_in[j];
@@ -82,25 +122,24 @@ __device__ __forceinline__ void trilinear3(const float* __restrict__ field,
     w0[j] = sub_rn(1.0f, f);
     w1[j] = f;
   }
-  const long long base = ((long long)p0[0] * Y + p0[1]) * Z + p0[2];
-  bool first = true;
+  return (((long long)p0[0] * dims[1] + p0[1]) * dims[2] + p0[2]) * 3;
+}
+
+__device__ __forceinline__ void corner_sum(const float w0[3],
+                                           const float w1[3],
+                                           const float v[8][3],
+                                           float out[3]) {
 #pragma unroll
-  for (int dx = 0; dx < 2; ++dx)
+  for (int c = 0; c < 8; ++c) {
+    const int dx = c >> 2, dy = (c >> 1) & 1, dz = c & 1;
+    const float w = mul_rn(mul_rn(dx ? w1[0] : w0[0], dy ? w1[1] : w0[1]),
+                           dz ? w1[2] : w0[2]);
 #pragma unroll
-    for (int dy = 0; dy < 2; ++dy)
-#pragma unroll
-      for (int dz = 0; dz < 2; ++dz) {
-        const float w = mul_rn(mul_rn(dx ? w1[0] : w0[0], dy ? w1[1] : w0[1]),
-                               dz ? w1[2] : w0[2]);
-        const float* v =
-            field + (base + ((long long)dx * Y + dy) * Z + dz) * 3;
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const float term = mul_rn(w, __ldg(v + k));
-          out[k] = first ? term : add_rn(out[k], term);
-        }
-        first = false;
-      }
+    for (int k = 0; k < 3; ++k) {
+      const float term = mul_rn(w, v[c][k]);
+      out[k] = c == 0 ? term : add_rn(out[k], term);
+    }
+  }
 }
 
 // core/geometry.unit: v / |v| where |v| > 1e-30, else v.
@@ -134,90 +173,77 @@ __device__ __forceinline__ void axis_angle(const float ax[3], float angle,
   R[8] = sub_rn(sub_rn(add_rn(aa, dd), bb), cc);
 }
 
-// Sum of v over the block; the total is valid in thread 0 only.
-__device__ __forceinline__ void block_sum3(float v[3], float (*red)[3]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// One step's pass over a tile of up to kTile atoms (atom k of the tile is
+// the thread's atom first + k; live below n): the moved coordinates, their
+// finiteness and (ck) displacement from the checkpoint, and (gather) the
+// force or torque, each atom's terms added in turn.
+template <int kTile>
+__device__ __forceinline__ void tile_pass(
+    const float* __restrict__ field, const int dims[3], const int cofs[8],
+    const float* __restrict__ y, int t, int first, int n,
+    const float (&arm)[kTile][3], const float* rot, const float* trans,
+    const float* ck_rot, const float* ck_trans, const float cen[3],
+    const float bnd[7], bool check, bool ck, bool ck_is_y0, bool gather,
+    bool rot_step, float acc[3], bool& bad, float& dmax) {
+  float x[kTile][3], w0[kTile][3], w1[kTile][3];
+  long long base[kTile];
+  bool inb[kTile];
 #pragma unroll
-  for (int j = 0; j < 3; ++j)
-    for (int off = 16; off > 0; off >>= 1)
-      v[j] = add_rn(v[j], __shfl_down_sync(0xffffffffu, v[j], off));
-  if (lane == 0)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) red[warp][j] = v[j];
-  __syncthreads();
-  if (threadIdx.x == 0)
+  for (int k = 0; k < kTile; ++k) {
+    pose_apply(arm[k], rot, cen, trans, x[k]);
+    float v[3];
+    inb[k] = true;
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      float s = red[0][j];
-      for (int w = 1; w < kWarps; ++w) s = add_rn(s, red[w][j]);
-      v[j] = s;
+      inb[k] = inb[k] && (x[k][j] > bnd[j]) && (x[k][j] < bnd[3 + j]);
+      v[j] = __fdiv_rn(sub_rn(x[k][j], bnd[j]), bnd[6]);
     }
-}
-
-// NaN-propagating max over the block; valid in thread 0 only.
-__device__ __forceinline__ float block_max(float v, float (*red)[3]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1)
-    v = max_nan(v, __shfl_down_sync(0xffffffffu, v, off));
-  if (lane == 0) red[warp][0] = v;
-  __syncthreads();
-  if (threadIdx.x == 0)
-    for (int w = 1; w < kWarps; ++w) v = max_nan(v, red[w][0]);
-  return v;
-}
-
-__global__ void __launch_bounds__(kThreads) refine_kernel(
-    const float* __restrict__ field, int X, int Y, int Z,
-    const float* __restrict__ y0, int N, const float* __restrict__ center,
-    const float* __restrict__ angle_den, const float* __restrict__ bounds,
-    int n_steps, int batch_size, float max_step, float min_step,
-    float* __restrict__ rot_out, float* __restrict__ trans_out,
-    float* __restrict__ coords_out, unsigned char* __restrict__ frozen_out,
-    int* __restrict__ steps_out, unsigned char* __restrict__ failed_out) {
-  __shared__ float rot[9], trans[3], ck_rot[9], ck_trans[3], cen[3], bnd[7];
-  __shared__ float red[kWarps][3];
-  __shared__ float step_size, den;
-  __shared__ int frozen, failed, count, ck_is_y0;
-  const int cand = blockIdx.x, tid = threadIdx.x;
-  const float* y = y0 + (long long)cand * N * 3;
-
-  if (tid < 9) {
-    rot[tid] = (tid % 4 == 0) ? 1.0f : 0.0f;
-    ck_rot[tid] = rot[tid];
+    base[k] = corner_setup(dims, v, w0[k], w1[k]);
   }
-  if (tid < 3) {
-    trans[tid] = 0.0f;
-    ck_trans[tid] = 0.0f;
-    cen[tid] = center[cand * 3 + tid];
-  }
-  if (tid < 7) bnd[tid] = bounds[tid];
-  if (tid == 0) {
-    step_size = max_step;
-    den = angle_den[cand];
-    frozen = 0;
-    failed = 0;
-    count = 0;
-    ck_is_y0 = 1;
-  }
-  __syncthreads();
-
-  for (int step = 0; step < n_steps; ++step) {
-    if (frozen) break;                       // uniform: read after a sync
-    const bool rot_step = step & 1;
-    float acc[3] = {0.0f, 0.0f, 0.0f};
-    for (int i = tid; i < N; i += kThreads) {
-      float a[3], x[3], v[3], g[3];
+  // every load of the tile in flight before any is used
+  float val[kTile][8][3];
+  float p0[kTile][3];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) a[j] = sub_rn(y[3 * i + j], cen[j]);
-      pose_apply(a, rot, cen, trans, x);
-      bool inb = true;
+  for (int k = 0; k < kTile; ++k) {
+    const bool live = k < n;
+    const long long i = (long long)t + (long long)kThreads * (first + k);
+    const float* b = field + base[k];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        inb = inb && (x[j] > bnd[j]) && (x[j] < bnd[3 + j]);
-        v[j] = __fdiv_rn(sub_rn(x[j], bnd[j]), bnd[6]);
+    for (int c = 0; c < 8; ++c) {
+      const float* v = b + cofs[c];
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        val[k][c][j] = (live && gather) ? __ldg(v + j) : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      p0[k][j] = (live && ck && ck_is_y0) ? __ldg(y + 3 * i + j) : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < kTile; ++k) {
+    if (k >= n) break;
+    if (check) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) bad = bad || !isfinite(x[k][j]);
+    }
+    if (ck) {
+      float p[3], d[3];
+      if (ck_is_y0) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) p[j] = p0[k][j];
+      } else {
+        pose_apply(arm[k], ck_rot, cen, ck_trans, p);
       }
-      trilinear3(field, X, Y, Z, v, g);
-      const float m = inb ? 1.0f : 0.0f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) d[j] = sub_rn(p[j], x[k][j]);
+      dmax = max_nan(dmax, sqrtf(add_rn(add_rn(mul_rn(d[0], d[0]),
+                                               mul_rn(d[1], d[1])),
+                                        mul_rn(d[2], d[2]))));
+    }
+    if (gather) {
+      float g[3];
+      corner_sum(w0[k], w1[k], val[k], g);
+      const float m = inb[k] ? 1.0f : 0.0f;
 #pragma unroll
       for (int j = 0; j < 3; ++j) g[j] = mul_rn(g[j], m);
       if (!rot_step) {
@@ -226,100 +252,218 @@ __global__ void __launch_bounds__(kThreads) refine_kernel(
       } else {
         float r[3];
 #pragma unroll
-        for (int j = 0; j < 3; ++j) r[j] = sub_rn(x[j], cen[j]);
-        acc[0] = add_rn(acc[0], sub_rn(mul_rn(g[1], r[2]), mul_rn(g[2], r[1])));
-        acc[1] = add_rn(acc[1], sub_rn(mul_rn(g[2], r[0]), mul_rn(g[0], r[2])));
-        acc[2] = add_rn(acc[2], sub_rn(mul_rn(g[0], r[1]), mul_rn(g[1], r[0])));
+        for (int j = 0; j < 3; ++j) r[j] = sub_rn(x[k][j], cen[j]);
+        acc[0] = add_rn(acc[0],
+                        sub_rn(mul_rn(g[1], r[2]), mul_rn(g[2], r[1])));
+        acc[1] = add_rn(acc[1],
+                        sub_rn(mul_rn(g[2], r[0]), mul_rn(g[0], r[2])));
+        acc[2] = add_rn(acc[2],
+                        sub_rn(mul_rn(g[0], r[1]), mul_rn(g[1], r[0])));
       }
     }
-    block_sum3(acc, red);
-    if (tid == 0) {
-      float u[3];
-      unit3(acc, u);
-      if (!rot_step) {
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-          trans[j] = add_rn(trans[j], mul_rn(u[j], step_size));
-      } else {
-        float R[9], out[9];
-        axis_angle(u, __fdiv_rn(step_size, den), R);
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-          for (int j = 0; j < 3; ++j)
-            out[3 * i + j] = add_rn(add_rn(mul_rn(rot[3 * i], R[j]),
-                                           mul_rn(rot[3 * i + 1], R[3 + j])),
-                                    mul_rn(rot[3 * i + 2], R[6 + j]));
-#pragma unroll
-        for (int k = 0; k < 9; ++k) rot[k] = out[k];
-      }
-    }
-    __syncthreads();
+  }
+}
 
-    // The moved coordinates: finiteness every step, and at a checkpoint
-    // the max displacement since the previous one.
-    const bool ck = (step + 1) % batch_size == 0;
+// Arms y0 - c of the tile's live atoms (first + k, k < n); 0 past them.
+template <int kTile>
+__device__ __forceinline__ void load_arms(const float* __restrict__ y, int t,
+                                          int first, int n,
+                                          const float cen[3],
+                                          float (&arm)[kTile][3]) {
+#pragma unroll
+  for (int k = 0; k < kTile; ++k) {
+    const long long i = (long long)t + (long long)kThreads * (first + k);
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      arm[k][j] = k < n ? sub_rn(__ldg(y + 3 * i + j), cen[j]) : 0.0f;
+  }
+}
+
+// kTile atoms a thread in registers; kLooped: more than that, walked in
+// tiles of kTile with the arms reloaded.
+template <int kTile, bool kLooped>
+__global__ void __launch_bounds__(kCtaThreads) refine_kernel(
+    const float* __restrict__ field, int X, int Y, int Z,
+    const float* __restrict__ y0, int N, const float* __restrict__ center,
+    const float* __restrict__ angle_den, const float* __restrict__ bounds,
+    int n_steps, int batch_size, float max_step, float min_step,
+    float* __restrict__ rot_out, float* __restrict__ trans_out,
+    float* __restrict__ coords_out, unsigned char* __restrict__ frozen_out,
+    int* __restrict__ steps_out, unsigned char* __restrict__ failed_out) {
+  namespace cg = cooperative_groups;
+  __shared__ float part[2][kWarps][kParts];
+  int rank = 0;
+  if constexpr (kCluster > 1) rank = (int)cg::this_cluster().block_rank();
+  const int cand = blockIdx.x / kCluster;
+  const int t = rank * kCtaThreads + threadIdx.x;   // logical thread
+  const int lane = threadIdx.x & 31, warp = t >> 5;
+  const int dims[3] = {X, Y, Z};
+  int cofs[8];                      // the corners' offsets from the first
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+    cofs[c] = (((c >> 2) * Y + ((c >> 1) & 1)) * Z + (c & 1)) * 3;
+  const float* y = y0 + (long long)cand * N * 3;
+  float cen[3], bnd[7];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) cen[j] = __ldg(center + cand * 3 + j);
+#pragma unroll
+  for (int j = 0; j < 7; ++j) bnd[j] = __ldg(bounds + j);
+  const float den = __ldg(angle_den + cand);
+  const int nper = t < N ? (N - 1 - t) / kThreads + 1 : 0;   // own atoms
+
+  float arm[kTile][3];
+  if (!kLooped) load_arms<kTile>(y, t, 0, nper, cen, arm);
+  float rot[9], trans[3], ck_rot[9], ck_trans[3];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) rot[k] = ck_rot[k] = (k % 4 == 0) ? 1.0f : 0.0f;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) trans[j] = ck_trans[j] = 0.0f;
+  float step_size = max_step;
+  bool ck_is_y0 = true, failed = false, frozen = false;
+  int count = 0, buf = 0;
+
+  // Pass s gathers for step s (s < n_steps) at the coordinates step s - 1
+  // moved to, and settles step s - 1 (s > 0) with the same coordinates.
+  for (int s = 0;; ++s) {
+    const bool check = s > 0;
+    const bool ck = check && s % batch_size == 0;   // step s - 1 was one
+    const bool gather = s < n_steps;
+    const bool rot_step = s & 1;
+    float acc[3] = {0.0f, 0.0f, 0.0f};
     float dmax = 0.0f;
     bool bad = false;
-    for (int i = tid; i < N; i += kThreads) {
-      float a[3], x[3];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) a[j] = sub_rn(y[3 * i + j], cen[j]);
-      pose_apply(a, rot, cen, trans, x);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) bad = bad || !isfinite(x[j]);
-      if (ck) {
-        float p[3], d[3];
-        if (ck_is_y0) {
-#pragma unroll
-          for (int j = 0; j < 3; ++j) p[j] = y[3 * i + j];
-        } else {
-          pose_apply(a, ck_rot, cen, ck_trans, p);
-        }
-#pragma unroll
-        for (int j = 0; j < 3; ++j) d[j] = sub_rn(p[j], x[j]);
-        dmax = max_nan(dmax, sqrtf(add_rn(add_rn(mul_rn(d[0], d[0]),
-                                                 mul_rn(d[1], d[1])),
-                                          mul_rn(d[2], d[2]))));
+    if (!kLooped) {
+      tile_pass<kTile>(field, dims, cofs, y, t, 0, nper, arm, rot, trans,
+                       ck_rot,
+                       ck_trans, cen, bnd, check, ck, ck_is_y0, gather,
+                       rot_step, acc, bad, dmax);
+    } else {
+      for (int first = 0; first < nper; first += kTile) {
+        load_arms<kTile>(y, t, first, nper - first, cen, arm);
+        tile_pass<kTile>(field, dims, cofs, y, t, first, nper - first, arm,
+                         rot,
+                         trans, ck_rot, ck_trans, cen, bnd, check, ck,
+                         ck_is_y0, gather, rot_step, acc, bad, dmax);
       }
     }
-    bad = __syncthreads_or(bad);
-    if (ck) dmax = block_max(dmax, red);
-    if (tid == 0) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      for (int off = 16; off > 0; off >>= 1)
+        acc[j] = add_rn(acc[j], __shfl_down_sync(0xffffffffu, acc[j], off));
+    for (int off = 16; off > 0; off >>= 1)
+      dmax = max_nan(dmax, __shfl_down_sync(0xffffffffu, dmax, off));
+    bad = __any_sync(0xffffffffu, bad);
+    if (lane == 0) {                // the warp's partials, to every CTA
+      const float mine[kParts] = {acc[0], acc[1], acc[2], bad ? 1.0f : 0.0f,
+                                  dmax};
+#pragma unroll
+      for (int r = 0; r < kCluster; ++r) {
+        float* dst = &part[buf][warp][0];
+        if constexpr (kCluster > 1)
+          dst = cg::this_cluster().map_shared_rank(dst, r);
+#pragma unroll
+        for (int q = 0; q < kParts; ++q) dst[q] = mine[q];
+      }
+    }
+    if constexpr (kCluster > 1) {
+      cg::this_cluster().sync();
+    } else {
+      __syncthreads();
+    }
+    // every thread: the candidate's sums in warp order, then the step
+    float tot[3];
+    bool any_bad = false;
+    float dm = part[buf][0][4];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) tot[j] = part[buf][0][j];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      if (w > 0) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) tot[j] = add_rn(tot[j], part[buf][w][j]);
+        dm = max_nan(dm, part[buf][w][4]);
+      }
+      any_bad = any_bad || part[buf][w][3] != 0.0f;
+    }
+    buf ^= 1;
+    if (check) {                    // step s - 1: the parent's order
       if (ck) {
-        if (dmax < step_size) step_size = mul_rn(step_size, 0.5f);
+        if (dm < step_size) step_size = mul_rn(step_size, 0.5f);
 #pragma unroll
         for (int k = 0; k < 9; ++k) ck_rot[k] = rot[k];
 #pragma unroll
         for (int j = 0; j < 3; ++j) ck_trans[j] = trans[j];
-        ck_is_y0 = 0;
+        ck_is_y0 = false;
       }
 #pragma unroll
-      for (int j = 0; j < 3; ++j) bad = bad || !isfinite(trans[j]);
-      if (bad) failed = 1;
+      for (int j = 0; j < 3; ++j) any_bad = any_bad || !isfinite(trans[j]);
+      if (any_bad) failed = true;
       count += 1;
-      if (step_size < min_step || failed) frozen = 1;
+      if (step_size < min_step || failed) {
+        frozen = true;
+        break;
+      }
     }
-    __syncthreads();
+    if (!gather) break;
+    float u[3];
+    unit3(tot, u);
+    if (!rot_step) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        trans[j] = add_rn(trans[j], mul_rn(u[j], step_size));
+    } else {
+      float R[9], out[9];
+      axis_angle(u, __fdiv_rn(step_size, den), R);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          out[3 * i + j] = add_rn(add_rn(mul_rn(rot[3 * i], R[j]),
+                                         mul_rn(rot[3 * i + 1], R[3 + j])),
+                                  mul_rn(rot[3 * i + 2], R[6 + j]));
+#pragma unroll
+      for (int k = 0; k < 9; ++k) rot[k] = out[k];
+    }
   }
 
+  // after the last cluster.sync() no CTA touches another's shared memory
   float* xo = coords_out + (long long)cand * N * 3;
-  for (int i = tid; i < N; i += kThreads) {
-    float a[3], x[3];
+  for (int first = 0; first < nper; first += kTile) {
+    if (kLooped) load_arms<kTile>(y, t, first, nper - first, cen, arm);
 #pragma unroll
-    for (int j = 0; j < 3; ++j) a[j] = sub_rn(y[3 * i + j], cen[j]);
-    pose_apply(a, rot, cen, trans, x);
+    for (int k = 0; k < kTile; ++k) {
+      if (first + k >= nper) break;
+      const long long i = (long long)t + (long long)kThreads * (first + k);
+      float x[3];
+      pose_apply(arm[k], rot, cen, trans, x);
 #pragma unroll
-    for (int j = 0; j < 3; ++j) xo[3 * i + j] = x[j];
+      for (int j = 0; j < 3; ++j) xo[3 * i + j] = x[j];
+    }
   }
-  if (tid < 9) rot_out[cand * 9 + tid] = rot[tid];
-  if (tid < 3) trans_out[cand * 3 + tid] = trans[tid];
-  if (tid == 0) {
+  if (t == 0) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) rot_out[cand * 9 + k] = rot[k];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) trans_out[cand * 3 + j] = trans[j];
     frozen_out[cand] = (unsigned char)frozen;
     failed_out[cand] = (unsigned char)failed;
     steps_out[cand] = count;
   }
 }
+
+using Kernel = void (*)(const float*, int, int, int, const float*, int,
+                        const float*, const float*, const float*, int, int,
+                        float, float, float*, float*, float*, unsigned char*,
+                        int*, unsigned char*);
+
+// refine_kernel<tile, false> at index tile - 1; the looped form last
+constexpr Kernel kKernels[] = {
+    refine_kernel<1, false>, refine_kernel<2, false>,
+    refine_kernel<3, false>, refine_kernel<4, false>,
+    refine_kernel<5, false>, refine_kernel<6, false>,
+    refine_kernel<kLoopTile, true>};
+static_assert(sizeof(kKernels) / sizeof(Kernel) == kAtomsPerThread + 1,
+              "one kernel a tile size, and the looped form");
 
 }  // namespace
 
@@ -332,10 +476,28 @@ MAD_EXPORT int mad_refine(const float* field, int X, int Y, int Z,
                           float* coords, unsigned char* frozen, int* steps,
                           unsigned char* failed, cudaStream_t stream) {
   if (C == 0) return 0;
-  if (batch_size < 1 || X < 2 || Y < 2 || Z < 2)
+  if (batch_size < 1 || X < 2 || Y < 2 || Z < 2 || N < 0 ||
+      ((long long)Y * Z + Z + 1) * 3 > 0x7fffffffLL)      // corner offsets
     return static_cast<int>(cudaErrorInvalidValue);
-  refine_kernel<<<C, kThreads, 0, stream>>>(
-      field, X, Y, Z, y0, N, center, angle_den, bounds, n_steps, batch_size,
-      max_step, min_step, rot, trans, coords, frozen, steps, failed);
+  const int per = (N + kThreads - 1) / kThreads;
+  const Kernel kernel =
+      kKernels[per > kAtomsPerThread ? kAtomsPerThread
+                                     : (per < 1 ? 0 : per - 1)];
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(C) * kCluster);
+  cfg.blockDim = dim3(kCtaThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, field, X, Y, Z, y0, N, center, angle_den, bounds,
+      n_steps, batch_size, max_step, min_step, rot, trans, coords, frozen,
+      steps, failed);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,8 +49,8 @@ SIGNATURES = {
     "mad_peak_mask_compact": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _F, _P, _I, _P, _L, _P, _P, _P, _I, _P],
     "mad_descriptor_hist": [_P, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _P, _P, _P, _I, _P, _P, _I, _P, _I, _I,
-                            _F, _F, _P, _P, _P],
+                            _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _I,
+                            _P, _I, _P, _P, _I, _F, _F, _P, _P, _P],
     "mad_exact_repeat": [_P, _I, _P, _I, _P, _P, _P, _I, _F, _P, _P],
     "mad_scatter_atoms": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
                           _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],

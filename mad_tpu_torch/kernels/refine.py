@@ -2,11 +2,12 @@
 
 Replaces the loop of mad_tpu/engine/refine.py:63-162 (``_compiled_refine``,
 with the trilinear gather of mad_tpu/ops/interp.py:37-82). The CUDA kernel
-``csrc/refine.cu`` runs one block per candidate through every step with
-the pose in shared memory and exits when the candidate freezes (its note
-says what bounds it); :func:`refine_loop_plain` is the plain PyTorch
-version, a Python loop of batched tensor ops with one host sync every
-``batch_size`` steps.
+``csrc/refine.cu`` runs each candidate on a thread-block cluster through
+every step, one pass over the atoms and one cluster barrier a step, with
+the pose in every thread's registers, and exits when the candidate freezes
+(its note says what bounds it); :func:`refine_loop_plain` is the plain
+PyTorch version, a Python loop of batched tensor ops with one host sync
+every ``batch_size`` steps.
 
 Inputs of both: the (X, Y, Z, 3) float32 gradient field, the (C, N, 3)
 float32 start coordinates ``y0``, their (C, 1, 3) centroids, the (C,)

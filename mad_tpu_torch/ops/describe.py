@@ -18,6 +18,8 @@ device.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -28,8 +30,11 @@ from ..parallel.volume import check_halo, map_owned
 from .orient import ref_zone_bounds
 
 
+@functools.lru_cache(maxsize=None)
 def descriptor_lattice(radius: int, upsampled: bool) -> np.ndarray:
-    """(P, 3) sample offsets in octave voxels (mad/Descriptor.py:32-35)."""
+    """(P, 3) sample offsets in octave voxels (mad/Descriptor.py:32-35);
+    one array a setting, never written, so K7's wrapper knows it by
+    identity."""
     if upsampled:
         r = np.arange(-2 * radius + 1, 2 * radius + 1, 2, dtype=np.float32)
     else:
@@ -38,9 +43,10 @@ def descriptor_lattice(radius: int, upsampled: bool) -> np.ndarray:
     return np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
 
 
+@functools.lru_cache(maxsize=None)
 def region_ids(radius: int, subregions: int) -> np.ndarray:
     """Subregion id per lattice point, reference slice-table order
-    (mad/Descriptor.py:38-96)."""
+    (mad/Descriptor.py:38-96); one array a setting, never written."""
     n = 2 * radius
     idx = np.arange(n)
     if subregions == 64:

@@ -15,7 +15,8 @@ where the checkout has it, and all kernel launches), then its
 kernel_checks (each kernel at the bench fit's inputs against its plain
 version, CUDA events, mean of three after a warm call), and prints the
 chosen rows' kernel and plain ms, and the kernel alone where the row has
-it (``kernel_ms``: K4's and K18's rows; a row the checkout lacks is skipped;
+it (``kernel_ms``: K4's, K5's, K7's, K14's, K15's, K16's and K18's rows;
+a row the checkout lacks is skipped;
 the parent's ``upsample_axis``, K2's three per-axis launches, stands for
 ``upsample2``, the same work in one launch).
 ``--bodies``: the simulation body (``ops/simulate._simulate_batch``) at
