@@ -31,7 +31,9 @@ Phases, each of which raises (non-zero exit) when it fails:
      the kernel alone beside the wrapper); the matching
      front on the bench's pairs: K10's head, K11 and K14 equal, K12 equal
      except pairs with a moved anchor within 1e-4 voxel of a .5 rounding
-     edge, counted;
+     edge, counted; K14 also on a 4,000-row stress table (K14_STRESS) at
+     the bench's rmsd_cloud, with every row its own cluster and with one
+     cluster, equal to its plain version, alone beside the wrapper;
      the describe stage's K2 (the map's and the subunit's bases, all three
      axes in one launch, and ragged shapes cut from the map's base), K3
      (the upsampled Gaussian volume and ragged shapes cut from it, float32
@@ -72,7 +74,8 @@ Phases, each of which raises (non-zero exit) when it fails:
      kernel's bound: the larger of the bytes it must move over 3.35 TB/s
      and the operations it does over 67 TFLOP/s (float32, no tensor cores;
      K14's, K16's and K17's over 34 TFLOP/s, float64); a kernel alone
-     (K4, K5, K7, K14, K15, K16's five entries, K18) is timed on
+     (K4, K5, K7, K8 at the map's and the subunit's call, K10's head,
+     K11, K12, K13, K14, K15, K16's five entries, K18, K19) is timed on
      preallocated buffers with the stream held back while the host
      enqueues its launches (kernel_ms; bare: the wrapper's launch
      recorded once and repeated alone); then describe_grid
@@ -180,6 +183,11 @@ REFINE_FLOPS = 160              # K15 flops per atom and step (both passes)
 NEWTON_FLOPS = 120              # K5 flops per peak and active Newton step
 SADDLE_FLOPS = 30               # K5 flops per peak of the saddle test
 R2_FLOPS = 102                  # K14 float64 flops per (row, cluster) RMSD
+# K14's stress table (testing.pose_table: 4,000 repeat-ordered rows around
+# 60 centre poses) at the bench's rmsd_cloud, with every row its own
+# cluster, and with one cluster
+K14_STRESS = dict(n=4000, n_centers=60, seed=7, noise=0.6)
+K14_STRESS_RMSD = (("default", 10.0), ("own", 1e-3), ("one", 1e9))
 APPROX_FLOPS = 20               # K12 flops per moved, rounded anchor
 DIST_FLOPS = 9                  # K16 float64 flops per squared distance
 POSE_FLOPS = 18                 # K16 float64 flops per atom of a centroid
@@ -609,7 +617,9 @@ def say_measure(name, r):
         + ("none" if lib is None else f"{lib:.4f} ms")
         + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
         f"{r['bytes']:.4g} B, {r['ops']:.4g} ops; "
-        f"{r['bound_ms'] / r['ms']:.1%} of the kernel's time)")
+        f"{r['bound_ms'] / r['ms']:.1%} of the kernel's time)"
+        + (f"; alone {r['kernel_ms']:.4f} ms" if r.get("kernel_ms")
+           else ""))
 
 
 def kernel_checks(fit, cfg, device):
@@ -714,6 +724,8 @@ def kernel_checks(fit, cfg, device):
         lambda: repeat.exact_repeat_plain(*args),
         (a_hi + a_lo) * 12 + n_head * (36 + 24 + 4),
         n_head * a_hi * (15 + 9 * a_lo))
+    out["exact_repeat"]["kernel_ms"] = alone_ms(
+        lambda: repeat.exact_repeat(*args))
     say(f"  K13: {n_head} pairs x {a_hi} x {a_lo} anchors, "
         f"{int(edge.sum())} on the edge")
     out.update(match_kernel_checks(fit, cfg, device))
@@ -762,6 +774,7 @@ def describe_checks(fit, cfg, device):
         torch.cuda.synchronize()
     t_kernels = time.perf_counter() - t0
     with recording(scalespace, "upsample2") as sub_ups, \
+            recording(pipeline, "gather_norm") as sub_gathers, \
             recording(detect, "peak_topk") as sub_k4_calls, \
             recording(describe, "descriptor_hist") as sub_k7_calls:
         pipeline.describe_structure(fit["moved"], RES, dmap.voxsp, cfg,
@@ -862,7 +875,8 @@ def describe_checks(fit, cfg, device):
 
     # K8: the map's two octave tables and keep indices. Work: the kept rows
     # read, the int16 and float32 rows written, the indices read, 3 flops a
-    # bin; library: F.normalize of the gathered rows.
+    # bin; library: F.normalize of the gathered rows. The kernel alone at
+    # the map's and at the subunit's call (describe_structure's).
     (tables, keeps), = gathers
     got, ref = k8.gather_norm(tables, keeps), k8.gather_norm_plain(tables,
                                                                    keeps)
@@ -875,9 +889,14 @@ def describe_checks(fit, cfg, device):
         N * D * (2 + 2 + 4) + N * 8, 3 * N * D,
         lambda: F.normalize(torch.cat([t[k] for t, k in zip(tables, keeps)])
                             .float(), dim=1))
+    out["gather_norm"]["kernel_ms"] = alone_ms(
+        lambda: k8.gather_norm(tables, keeps))
+    (sub_tables, sub_keeps), = sub_gathers
+    sub_ms = alone_ms(lambda: k8.gather_norm(sub_tables, sub_keeps))
     say(f"  K8: {N} rows of {D} from {[t.shape[0] for t in tables]} lanes, "
-        f"equal")
-    del gathers, tables, keeps, got, ref
+        f"equal; kernel alone {out['gather_norm']['kernel_ms']:.4f} ms, at "
+        f"the subunit's call {sub_ms:.4f} ms")
+    del gathers, tables, keeps, got, ref, sub_gathers, sub_tables, sub_keeps
 
     t0 = time.perf_counter()
     with plain_versions(describe_swaps()):
@@ -1088,10 +1107,10 @@ def post_ccc_checks(fit, cfg, device):
     # (float64): each lane's centroid, its anchors moved and measured
     # against every map anchor (lanes); the RMSD of each lane to every
     # earlier solution and lane (dedup); each map anchor measured against
-    # every accepted atom (points); each row's search of the cloud and,
-    # off the cloud, its own atom distances (rows); the flags read and the
-    # rows written (compaction); each stage's inputs read once, its
-    # outputs written.
+    # every accepted atom (points); each row's binary search of the cloud
+    # (3 compares a step) and, off the cloud, its own atom distances
+    # (rows); the flags read and the rows written (compaction); each
+    # stage's inputs read once, its outputs written.
     args = posts[0][:17]
     (rot_m, trans_m, coords_m, failed, cand_rot, cand_hi, cand_lo, x0,
      hi_cloud, lo_cloud, prev, idx, hit, dedup, lo_rows, ad, n_top) = args
@@ -1287,7 +1306,8 @@ def match_kernel_checks(fit, cfg, device):
     import torch
     from mad_tpu_torch.engine import match as em
     from mad_tpu_torch.engine.cluster import filter_pairs
-    from mad_tpu_torch.engine.docking import cluster_candidates
+    from mad_tpu_torch.engine.docking import (cluster_candidates,
+                                              selection_args)
     from mad_tpu_torch.kernels import approx, cluster, field, pairs
     out = {}
     m, s, dmap, mc = fit["map_set"], fit["sub_set"], fit["dmap"], cfg.match
@@ -1313,6 +1333,7 @@ def match_kernel_checks(fit, cfg, device):
                                lambda: pairs.pair_head_plain(*args),
                                sim.numel() * 4 + k1.numel() * 8, sim.numel(),
                                topk_heads)
+    out["pair_head"]["kernel_ms"] = alone_ms(lambda: pairs.pair_head(*args))
     say(f"  K10 head: {dh} x {dl} cosines, {n_pairs} pairs (head "
         f"{k1.numel()})")
     del sim, k1, k2
@@ -1330,6 +1351,8 @@ def match_kernel_checks(fit, cfg, device):
         lambda: field.anchor_field_plain(*args),
         f1.numel() + lo_vox.numel() * 4,
         lo_vox.shape[0] * (2 * r_vox + 1) ** 3)
+    out["anchor_field"]["kernel_ms"] = alone_ms(
+        lambda: field.anchor_field(*args))
     say(f"  K11: {lo_vox.shape[0]} anchors, radius {r_vox}, field "
         f"{tuple(f1.shape)}, {int(f1.sum())} voxels set")
     del f2
@@ -1352,6 +1375,8 @@ def match_kernel_checks(fit, cfg, device):
         lambda: approx.approx_repeat_plain(*args),
         touched + a_hi * 12 + 12 + P * (36 + 24 + 4),
         P * a_hi * APPROX_FLOPS)
+    out["approx_repeat"]["kernel_ms"] = alone_ms(
+        lambda: approx.approx_repeat(*args))
     say(f"  K12: {P} pairs x {a_hi} anchors, {int(edge.sum())} pairs on a "
         f".5 edge, {int((r1 != r2).sum())} differ")
     del args, r1, r2, f1
@@ -1364,18 +1389,8 @@ def match_kernel_checks(fit, cfg, device):
     table = em.match_descriptors(m, s, dmap.shape, dmap.origin, dmap.voxsp,
                                  mc, min_exact=n_samples, device=device)
     n = min(n_samples, table.n)
-    X = table.hi_cloud
-    put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a, dtype=dt),
-                                        device=device)
     fc = cfg.filter
-    args = (put(table.rot[:n], np.float32),
-            put(table.hi_coord[:n], np.float64),
-            put(table.lo_coord[:n], np.float64),
-            put(table.repeat[:n], np.float32), put(X.mean(axis=0), np.float64),
-            put((X.T @ X) / X.shape[0], np.float64), fc.rmsd_cloud,
-            fc.weight_threshold,
-            cluster.gate_threshold(table.repeat[0], fc.min_repeat,
-                                   fc.repeat_frac))
+    args = selection_args(table, fc, n, device)
     c1, c2 = cluster.cluster_select(*args), cluster.cluster_select_plain(*args)
     check(torch.equal(c1, c2), "K14 selection differs from the plain version")
     hb, lb = s.main_bin[table.hi_idx], m.main_bin[table.lo_idx]
@@ -1399,7 +1414,33 @@ def match_kernel_checks(fit, cfg, device):
     say(f"  K14: {n} rows, {len(found)} clusters, {n_cands} candidates, "
         f"equal to filter_pairs; kernel alone "
         f"{out['cluster_select']['kernel_ms']:.4f} ms")
+    for label, rmsd in K14_STRESS_RMSD:
+        args = k14_stress_args(device, rmsd)
+        c1 = cluster.cluster_select(*args)
+        check(torch.equal(c1, cluster.cluster_select_plain(*args)),
+              f"K14 on the stress table ({label}) differs from the plain "
+              "version")
+        n = args[0].shape[0]
+        _assign, found, _w, _c, n_cands = cluster.split_selection(
+            c1.cpu().numpy(), n)
+        say(f"  K14 stress ({label}, rmsd_cloud {rmsd:g}): {n} rows, "
+            f"{len(found)} clusters, {n_cands} candidates, equal; kernel "
+            f"alone {alone_ms(lambda: cluster.cluster_select(*args)):.4f} "
+            f"ms, wrapper "
+            f"{cuda_ms(lambda: cluster.cluster_select(*args)):.4f} ms")
     return out
+
+
+def k14_stress_args(device, rmsd_cloud):
+    """K14's arguments on the K14_STRESS table, all its rows scanned, at
+    the bench's filter settings but ``rmsd_cloud``."""
+    import dataclasses
+    from mad_tpu_torch.convert import match_table_from_numpy
+    from mad_tpu_torch.engine.docking import selection_args
+    from mad_tpu_torch.testing import pose_table
+    table = match_table_from_numpy(**pose_table(**K14_STRESS))
+    fc = dataclasses.replace(bench_config().filter, rmsd_cloud=rmsd_cloud)
+    return selection_args(table, fc, table.n, device)
 
 
 def approx_edges(field, hi_cloud, origin, inv, rot, hi, lo, chunk=1024):
@@ -1770,8 +1811,11 @@ def assembly_kernel_checks(fit, cfg, device):
         lambda: k_enum.enumerate_head_plain(ov, tab, 256),
         n * n * 4 + tab.numel() * tab.element_size() + 256 * 8,
         n * n + ranks * (2 * k + k * (k - 1) // 2))
+    out["enumerate_head"]["kernel_ms"] = alone_ms(
+        lambda: k_enum.enumerate_head(ov, tab, 256))
     say(f"  K19: C({n}, {k}) ranks from K18's ({n}, {n}) overlap, head "
-        f"{len(e1)}")
+        f"{len(e1)} (256, enumerate_homomultimer's default, the fit's "
+        f"head); kernel alone {out['enumerate_head']['kernel_ms']:.4f} ms")
 
     ov, groups = hetero_problem()
     ov = torch.as_tensor(ov, dtype=torch.float32, device=device)
@@ -2020,6 +2064,29 @@ def small_reference(device, cfg):
         f"(overlap max diff {e_ov:g}, CCC max diff {e_ccc:g})")
 
 
+def stage_inputs(args, blocks=None):
+    """K16's five stage calls at one round's inputs (``args``, post's
+    first 17): {wrapper name: its arguments}, the lane, point and row
+    stages on the (start, count) ``blocks`` of the lanes, points and rows
+    (all of each by default), each stage's inputs from the plain versions
+    of the stages before it."""
+    from mad_tpu_torch.kernels import post as k16
+    (rot_m, trans_m, coords_m, failed, cand_rot, cand_hi, cand_lo, x0,
+     hi_cloud, lo_cloud, prev, idx, hit, dedup, lo_rows, ad, n_top) = args
+    C, B, P = coords_m.shape[0], lo_cloud.shape[0], lo_rows.shape[0]
+    lanes, points, rows = blocks or ((0, C), (0, B), (0, P))
+    la = (rot_m, trans_m, failed, cand_rot, cand_hi, cand_lo, x0, hi_cloud,
+          lo_cloud, hit)
+    da = (coords_m, failed, k16.post_lanes_plain(*la, 0, C)[2], prev, idx,
+          dedup)
+    pa = (lo_cloud, prev, coords_m, k16.post_dedup_plain(*da)[0], ad)
+    ra = (lo_rows, lo_cloud, k16.post_points_plain(*pa, 0, B)) + pa[1:]
+    flags = k16.post_rows_plain(*ra, 0, P)
+    return dict(post_lanes=la + lanes, post_dedup=da,
+                post_points=pa + points, post_rows=ra + rows,
+                post_compact=(flags, n_top))
+
+
 def post_stage_checks(args, n_acc, blocks=None):
     """K16's stage entries against their plain versions at one round's
     inputs (``args``, post's first 17; ``n_acc`` lanes accepted), the lane,
@@ -2034,10 +2101,12 @@ def post_stage_checks(args, n_acc, blocks=None):
     C, N = coords_m.shape[:2]
     A, B, S = hi_cloud.shape[0], lo_cloud.shape[0], prev.shape[0]
     n_idx, P = idx.shape[0], lo_rows.shape[0]
-    (l0, nl), (p0, npt), (r0, nr) = blocks or ((0, C), (0, B), (0, P))
+    st = stage_inputs(args, blocks)
+    la, da, pa, ra = (st[k] for k in ("post_lanes", "post_dedup",
+                                      "post_points", "post_rows"))
+    nl, npt, nr = la[-1], pa[-1], ra[-1]
+    r0 = ra[-2]
     out = {}
-    la = (rot_m, trans_m, failed, cand_rot, cand_hi, cand_lo, x0, hi_cloud,
-          lo_cloud, hit, l0, nl)
     g, w = k16.post_lanes(*la), k16.post_lanes_plain(*la)
     check(torch.equal(g[1], w[1]) and torch.equal(g[2], w[2]),
           "K16 lanes: hits or counts differ from the plain version")
@@ -2051,8 +2120,6 @@ def post_stage_checks(args, n_acc, blocks=None):
         peak_ops=PEAK_F64_S)
     out["post_lanes"]["kernel_ms"] = (
         alone_ms(lambda: k16.post_lanes(*la)) if nl else None)
-    counts_all = k16.post_lanes_plain(*la[:10], 0, C)[2]
-    da = (coords_m, failed, counts_all, prev, idx, dedup)
     acc, slot = k16.post_dedup(*da)
     w = k16.post_dedup_plain(*da)
     check(torch.equal(acc, w[0]) and torch.equal(slot, w[1]),
@@ -2062,7 +2129,6 @@ def post_stage_checks(args, n_acc, blocks=None):
         C * N * 12 + S * N * 24 + C * 9 + n_idx * 8 + C * 16,
         C * (S + C) * n_idx * DIST_FLOPS, peak_ops=PEAK_F64_S)
     out["post"]["kernel_ms"] = alone_ms(lambda: k16.post_dedup(*da))
-    pa = (lo_cloud, prev, coords_m, acc, ad, p0, npt)
     g, w = k16.post_points(*pa), k16.post_points_plain(*pa)
     check(torch.equal(g, w), "K16 points differ from the plain version")
     out["post_points"] = measure(
@@ -2071,8 +2137,6 @@ def post_stage_checks(args, n_acc, blocks=None):
         npt * (S + n_acc) * N * DIST_FLOPS, peak_ops=PEAK_F64_S)
     out["post_points"]["kernel_ms"] = (
         alone_ms(lambda: k16.post_points(*pa)) if npt else None)
-    elig = k16.post_points_plain(*pa[:5], 0, B)
-    ra = (lo_rows, lo_cloud, elig, prev, coords_m, acc, ad, r0, nr)
     g, w = k16.post_rows(*ra), k16.post_rows_plain(*ra)
     check(torch.equal(g, w), "K16 rows differ from the plain version")
     blk = lo_rows[r0:r0 + nr]
@@ -2080,11 +2144,12 @@ def post_stage_checks(args, n_acc, blocks=None):
     out["post_rows"] = measure(
         0.0, lambda: k16.post_rows(*ra), lambda: k16.post_rows_plain(*ra),
         nr * 25 + B * 25 + (nr - on) * (S + n_acc) * N * 12,
-        nr * B * 3 + (nr - on) * (S + n_acc) * N * DIST_FLOPS,
+        nr * 3 * math.ceil(math.log2(B + 1))
+        + (nr - on) * (S + n_acc) * N * DIST_FLOPS,
         peak_ops=PEAK_F64_S)
     out["post_rows"]["kernel_ms"] = (
         alone_ms(lambda: k16.post_rows(*ra)) if nr else None)
-    flags = k16.post_rows_plain(*ra[:7], 0, P)
+    flags = st["post_compact"][0]
     g = k16.post_compact(flags, n_top)
     check(torch.equal(g, k16.post_compact_plain(flags, n_top)),
           "K16 compaction differs from the plain version")

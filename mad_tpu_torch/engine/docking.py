@@ -66,6 +66,30 @@ def start_poses(candidates: List[Candidate], sub_struct: Structure
     ]).astype(np.float32)
 
 
+def selection_args(table: MatchTable, cfg: FilterConfig, n: int, device,
+                   best_repeat: float = None) -> tuple:
+    """K14's arguments (kernels/cluster.cluster_select) for the first n
+    rows of a repeat-ordered table: the rows' poses and repeats, the
+    moments of the subunit cloud, the thresholds of ``cfg`` and the repeat
+    gate of ``best_repeat`` (the table's first repeat by default)."""
+    X = table.hi_cloud
+    mu = X.mean(axis=0)
+    M = (X.T @ X) / X.shape[0]
+    if best_repeat is None:
+        best_repeat = table.repeat[0]
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype),
+                               device=device)
+
+    return (put(table.rot[:n], np.float32),
+            put(table.hi_coord[:n], np.float64),
+            put(table.lo_coord[:n], np.float64),
+            put(table.repeat[:n], np.float32), put(mu, np.float64),
+            put(M, np.float64), cfg.rmsd_cloud, cfg.weight_threshold,
+            gate_threshold(best_repeat, cfg.min_repeat, cfg.repeat_frac))
+
+
 def cluster_candidates(table: MatchTable, hi_bins: np.ndarray,
                        lo_bins: np.ndarray, cfg: FilterConfig,
                        n_samples: int, device,
@@ -77,22 +101,7 @@ def cluster_candidates(table: MatchTable, hi_bins: np.ndarray,
     if table.n == 0:
         return []
     n = min(n_samples, table.n)
-    X = table.hi_cloud
-    mu = X.mean(axis=0)
-    M = (X.T @ X) / X.shape[0]
-    if best_repeat is None:
-        best_repeat = table.repeat[0]
-
-    def put(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype),
-                               device=device)
-
-    sel = cluster_select(
-        put(table.rot[:n], np.float32), put(table.hi_coord[:n], np.float64),
-        put(table.lo_coord[:n], np.float64),
-        put(table.repeat[:n], np.float32), put(mu, np.float64),
-        put(M, np.float64), cfg.rmsd_cloud, cfg.weight_threshold,
-        gate_threshold(best_repeat, cfg.min_repeat, cfg.repeat_frac))
+    sel = cluster_select(*selection_args(table, cfg, n, device, best_repeat))
     assign, found, weights, cands, _n = split_selection(sel.cpu().numpy(), n)
     # each member row: [hi_coord(3), lo_coord(3), hi_bin, lo_bin]
     rows = np.concatenate([table.hi_coord[:n], table.lo_coord[:n],

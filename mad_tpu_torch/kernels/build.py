@@ -70,7 +70,7 @@ SIGNATURES = {
     "mad_approx_repeat": [_P, _I, _I, _I, _P, _I, _P, _F, _P, _P, _P, _I,
                           _P, _P],
     "mad_cluster_select": [_P, _P, _P, _P, _P, _P, _I, _D, _I, _D, _I, _P,
-                           _P, _P, _P],
+                           _P, _P, _P, _P],
     "mad_upsample2": [_P, _P, _I, _I, _I, _L, _P],
     "mad_gradient": [_P, _I, _I, _I, _I, _P, _L, _P],
     "mad_localize": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P,
@@ -80,7 +80,8 @@ SIGNATURES = {
                        _I, _D, _P, _P, _P, _P],
     "mad_post_dedup": [_P, _P, _P, _I, _I, _P, _I, _P, _I, _D, _P, _P, _P,
                        _P, _P],
-    "mad_post_points": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _D, _P, _P],
+    "mad_post_points": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _D, _I, _P, _P,
+                        _P],
     "mad_post_rows": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _D,
                       _P, _P],
     "mad_post_compact": [_P, _I, _I, _P, _P],

@@ -9,8 +9,10 @@ above ``rmsd_cloud`` or no cluster exists yet, then it founds one. As in
 ``filter_pairs`` the RMSD is taken in float64; the gates and the score
 (repeat * weight) in float32, as numpy 2 and the JAX body take them.
 
-The CUDA kernel ``csrc/cluster.cu`` runs the whole selection in one block
-(its note says how); :func:`cluster_select_plain` is the plain PyTorch
+The CUDA source ``csrc/cluster.cu`` takes every row's near test against
+every earlier row in parallel, then finds the founders with one warp's
+bit operations and assigns the other rows (its note says how; three
+launches, one call); :func:`cluster_select_plain` is the plain PyTorch
 version, the JAX body's masked scan over all slots in float64 with the
 RMSD terms summed in the kernel's order.
 
@@ -27,9 +29,13 @@ import torch
 
 from . import build
 
-launches = 0            # kernel launches since the last reset
+launches = 0            # kernel launches since the last reset (3 a call)
 
-TABLE_BYTES = 12 * 8    # a cluster's A (3 x 3) and b (3) in float64
+
+def near_words(n: int) -> int:
+    """Words of near bits a row in csrc/cluster.cu's scratch: one a 32-row
+    tile, padded to a multiple of 4 for its 16-byte loads."""
+    return 4 * -(-n // 128)
 
 
 def gate_threshold(best_repeat, min_repeat: float, repeat_frac: float
@@ -138,15 +144,15 @@ def cluster_select(rot: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
     out = torch.empty(4 * n + 2, dtype=torch.int32, device=rot.device)
     if n == 0:
         return out.zero_()
-    in_smem = n * TABLE_BYTES <= build.SMEM_LIMIT - 4096
-    table = torch.empty(0 if in_smem else 12 * n, dtype=torch.float64,
-                        device=rot.device)
+    W = near_words(n)
+    table = torch.empty(12 * n, dtype=torch.float64, device=rot.device)
+    near = torch.empty(n * W + 1, dtype=torch.int32, device=rot.device)
     score = torch.empty(n, dtype=torch.float32, device=rot.device)
     lib = build.library()
     build.launch(
         lib.mad_cluster_select, rot.device, rot.data_ptr(), hi.data_ptr(),
         lo.data_ptr(), repeat.data_ptr(), mu.data_ptr(), M.data_ptr(), n,
-        float(rmsd_cloud), int(weight_threshold), float(rep_thresh),
-        int(in_smem), table.data_ptr(), score.data_ptr(), out.data_ptr())
-    launches += 1
+        float(rmsd_cloud), int(weight_threshold), float(rep_thresh), W,
+        table.data_ptr(), near.data_ptr(), score.data_ptr(), out.data_ptr())
+    launches += 3           # cluster_near, cluster_scan, cluster_assign
     return out

@@ -54,6 +54,9 @@ import torch
 from ..parallel.mesh import Mesh, map_rows, replicate
 from . import build
 
+# atoms a block of the point stage takes, about (csrc/post.cu)
+ATOM_CHUNK = build.constants("post.cu")["kAtomChunk"]
+
 launches = 0            # post_dedup launches since the last reset
 lane_launches = 0       # post_lanes launches
 point_launches = 0      # post_points launches
@@ -196,6 +199,13 @@ def post_compact_plain(row_flag, n_top):
 
 # -- the stage wrappers -------------------------------------------------------
 
+def point_chunks(solutions: int, N: int) -> int:
+    """The runs of atoms that csrc/post.cu's point stage cuts the
+    solutions' atoms into, one a block row of its grid: about ATOM_CHUNK
+    atoms each (at most 65,535 runs)."""
+    return max(1, min(65535, -(-solutions * N // ATOM_CHUNK)))
+
+
 def _f64(*ts):
     return [t.to(torch.float64).contiguous() for t in ts]
 
@@ -266,7 +276,7 @@ def post_dedup(coords_m: torch.Tensor, failed: torch.Tensor,
     if C == 0:
         return acc, slot
     rmat = torch.empty(C * (S + C), dtype=torch.float64, device=dev)
-    lane_of = torch.empty(C, dtype=torch.int32, device=dev)
+    lane_of = torch.empty(C + 1, dtype=torch.int32, device=dev)
     build.launch(
         build.library().mad_post_dedup, dev, coords_m.data_ptr(),
         failed.data_ptr(), counts.data_ptr(), C, N, prev.data_ptr(), S,
@@ -297,11 +307,13 @@ def post_points(lo_cloud: torch.Tensor, prev: torch.Tensor,
     out = torch.empty(count, dtype=torch.uint8, device=dev)
     if count == 0:
         return out
+    chunks = point_chunks(prev.shape[0] + C, N)
+    part = torch.empty(chunks * count + 1, dtype=torch.float64, device=dev)
     build.launch(
         build.library().mad_post_points, dev, lo_cloud.data_ptr(),
         int(start), int(count), prev.data_ptr(), prev.shape[0],
         coords_m.data_ptr(), accepted.data_ptr(), C, N, float(anchor_dist),
-        out.data_ptr())
+        chunks, part.data_ptr(), out.data_ptr())
     point_launches += 1
     return out
 
@@ -353,6 +365,8 @@ def post_compact(row_flag: torch.Tensor, n_top: int) -> torch.Tensor:
     if row_flag.dim() != 1 or n_top < 0:
         raise ValueError("post_compact: bad shapes")
     build.require_cuda("post_compact", row_flag)
+    if row_flag.data_ptr() % 16:        # the kernel's 16-byte loads
+        row_flag = row_flag.clone()
     out = torch.empty(1 + n_top, dtype=torch.float64, device=row_flag.device)
     build.launch(build.library().mad_post_compact, row_flag.device,
                  row_flag.data_ptr(), row_flag.shape[0], int(n_top),
