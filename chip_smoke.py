@@ -31,7 +31,11 @@ Phases, each of which raises (non-zero exit) when it fails:
      the kernel alone beside the wrapper); the matching
      front on the bench's pairs: K10's head, K11 and K14 equal, K12 equal
      except pairs with a moved anchor within 1e-4 voxel of a .5 rounding
-     edge, counted; K14 also on a 4,000-row stress table (K14_STRESS) at
+     edge, counted; K10's head also with max_pairs K10_CUT_PAIRS (fewer
+     keys kept than its row heads hold); K13 on the match stage's head
+     pairs and at K13_STRESS (groups of 32 anchors and map tiles repeat),
+     equal except pairs with an anchor within 1e-4 A of the radius,
+     counted; K14 also on a 4,000-row stress table (K14_STRESS) at
      the bench's rmsd_cloud, with every row its own cluster and with one
      cluster, equal to its plain version, alone beside the wrapper;
      the describe stage's K2 (the map's and the subunit's bases, all three
@@ -188,6 +192,11 @@ R2_FLOPS = 102                  # K14 float64 flops per (row, cluster) RMSD
 # cluster, and with one cluster
 K14_STRESS = dict(n=4000, n_centers=60, seed=7, noise=0.6)
 K14_STRESS_RMSD = (("default", 10.0), ("own", 1e-3), ("one", 1e9))
+# K13's stress shape (testing.repeat_inputs: 1,024 poses of 400 subunit
+# anchors over 5,000 map anchors), and K10's head with max_pairs cut below
+# the bench's 46,848 row-head keys
+K13_STRESS = dict(a_hi=400, a_lo=5000, n_pairs=1024, seed=15)
+K10_CUT_PAIRS = 8192
 APPROX_FLOPS = 20               # K12 flops per moved, rounded anchor
 DIST_FLOPS = 9                  # K16 float64 flops per squared distance
 POSE_FLOPS = 18                 # K16 float64 flops per atom of a centroid
@@ -728,6 +737,17 @@ def kernel_checks(fit, cfg, device):
         lambda: repeat.exact_repeat(*args))
     say(f"  K13: {n_head} pairs x {a_hi} x {a_lo} anchors, "
         f"{int(edge.sum())} on the edge")
+    args = k13_stress_args(device)
+    r1, r2 = repeat.exact_repeat(*args), repeat.exact_repeat_plain(*args)
+    edge = _near_radius(*args)
+    bad = (r1 != r2) & ~edge
+    check(not bool(bad.any()), f"K13 at the stress shape differs on "
+          f"{int(bad.sum())} pairs")
+    say(f"  K13 stress: {args[2].shape[0]} pairs x {args[0].shape[0]} x "
+        f"{args[1].shape[0]} anchors, {int(edge.sum())} on the edge, equal "
+        f"off it; kernel alone "
+        f"{alone_ms(lambda: repeat.exact_repeat(*args)):.4f} ms, wrapper "
+        f"{cuda_ms(lambda: repeat.exact_repeat(*args)):.4f} ms")
     out.update(match_kernel_checks(fit, cfg, device))
     out.update(assembly_kernel_checks(fit, cfg, device))
     out["orient"] = orient_check(fit, cfg, device)
@@ -1336,7 +1356,15 @@ def match_kernel_checks(fit, cfg, device):
     out["pair_head"]["kernel_ms"] = alone_ms(lambda: pairs.pair_head(*args))
     say(f"  K10 head: {dh} x {dl} cosines, {n_pairs} pairs (head "
         f"{k1.numel()})")
-    del sim, k1, k2
+    cut = (sim, mc.row_cap, K10_CUT_PAIRS, thr)
+    check(torch.equal(pairs.pair_head(*cut), pairs.pair_head_plain(*cut)),
+          f"K10 head with max_pairs {K10_CUT_PAIRS} differs from the plain "
+          "version")
+    say(f"  K10 head, max_pairs {K10_CUT_PAIRS}: {dh * k} row-head keys, "
+        f"equal; kernel alone "
+        f"{alone_ms(lambda: pairs.pair_head(*cut)):.4f} ms, wrapper "
+        f"{cuda_ms(lambda: pairs.pair_head(*cut)):.4f} ms")
+    del sim, k1, k2, cut
 
     # K11: equal bytes. Work: the field written once, the anchors read.
     p = em.match_pairs(m, s, mc)
@@ -1441,6 +1469,15 @@ def k14_stress_args(device, rmsd_cloud):
     table = match_table_from_numpy(**pose_table(**K14_STRESS))
     fc = dataclasses.replace(bench_config().filter, rmsd_cloud=rmsd_cloud)
     return selection_args(table, fc, table.n, device)
+
+
+def k13_stress_args(device):
+    """K13's arguments at K13_STRESS, at the bench's 4 A radius."""
+    import torch
+    from mad_tpu_torch.testing import repeat_inputs
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in repeat_inputs(**K13_STRESS)) + (
+        float(bench_config().match.anchor_dist),)
 
 
 def approx_edges(field, hi_cloud, origin, inv, rot, hi, lo, chunk=1024):
@@ -2556,21 +2593,15 @@ def dock_mesh_phase(device, cfg, bench, session):
     return rows, counts["pair_merge"]
 
 
-def rescue_phase(device, cfg):
+def rescue_args(device, cfg):
     """The SMALL dimer with RESCUE's settings, described once on the card:
-    on 4 and 3 shards the single-device solutions bit for bit, with the
-    rescue round's exact re-score (K13) and clustering on the mesh and
-    K16's row stage launched."""
+    dock_structure's positional arguments (call it with n_copies=
+    RESCUE["n_copies"]) and the copies."""
     import dataclasses
-    import torch
-    from mad_tpu_torch.engine import docking
     from mad_tpu_torch.engine.pipeline import (describe_grid,
                                                describe_structure)
-    from mad_tpu_torch.kernels import launch_counts, reset_launches
     from mad_tpu_torch.ops.simulate import simulate_density
-    from mad_tpu_torch.parallel.mesh import make_mesh
-    from mad_tpu_torch.testing import (decoy_transform, make_assembly,
-                                       recording)
+    from mad_tpu_torch.testing import decoy_transform, make_assembly
     rc = cfg.replace(
         detect=dataclasses.replace(cfg.detect, max_anchors=1024),
         filter=dataclasses.replace(cfg.filter,
@@ -2586,7 +2617,19 @@ def rescue_phase(device, cfg):
     m = describe_grid(dmap, rc, name="map", device=device)
     s = describe_structure(moved, SMALL["res"], dmap.voxsp, rc, name="sub",
                            device=device)
-    args = (m, s, moved, dmap, SMALL["res"], rc)
+    return (m, s, moved, dmap, SMALL["res"], rc), copies
+
+
+def rescue_phase(device, cfg):
+    """The rescue case (rescue_args): on 4 and 3 shards the single-device
+    solutions bit for bit, with the rescue round's exact re-score (K13)
+    and clustering on the mesh and K16's row stage launched."""
+    import torch
+    from mad_tpu_torch.engine import docking
+    from mad_tpu_torch.kernels import launch_counts, reset_launches
+    from mad_tpu_torch.parallel.mesh import make_mesh
+    from mad_tpu_torch.testing import recording
+    args, copies = rescue_args(device, cfg)
     ref = docking.dock_structure(*args, n_copies=RESCUE["n_copies"],
                                  device=device)
     for n in DOCK_SHARDS:

@@ -51,7 +51,7 @@ SIGNATURES = {
     "mad_descriptor_hist": [_P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _I,
                             _P, _I, _P, _P, _I, _F, _F, _P, _P, _P],
-    "mad_exact_repeat": [_P, _I, _P, _I, _P, _P, _P, _I, _F, _P, _P],
+    "mad_exact_repeat": [_P, _I, _P, _I, _P, _P, _P, _I, _F, _P, _P, _P],
     "mad_scatter_atoms": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P, _P,
                           _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
     "mad_simulate_scale": [_P, _I, _L, _P, _F, _I, _P],
@@ -64,8 +64,8 @@ SIGNATURES = {
                    _P, _P, _P, _P, _P],
     "mad_refine": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _F,
                    _P, _P, _P, _P, _P, _P, _P],
-    "mad_pair_head": [_P, _I, _I, _I, _F, _I, _L, _P, _P, _P, _P],
-    "mad_pair_merge": [_P, _L, _L, _P, _P, _P],
+    "mad_pair_head": [_P, _I, _I, _I, _F, _I, _L, _P, _P, _P, _P, _P],
+    "mad_pair_merge": [_P, _L, _L, _P, _P, _P, _P],
     "mad_anchor_field": [_P, _I, _I, _I, _I, _I, _P, _P],
     "mad_approx_repeat": [_P, _I, _I, _I, _P, _I, _P, _F, _P, _P, _P, _I,
                           _P, _P],

@@ -4,11 +4,13 @@ Replaces the selection of mad_tpu/engine/match.py:74-91
 (``_compiled_similarity``: ``lax.top_k`` per subunit row, ``lax.top_k``
 over the flat row heads, then the ``> threshold`` mask); the cosine
 product before it stays ``torch.matmul``. The CUDA source
-``csrc/pairs.cu`` keeps each row's head by a radix select in shared
-memory, then sorts the heads by bitonic tiles and merges by rank
-(its note has the details); :func:`pair_head_plain` is the plain PyTorch
-version: threshold, sort per row by (value desc, column asc), cut, and a
-stable global sort.
+``csrc/pairs.cu`` keeps each row's head, sorted, by a radix select in
+shared memory, then takes the smallest keys of those sorted runs a
+bucket of about equal count a block (from a sample of the runs), each
+sorted in shared memory (its note has the details): two kernels a call,
+and ``launches`` counts both. :func:`pair_head_plain` is the plain
+PyTorch version: threshold, sort per row by (value desc, column asc),
+cut, and a stable global sort.
 
 Both return int64 keys (``pair_keys``), ascending as unsigned 64-bit
 integers, which is the order (value descending, row ascending, column
@@ -18,9 +20,10 @@ rows, columns) on the host.
 
 On a mesh (``engine.match.match_pairs(mesh=)``) each shard's head covers
 its block of rows, whose first global row ``row0`` goes into the keys, and
-:func:`pair_merge`, the second entry of ``csrc/pairs.cu`` (its sort and
-merge stages alone), keeps the smallest keys of the shards' heads: the
-global top of mad_tpu's ``lax.top_k`` over the flat row heads.
+:func:`pair_merge`, the second entry of ``csrc/pairs.cu`` (tiles sorted in
+shared memory, then the head's global stage over them: two kernels,
+``merge_launches`` counts both), keeps the smallest keys of the shards'
+heads: the global top of mad_tpu's ``lax.top_k`` over the flat row heads.
 :func:`pair_merge_plain` sorts the keys as unsigned integers.
 """
 
@@ -31,8 +34,12 @@ import torch
 
 from . import build
 
-launches = 0            # pair_head launches since the last reset
-merge_launches = 0      # pair_merge launches since the last reset
+launches = 0            # pair_head kernels since the last reset (2 a call)
+merge_launches = 0      # pair_merge kernels since the last reset (2 a call)
+
+_C = build.constants("pairs.cu")
+PLAN_WORDS = _C["kPlan"]        # the runs' bounds and counts, by atomics
+TILE = _C["kTile"]              # keys in each of the merge's sorted runs
 
 _U32 = 1 << 32
 _SIGN = 1 << 31
@@ -112,14 +119,16 @@ def pair_head(sim: torch.Tensor, row_cap: int, max_pairs: int,
     out = torch.empty(L, dtype=torch.int64, device=sim.device)
     if L == 0:
         return out
-    heads = torch.empty(dh * k, dtype=torch.int64, device=sim.device)
-    tmp = torch.empty_like(heads)
-    lib = build.library()
+    # each row's sorted run of pow2(k) slots, its count of keys, the plan
+    heads = torch.empty(dh * (1 << (k - 1).bit_length()), dtype=torch.int64,
+                        device=sim.device)
+    counts = torch.empty(dh, dtype=torch.int32, device=sim.device)
+    plan = torch.empty(PLAN_WORDS, dtype=torch.int64, device=sim.device)
     build.launch(
-        lib.mad_pair_head, sim.device, sim.data_ptr(), dh, dl, k,
-        float(threshold), int(row0), L, heads.data_ptr(), tmp.data_ptr(),
-        out.data_ptr())
-    launches += 1
+        build.library().mad_pair_head, sim.device, sim.data_ptr(), dh, dl, k,
+        float(threshold), int(row0), L, heads.data_ptr(), counts.data_ptr(),
+        plan.data_ptr(), out.data_ptr())
+    launches += 2
     return out
 
 
@@ -144,9 +153,11 @@ def pair_merge(keys: torch.Tensor, L: int) -> torch.Tensor:
     if L == 0:
         return out
     work = keys.clone()                    # sorted in place by tiles
-    tmp = torch.empty_like(work)
+    counts = torch.empty(-(-work.shape[0] // TILE), dtype=torch.int32,
+                         device=keys.device)
+    plan = torch.empty(PLAN_WORDS, dtype=torch.int64, device=keys.device)
     build.launch(build.library().mad_pair_merge, keys.device,
-                 work.data_ptr(), work.shape[0], L, tmp.data_ptr(),
-                 out.data_ptr())
-    merge_launches += 1
+                 work.data_ptr(), work.shape[0], L, counts.data_ptr(),
+                 plan.data_ptr(), out.data_ptr())
+    merge_launches += 2
     return out

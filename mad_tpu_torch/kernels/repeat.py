@@ -1,8 +1,9 @@
 """K13: exact pose repeatability of descriptor pairs.
 
 Replaces mad_tpu/engine/match.py:176-200 (``_exact_repeat_body``). The
-CUDA kernel ``csrc/repeat.cu`` takes one block per pair and streams the
-map cloud through shared memory (its note says what bounds it);
+CUDA kernel ``csrc/repeat.cu`` takes a warp for each (pair, group of 32
+subunit anchors), one anchor a lane, and streams the map cloud through
+shared memory (its note says what bounds it);
 :func:`exact_repeat_plain` is the plain PyTorch version: the JAX body's
 |y|^2 + |b|^2 - 2 y.b expansion, chunked over pairs.
 """
@@ -57,11 +58,15 @@ def exact_repeat(hi_cloud: torch.Tensor, lo_cloud: torch.Tensor,
     out = torch.empty(P, dtype=torch.float32, device=rot.device)
     if P == 0:
         return out
-    lib = build.library()
+    # each pair's hits and its warps' ticket, only where a pair has several
+    # groups of 32 anchors (the kernel never reads it otherwise)
+    counts = (torch.empty(2 * P, dtype=torch.int32, device=rot.device)
+              if hi_cloud.shape[0] > 32 else None)
     build.launch(
-        lib.mad_exact_repeat, rot.device, hi_cloud.data_ptr(),
+        build.library().mad_exact_repeat, rot.device, hi_cloud.data_ptr(),
         hi_cloud.shape[0], lo_cloud.data_ptr(), lo_cloud.shape[0],
         rot.data_ptr(), hi.data_ptr(), lo.data_ptr(), P,
-        float(thresh) * float(thresh), out.data_ptr())
+        float(thresh) * float(thresh),
+        0 if counts is None else counts.data_ptr(), out.data_ptr())
     launches += 1
     return out

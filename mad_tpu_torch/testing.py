@@ -321,6 +321,24 @@ def post_round(sc: dict, r: int, device):
     return cands, res
 
 
+def repeat_inputs(a_hi: int, a_lo: int, n_pairs: int, seed: int,
+                  box: float = 40.0) -> tuple:
+    """Exact repeatability's inputs at any size: subunit and map anchor
+    clouds uniform in a cube of side ``box`` (A), and n_pairs poses
+    x -> (x - h_k) @ R_k^T + l_k with R_k random, h_k a subunit anchor and
+    l_k a map anchor moved by a unit normal. Returns float32 arrays
+    (hi_cloud, lo_cloud, rot, hi, lo)."""
+    rng = np.random.default_rng(seed)
+    hi_cloud = rng.uniform(-box / 2, box / 2, (a_hi, 3))
+    lo_cloud = rng.uniform(-box / 2, box / 2, (a_lo, 3))
+    rot = _rotations(rng, n_pairs)
+    hi = hi_cloud[rng.integers(0, a_hi, n_pairs)]
+    lo = lo_cloud[rng.integers(0, a_lo, n_pairs)] \
+        + rng.normal(size=(n_pairs, 3))
+    return tuple(np.asarray(a, np.float32)
+                 for a in (hi_cloud, lo_cloud, rot, hi, lo))
+
+
 def pose_table(n: int, n_centers: int, seed: int, a_hi: int = 32,
                spread: float = 40.0, noise: float = 0.05) -> dict:
     """A repeat-ordered match table of n pairs whose poses scatter around

@@ -11,7 +11,8 @@ every letter of ``--order`` (A the first directory, B the second), one
 process in that directory builds the checkout's kernels, runs
 chip_smoke's bench fit once (warm), then ``--fits`` timed fits (stage
 seconds, peak device memory, K1's launches: ``conv1d`` plus ``log_gauss``
-where the checkout has it, and all kernel launches), then its
+where the checkout has it, all kernel launches, and the copies recovered,
+best CA-RMSD below chip_smoke.RECOVER_RMSD), then its
 kernel_checks (each kernel at the bench fit's inputs against its plain
 version, CUDA events, mean of three after a warm call), and prints the
 chosen rows' kernel and plain ms, and the kernel alone where the row has
@@ -62,6 +63,8 @@ for _ in range(fits):
     counts = kernels.launch_counts()
     t["k1_launches"] = counts["conv1d"] + counts.get("log_gauss", 0)
     t["launches"] = sum(counts.values())
+    t["recovered"] = sum(r < cs.RECOVER_RMSD for r in cs.best_rmsds(
+        [s.structure for s in fit["sols"]], fit["copies"]))
     passes.append(t)
 print("FITS " + json.dumps(passes))
 body = {}

@@ -1,0 +1,386 @@
+#!/usr/bin/env python3
+"""K13 (exact repeatability) and K10's head (pair selection) on one NVIDIA
+card: where their time goes, two checkouts' kernels held bit for bit and
+timed in turns, and the host pose data of the match stage in parts.
+
+    python3 scripts/torch_match_probe.py [--parent DIR] [--order ABBA]
+        [--variants paths,pairs,repeat]
+
+Runs chip_smoke.py's bench fit once in this checkout and records the
+inputs of every K10 head call (engine/match.pair_head) and every K13 call
+(engine/match.exact_repeat: the match stage's head pairs), then the
+rescue case (chip_smoke.rescue_args) docked on the card, which records
+K13's calls there, the rescue round's re-score (engine/docking.py's
+exact_rescore) the last, and the bench dock on a mesh of 4 shards of the
+card, which records the merge of the shards' heads (K10's merge, D1) and
+shard 1's K12 and K13 calls (D2). All are saved under mad_tpu_torch/_build/
+with stress inputs: K13 at chip_smoke.K13_STRESS (400 subunit and 5,000
+map anchors), K10's head at (24, 16411) and (300, 700) cosines on a grid
+of levels (as tests/test_torch_match_cuda.py) and on the bench's cosines
+with max_pairs chip_smoke.K10_CUT_PAIRS, so that it keeps fewer keys than
+its row heads hold.
+Prints each input's shape, and the host pose data of match_pairs
+(engine/match.py) on the bench's pairs in parts: the keys' pull, their
+decode (split_pair_keys), the two np.unique(..., axis=0) calls, the
+rfinal gathers, the R_lo^T R_hi einsum and the coordinate copies (median
+of 7, host clock), beside np.unique of the distinct rows' coordinates.
+
+Then, for every letter of ``--order`` (A the checkout ``--parent``, B this
+one; this one alone, once, without ``--parent``), one process in that
+checkout loads the inputs, runs its own kernels on them and times each
+alone (chip_smoke.bare / kernel_ms: the wrapper's one launcher call
+repeated on the same buffers) and its wrapper (chip_smoke.cuda_ms, mean of
+ten); D2 is the wrappers of K12 and K13 called in turn, as chip_smoke's
+repeat_shard row. The two checkouts' outputs are held equal bit for bit.
+Each of ``--variants`` times, on the same recorded launcher calls (alone,
+every call whose export the build has), builds of this checkout's
+csrc/pairs.cu or csrc/repeat.cu with lines changed, all compiled at once,
+in B's first process (A's without ``--parent``):
+  * paths: K10's head and merge with each sort by rank replaced by the
+    bitonic sort (kRankMax 0), without the radix select's rank finish
+    (kFinish never taken: one more 8-bit pass instead), and with
+    neither;
+  * pairs: the row stage empty (its launch), its counting read alone,
+    both reads alone, without its sort, the stage alone; the global stage
+    empty, its bucket alone, its searches and gathers alone, without its
+    sort, the stage alone (on the last call's bounds); the bucket's bounds
+    alone, with its sample, and whole; buckets of 64 and 256 slots;
+  * repeat: K13 with 1, 4 and 8 running minima a lane, and 4 and 16 warps
+    a block.
+Prints the card's name and power limit first. Needs a card.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# Run in a checkout (cwd), its mad_tpu_torch; the helpers (bare,
+# kernel_ms, ...) from this checkout's chip_smoke, loaded by path.
+CHILD = r"""
+import ctypes, importlib.util, json, re, subprocess, sys, torch
+from mad_tpu_torch.kernels import build, approx as k12, pairs as k10
+from mad_tpu_torch.kernels import repeat as k13
+smoke, inputs, out_path, variants = (sys.argv[1], sys.argv[2], sys.argv[3],
+                                     json.loads(sys.argv[4]))
+spec = importlib.util.spec_from_file_location("smoke_helpers", smoke)
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+device, _smi = cs.device_phase()
+cs.build_phase()
+# the variants' builds, all at once
+procs = []
+for name, src, edits in variants:
+    text = (build.CSRC / src).read_text()
+    for old, new in edits:
+        cs.check(len(re.findall(old, text, re.S)) == 1,
+                 f"csrc/{src} has no single {old!r}")
+        text = re.sub(old, new, text, flags=re.S)
+    stem = "probe_" + "".join(c if c.isalnum() else "_" for c in name)
+    cu, so = build.BUILD_DIR / f"{stem}.cu", build.BUILD_DIR / f"{stem}.so"
+    cu.write_text(text)
+    procs.append((name, so, subprocess.Popen(
+        [build._nvcc()] + build.ARCH_FLAGS + build.NVCC_FLAGS
+        + ["-I", str(build.CSRC), "-shared", "-o", str(so), str(cu)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+built = []
+for name, so, proc in procs:
+    log, _ = proc.communicate()
+    cs.check(proc.returncode == 0, f"variant {name}: nvcc failed\n{log}")
+    built.append((name, ctypes.CDLL(str(so))))
+inp = torch.load(inputs, weights_only=False, map_location=device)
+res, outs, bares = {}, {}, {}
+for kind, fn in (("K13", k13.exact_repeat), ("K10", k10.pair_head),
+                 ("K10 merge", k10.pair_merge)):
+    for label, a in inp[kind]:
+        key = f"{kind} {label}"
+        outs[key] = [fn(*a).cpu()]
+        r = cs.bare(lambda: fn(*a))
+        bares[key] = r
+        res[key + " alone"] = cs.kernel_ms(r)
+        res[key + " wrapper"] = cs.cuda_ms(lambda: fn(*a), reps=10)
+for label, (a12, a13) in inp["D2"]:
+    d2 = lambda: (k12.approx_repeat(*a12), k13.exact_repeat(*a13))
+    outs[f"D2 {label}"] = [x.cpu() for x in d2()]
+    res[f"D2 {label} wrapper"] = cs.cuda_ms(d2, reps=10)
+for name, lib in built:
+    for key, r in bares.items():
+        export = r.call[0].__name__
+        if hasattr(lib, export):
+            fn = getattr(lib, export)
+            fn.argtypes = build.SIGNATURES[export]
+            fn.restype = ctypes.c_int
+            res[f"{key} alone, {name}"] = cs.kernel_ms(
+                lambda: build.launch(fn, *r.call[1:]))
+torch.save(outs, out_path)
+print("RESULT " + json.dumps(res))
+"""
+
+# Builds with lines changed: (name, source, [(regex, replacement), ...]).
+_NO_RANK = (r"constexpr int kRankMax = \d+;", "constexpr int kRankMax = 0;")
+_NO_FINISH = (r"if \(cnt <= kFinish\) \{", "if (cnt < 0) {")
+PATHS = (
+    ("bitonic sorts only (kRankMax 0)", "pairs.cu", [_NO_RANK]),
+    ("no rank finish", "pairs.cu", [_NO_FINISH]),
+    ("neither", "pairs.cu", [_NO_RANK, _NO_FINISH]),
+)
+
+# The row and global stages' parts, and K13's shape:
+_ROWS = [(r"row_heads<<<dh, kRowThreads, smem, stream>>>\(sim, dl, k, kp, "
+          r"thr, row0,\s*cap, heads, counts, plan\);", ""),
+         (r"if \(err == cudaSuccess\)\n    err = cudaMemsetAsync\(plan, 0, "
+          r"kPlan \* sizeof\(u64\), stream\);", "")]
+_GLOBAL = (r"select_runs<<<buckets\(N\), kSelThreads, 0, stream>>>\(\s*"
+           r"Runs\{heads, N, kp, counts\}, dh, L, plan, out\);", "")
+_ROW_END = ("  if (row >= 0) {{ if (threadIdx.x == 0) counts[row] = {}; "
+            "return; }}\n")
+PAIRS = (
+    ("row stage, empty", "pairs.cu",
+     [_GLOBAL, (r"  // 1\. the survivors: counted",
+                "  if (row >= 0) return;\n  // 1. the survivors: counted")]),
+    ("row stage, its count alone", "pairs.cu",
+     [_GLOBAL, (r"  all_and = warp_reduce\(all_and, 0\);\n",
+                _ROW_END.format("mine + static_cast<int>(all_and & 1)")
+                + "  all_and = warp_reduce(all_and, 0);\n")]),
+    ("row stage, its two reads alone", "pairs.cu",
+     [_GLOBAL, (r"  // f\(key\) on every survivor, from shared memory or "
+                r"the row\n", _ROW_END.format("n"))]),
+    ("row stage without its sort", "pairs.cu",
+     [_GLOBAL, (r"    rank_scatter\(sel, s, head, s\);",
+                "    for (int i = threadIdx.x; i < s; i += blockDim.x) "
+                "head[i] = sel[i];")]),
+    ("row stage alone", "pairs.cu", [_GLOBAL]),
+    ("global stage, empty", "pairs.cu",
+     _ROWS + [(r"  // ~0 after the real keys\n", "  if (L >= 0) return;\n")]),
+    ("global stage, its bucket's bounds alone", "pairs.cu",
+     _ROWS + [(r"  const u64 span = hi - lo;\n",
+               "  if (L >= 0) { *cur = *end = lo; return; }"
+               "\n  const u64 span = hi - lo;\n")]),
+    ("global stage, its bucket's sample alone", "pairs.cu",
+     _ROWS + [(r"  // inclusive scan of the bins in place, "
+               r"per consecutive bins a thread\n",
+               "  if (L >= 0) { *cur = *end = lo; return; }\n")]),
+    ("global stage, its bucket alone", "pairs.cu",
+     _ROWS + [(r"            &cur, &end\);\n",
+               "            &cur, &end);\n  if (L >= 0) return;\n")]),
+    ("global stage, its searches and gathers alone", "pairs.cu",
+     _ROWS + [(r"      if \(off >= L\) return;\n",
+               "      if (off >= 0) return;\n")]),
+    ("global stage without its sort", "pairs.cu",
+     _ROWS + [(r"      rank_scatter\(buf, static_cast<int>\(c\), out \+ "
+               r"off, L - off\);",
+               "      for (int i = threadIdx.x; i < c && off + i < L; "
+               "i += blockDim.x) out[off + i] = buf[i];")]),
+    ("global stage alone", "pairs.cu", _ROWS),
+) + tuple(
+    (f"buckets of {n} slots", "pairs.cu",
+     [(r"constexpr int kBucketKeys = \d+;",
+       f"constexpr int kBucketKeys = {n};")]) for n in (64, 256))
+REPEAT = tuple(
+    (f"{n} minima a lane", "repeat.cu",
+     [(r"constexpr int kMinima = \d+;", f"constexpr int kMinima = {n};")])
+    for n in (1, 4, 8)) + tuple(
+    (f"{n} warps a block", "repeat.cu",
+     [(r"constexpr int kWarps = \d+;", f"constexpr int kWarps = {n};")])
+    for n in (4, 16))
+
+
+def host_split(m, s, cfg, reps=7):
+    """match_pairs' host work on the bench's pairs, in parts: median
+    milliseconds (host clock) of each."""
+    import numpy as np
+    from mad_tpu_torch.engine import match as em
+    from mad_tpu_torch.kernels.pairs import split_pair_keys
+
+    def ms(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    keys = em.pair_head(s.desc_norm @ m.desc_norm.T, cfg.row_cap,
+                        cfg.max_pairs, float(cfg.cc_threshold))
+    dl = m.desc_norm.shape[0]
+    host = keys.cpu().numpy()
+    _c, rows, cols = split_pair_keys(host, dl)
+    hi_xyz, lo_xyz = s.subv_coords[rows], m.subv_coords[cols]
+    same = (np.array_equal(np.unique(s.subv_coords[np.unique(rows)],
+                                     axis=0), np.unique(hi_xyz, axis=0))
+            and np.array_equal(np.unique(m.subv_coords[np.unique(cols)],
+                                         axis=0), np.unique(lo_xyz, axis=0)))
+    r_hi, r_lo = s.rfinal[rows], m.rfinal[cols]
+    parts = {
+        "pull (keys.cpu)": ms(lambda: keys.cpu().numpy()),
+        "split_pair_keys": ms(lambda: split_pair_keys(host, dl)),
+        "np.unique subunit anchors": ms(lambda: np.unique(hi_xyz, axis=0)),
+        "np.unique map anchors": ms(lambda: np.unique(lo_xyz, axis=0)),
+        "rfinal gathers": ms(lambda: (s.rfinal[rows], m.rfinal[cols])),
+        "einsum R_lo^T R_hi": ms(lambda: np.einsum("pji,pjk->pik", r_lo,
+                                                   r_hi)),
+        "coordinate copies": ms(lambda: (s.subv_coords[rows],
+                                         m.subv_coords[cols])),
+        "np.unique of the distinct rows (both)": ms(lambda: (
+            np.unique(s.subv_coords[np.unique(rows)], axis=0),
+            np.unique(m.subv_coords[np.unique(cols)], axis=0))),
+        "match_pairs whole": ms(lambda: em.match_pairs(m, s, cfg)),
+    }
+    print(f"host pose data, {len(rows)} pairs ({len(np.unique(rows))} "
+          f"subunit, {len(np.unique(cols))} map rows), median of {reps}: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+          + f"; the distinct rows' clouds equal np.unique's: {same}",
+          flush=True)
+
+
+def level_cosines(device):
+    """K10's head on cosines of a grid of levels, many equal (the shapes of
+    tests/test_torch_match_cuda.py): (label, pair_head arguments)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(15)
+    out = []
+    for dh, dl, row_cap, max_pairs, levels in ((24, 16411, 128, 2000, 97),
+                                               (300, 700, 128, 65536,
+                                                1 << 20)):
+        sim = (rng.integers(0, levels, (dh, dl)) / levels * 1.5 - 0.5)
+        out.append((f"stress {dh} x {dl}", (torch.as_tensor(
+            sim.astype(np.float32), device=device), row_cap, max_pairs,
+            0.6)))
+    return out
+
+
+def record(cs, path):
+    """Run the bench fit with K10's head and K13 recorded, then the rescue
+    case and the bench dock on 4 shards (K13; K10's merge, K12 and K13 of
+    shard 1); save their inputs (and the stress inputs) to ``path``; print
+    their shapes and the host pose data's parts."""
+    import torch
+    from mad_tpu_torch.engine import docking, match as em
+    from mad_tpu_torch.parallel.mesh import make_mesh
+    from mad_tpu_torch.testing import recording
+    device, _smi = cs.device_phase()
+    cs.build_phase()
+    cfg = cs.bench_config()
+    with recording(em, "pair_head") as heads, \
+            recording(em, "exact_repeat") as reps:
+        fit = cs.run_fit(device, None, cfg)
+    k10 = []
+    for r, a in enumerate(heads):
+        k10.append((f"call {r}", a))
+        n = (a[0] > a[3]).sum(dim=1).float()
+        cs.say(f"K10 head call {r}: {tuple(a[0].shape)} cosines, row_cap "
+               f"{a[1]}, max_pairs {a[2]}, threshold {a[3]:g}; survivors a "
+               f"row min {int(n.min())}, median {int(n.median())}, max "
+               f"{int(n.max())}")
+    a = heads[0]
+    k10.append((f"call 0, max_pairs {cs.K10_CUT_PAIRS}",
+                (a[0], a[1], cs.K10_CUT_PAIRS) + a[3:]))
+    k13 = []
+    for r, a in enumerate(reps):
+        k13.append((f"call {r}", a))
+        cs.say(f"K13 call {r}: {a[2].shape[0]} pairs x "
+               f"{a[0].shape[0]} x {a[1].shape[0]} anchors")
+    k13.append(("stress", cs.k13_stress_args(device)))
+    k10 += level_cosines(device)
+    # the rescue case on the card: its last K13 call is the re-score
+    args, _copies = cs.rescue_args(device, cfg)
+    with recording(em, "exact_repeat") as reps, \
+            recording(docking, "exact_rescore") as rescue:
+        docking.dock_structure(*args, n_copies=cs.RESCUE["n_copies"],
+                               device=device)
+    cs.check(len(rescue) == 1 and len(reps) >= 2
+             and reps[-1][2].shape[0] == len(rescue[0][1]),
+             f"rescue case: {len(rescue)} re-scores, {len(reps)} K13 calls")
+    for r, a in enumerate(reps):
+        label = ("rescue re-score" if r == len(reps) - 1
+                 else f"rescue case call {r}")
+        k13.append((label, a))
+        cs.say(f"K13 {label}: {a[2].shape[0]} pairs x {a[0].shape[0]} x "
+               f"{a[1].shape[0]} anchors")
+    # the bench dock on 4 shards: the merge (D1) and shard 1's K12, K13 (D2)
+    with recording(em, "pair_merge") as merges, \
+            recording(em, "approx_repeat") as c12, \
+            recording(em, "exact_repeat") as c13:
+        docking.dock_structure(fit["map_set"], fit["sub_set"], fit["moved"],
+                               fit["dmap"], cs.RES, cfg, n_copies=cs.N_COPIES,
+                               mesh=make_mesh(4, devices=[device] * 4))
+    merge = [(f"mesh merge {r}", a) for r, a in enumerate(merges)]
+    for label, a in merge:
+        cs.say(f"K10 {label}: {a[0].shape[0]} keys into {a[1]}")
+    d2 = [("shard 1", (c12[1], c13[1]))]
+    cs.say(f"D2 shard 1: K12 on {c12[1][4].shape[0]} pairs, K13 on "
+           f"{c13[1][2].shape[0]} rows x {c13[1][0].shape[0]} x "
+           f"{c13[1][1].shape[0]} anchors")
+    torch.save({"K13": k13, "K10": k10, "K10 merge": merge, "D2": d2}, path)
+    host_split(fit["map_set"], fit["sub_set"], cfg.match)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent")
+    ap.add_argument("--order", default="ABBA")
+    ap.add_argument("--variants", default="")
+    args = ap.parse_args()
+    groups = set(args.variants.split(",")) - {""}
+    here = ((PATHS if "paths" in groups else ())
+            + (PAIRS if "pairs" in groups else ())
+            + (REPEAT if "repeat" in groups else ()))
+    variants = {"A": () if args.parent else here, "B": here}
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    import torch
+    from mad_tpu_torch.kernels import build
+    from torch_refine_describe_probe import same_bits
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(build.BUILD_DIR / "probe_match_inputs.pt")
+    record(cs, path)
+    torch.cuda.empty_cache()
+    dirs = {"A": args.parent or ROOT, "B": ROOT}
+    order = args.order if args.parent else "A"
+    outs, times = {}, {"A": [], "B": []}
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    for i, side in enumerate(order):
+        root = os.path.abspath(dirs[side])
+        out = str(build.BUILD_DIR / f"probe_match_out_{side}.pt")
+        proc = subprocess.run(
+            [sys.executable, "-c", CHILD,
+             os.path.join(ROOT, "chip_smoke.py"), path, out, json.dumps(
+                 variants[side] if order.index(side) == i else ())],
+            cwd=root, env=env, capture_output=True, text=True)
+        line = [x for x in proc.stdout.splitlines()
+                if x.startswith("RESULT ")]
+        if proc.returncode != 0 or not line:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n")
+            raise SystemExit(f"run {i} ({side}, {root}) failed")
+        res = json.loads(line[0][7:])
+        times[side].append(res)
+        print(f"run {i} {side} ({root}): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in res.items()), flush=True)
+        outs.setdefault(side, torch.load(out, weights_only=False))
+    if len(outs) == 2:
+        for key, a in outs["A"].items():
+            b = outs["B"][key]
+            same = all(same_bits(x, y) for x, y in zip(a, b))
+            print(f"{key}: A and B " + ("equal bit for bit" if same
+                                         else "DIFFER"), flush=True)
+            cs.check(same, f"{key} differs between the checkouts")
+    for side in "AB":
+        runs = times[side]
+        if runs:
+            print(f"mean {side} over {len(runs)} runs: " + ", ".join(
+                f"{k} {sum(r[k] for r in runs) / len(runs):.4f}"
+                for k in runs[0] if k in runs[-1]), flush=True)
+
+
+if __name__ == "__main__":
+    main()
