@@ -5,8 +5,9 @@
 
 Phases, each of which raises (non-zero exit) when it fails:
   1. device: needs torch.cuda.is_available() (there is no CPU path);
-     prints the card's name and power limit, the torch and CUDA versions;
-     TF32 off for matmul and cuDNN;
+     prints the card's name and power limit, the torch and CUDA versions
+     and whether h5py imports (the session's caches are HDF5 files where
+     it does, .npz files otherwise); TF32 off for matmul and cuDNN;
   2. build: the hand-written kernels from mad_tpu_torch/csrc (one nvcc per
      source, all at once, then one link);
   3. warm pass of the main path, the whole of bench.py's run_fit: a
@@ -84,8 +85,16 @@ Phases, each of which raises (non-zero exit) when it fails:
      enqueues its launches (kernel_ms; bare: the wrapper's launch
      recorded once and repeated alone); then describe_grid
      on the bench map with the kernels and with the plain versions of K1's
-     LoG, K2, K3, K5 and K8 must give the same DescriptorSet (desc,
-     desc_norm, coords, subv_coords, rfinal) bit for bit;
+     LoG, K2, K3, K5, K8 and K23 must give the same DescriptorSet (desc,
+     desc_norm, coords, subv_coords, rfinal) bit for bit; K21 bit for bit
+     on the match stage's 46,848 repeatabilities at its n_use (1,024) and
+     at n_use = P, and on K21_EDGE (ties at the n_use-th key, zeros of
+     both signs, NaN, -inf); K22 and K23 bit for bit on the unreduced
+     bench map (its flags and reduce_void's crop), the map's and the
+     subunit's prepare (recorded during a describe) and a volume with NaN
+     and -0.0 (edge_volume), each with its library call (K21: torch.sort
+     of the keys, then a slice; K22: three torch.any reductions; K23:
+     F.pad of the cropped view);
   5. timed pass of the main path (after one more warm pass) with every
      launch counter reset first;
      fails unless every kernel of the path launched, K1 (both entries)
@@ -93,10 +102,13 @@ Phases, each of which raises (non-zero exit) when it fails:
      described structure), the solutions are
      finite, at least 9 of 10 copies are recovered (best CA-RMSD < 10 A)
      and at least one model comes back, with a finite CCC, its first
-     model made of 10 distinct solutions; then the fit once more with the
+     model made of 10 distinct solutions, and no F.pad called on a CUDA
+     tensor; then the fit once more with the
      plain versions of K1's LoG, K2, K3, K5, K6, K8, K15, the matching front
-     (K10's head, K11, K12, K14), K16 and K17 swapped in (stage seconds
-     side by side), which must recover as many copies;
+     (K10's head, K11, K12, K14, K21), K16, K17, K22 and K23 swapped in
+     (stage seconds side by side), which must recover as many copies, and
+     once with only K21, K22 and K23's plain versions, which must give the
+     timed fit's solutions bit for bit;
   6. the same assembly on the same solutions with the plain versions
      (the simulation body, K1's blur, K17, K18, K19 and K20 with their
      plain overlap staging) swapped in on the card: the same
@@ -218,11 +230,19 @@ K4_CUTS = (((1, 2, 3), 0, None, 0), ((5, 9, 67), 0, None, 0),
            ((291, 294, 279), 5, 200, 40))
 K4_RAGGED_THRESHOLD = -1.0      # every voxel of the LoG a candidate
 K18_HETERO_M = 80               # the heteromer phase's solution count
+# K21 on a synthetic table: P rows whose n_use-th key lies inside a run of
+# ties, with zeros of both signs, NaN and -inf ({value: rows}, the rest
+# random), shuffled
+K21_EDGE = dict(P=5000, n_use=1024, seed=21,
+                values={100.0: 300, 75.0: 300, 50.0: 900, 25.0: 500, 0.0: 800,
+                        -0.0: 800, float("nan"): 200, float("-inf"): 200})
+REDUCE_PAD = 10                 # reduce_void's zeros_padding (bench.py)
 ASSEMBLY_STAGES = ("overlap", "enumerate", "score_models")
 # kernels the session's first run must launch (K1's LoG, K2, K3, K5, K6,
-# K8, K15, K16, K17)
+# K8, K15, K16, K17, K21; K22 and K23 as it loads the map)
 SESSION_KERNELS = ("log_gauss", "upsample2", "gradient", "localize",
-                   "orient", "gather_norm", "refine", "post", "batched_ccc")
+                   "orient", "gather_norm", "refine", "post", "batched_ccc",
+                   "select_exact", "axis_flags", "crop_pad")
 # capacity mode: the shard counts, the kernels its octave chain must
 # launch, the DescriptorSet fields held bit for bit, and the report rows of
 # the shard bodies: name -> (the kernels whose launches it counts, source,
@@ -241,7 +261,8 @@ SET_FIELDS = ("coords", "map_coords", "subv_coords", "rfinal", "octave",
 # mad_tpu body)
 DOCK_SHARDS = (4, 3)
 DOCK_KERNELS = ("pair_head", "pair_merge", "anchor_field", "approx_repeat",
-                "exact_repeat", "cluster_select", "refine", "post",
+                "select_exact", "exact_repeat", "cluster_select", "refine",
+                "post",
                 "post_lanes", "post_points", "post_rows", "post_compact")
 RESCUE = dict(n_copies=1, n_samples=10)
 DOCK_ROWS = {
@@ -298,9 +319,14 @@ def device_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     say(smi)
+    try:
+        import h5py
+        h5 = f"h5py {h5py.__version__}: the caches are .h5 files"
+    except ImportError:
+        h5 = "no h5py: the caches are .npz files"
     say(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
-        f"{torch.cuda.device_count()}")
+        f"{torch.cuda.device_count()}; {h5}")
     return torch.device("cuda:0"), smi
 
 
@@ -412,24 +438,37 @@ def orient_refine_swaps():
 
 def match_swaps():
     """The plain PyTorch versions of the matching front: K10's head, K11,
-    K12 (engine/match.py) and K14 (engine/docking.py)."""
+    K12, K21 (engine/match.py) and K14 (engine/docking.py)."""
     from mad_tpu_torch.engine import docking, match
-    from mad_tpu_torch.kernels import approx, cluster, field, pairs
+    from mad_tpu_torch.kernels import (approx, cluster, field, pairs,
+                                       select_exact as k21)
     return [(match, "pair_head", pairs.pair_head_plain),
             (match, "anchor_field", field.anchor_field_plain),
             (match, "approx_repeat", approx.approx_repeat_plain),
+            (match, "select_exact", k21.select_exact_plain),
             (docking, "cluster_select", cluster.cluster_select_plain)]
+
+
+def select_pad_swaps():
+    """The plain PyTorch versions of K21 (engine/match.py), K22 and K23
+    (core/grid.py's reduce_void and padded, ops/scalespace.py's
+    prepare) among fit_swaps()."""
+    from mad_tpu_torch.kernels import crop_pad, select_exact
+    return [sw for sw in fit_swaps()
+            if sw[2].__module__ in (crop_pad.__name__, select_exact.__name__)]
 
 
 def describe_swaps():
     """The plain PyTorch versions of the describe stage's K1 LoG, K2, K3, K5
     and K8 at each of their call sites (the refinement's map field and the
-    cache loader's unit rows included)."""
+    cache loader's unit rows included), and of the map build's K22 and
+    K23."""
     from mad_tpu_torch import convert
+    from mad_tpu_torch.core import grid
     from mad_tpu_torch.engine import pipeline, refine
-    from mad_tpu_torch.kernels import (conv1d, gather_norm as k8,
-                                       gradient as k3, localize as k5,
-                                       upsample as k2)
+    from mad_tpu_torch.kernels import (conv1d, crop_pad as k23,
+                                       gather_norm as k8, gradient as k3,
+                                       localize as k5, upsample as k2)
     from mad_tpu_torch.ops import convolve, detect, scalespace
     return [(convolve, "log_gauss", conv1d.log_gauss_plain),
             (scalespace, "upsample2", k2.upsample2_plain),
@@ -437,7 +476,10 @@ def describe_swaps():
             (refine, "gradient", k3.gradient_plain),
             (detect, "localize", k5.localize_plain),
             (pipeline, "gather_norm", k8.gather_norm_plain),
-            (convert, "gather_norm", k8.gather_norm_plain)]
+            (convert, "gather_norm", k8.gather_norm_plain),
+            (grid, "axis_flags", k23.axis_flags_plain),
+            (grid, "crop_pad", k23.crop_pad_plain),
+            (scalespace, "crop_pad", k23.crop_pad_plain)]
 
 
 def post_ccc_swaps():
@@ -463,6 +505,25 @@ SPLIT_PLAIN = {"conv1d": "conv1d_along_plain", "log_gauss": "log_gauss_plain",
                "blur_max": "simulate_batch_plain",
                "scatter_atoms": "simulate_batch_plain",
                "simulate_scale": "simulate_batch_plain"}
+
+
+@contextlib.contextmanager
+def cuda_pads():
+    """The shapes of the CUDA tensors given to F.pad inside the block (the
+    port pads on the card with K23)."""
+    import torch.nn.functional as F
+    seen, real = [], F.pad
+
+    def spy(x, *args, **kw):
+        if x.is_cuda:
+            seen.append(tuple(x.shape))
+        return real(x, *args, **kw)
+
+    F.pad = spy
+    try:
+        yield seen
+    finally:
+        F.pad = real
 
 
 def swapped_kernels(swaps):
@@ -754,6 +815,168 @@ def kernel_checks(fit, cfg, device):
     out["refine"] = refine_check(fit, cfg, device)
     out.update(describe_checks(fit, cfg, device))
     out.update(post_ccc_checks(fit, cfg, device))
+    out.update(select_pad_checks(fit, cfg, device))
+    return out
+
+
+def unreduced_map(device):
+    """The bench map as run_fit simulates it, before reduce_void."""
+    from mad_tpu_torch.ops.simulate import simulate_density
+    from mad_tpu_torch.testing import make_assembly
+    _sub, copies = make_assembly(n_copies=N_COPIES, n_res=N_RES, seed=SEED,
+                                 spread=SPREAD, shell=True)
+    return simulate_density(
+        np.concatenate([c.coords for c in copies]), RES, VOXSP, device,
+        masses=np.concatenate([c.masses for c in copies]))
+
+
+def edge_volume(device):
+    """A sparse volume with a NaN voxel (occupied) and -0.0 voxels (not)."""
+    import torch
+    rng = np.random.default_rng(23)
+    v = np.zeros((61, 47, 53), np.float32)
+    v[7:50, 5:40, 9:44] = rng.random((43, 35, 35)) * (
+        rng.random((43, 35, 35)) < 0.2)
+    v[1, 2, 3] = np.nan
+    v[60, 46, 52] = -0.0
+    v[30, 0, 20] = -0.0
+    return torch.as_tensor(v, device=device)
+
+
+def k21_edge_args(device):
+    """K21's inputs on the K21_EDGE table."""
+    import torch
+    e = K21_EDGE
+    rng = np.random.default_rng(e["seed"])
+    rep = (rng.normal(size=e["P"]) * 30).astype(np.float32)
+    at = 0
+    for value, n in e["values"].items():
+        rep[at:at + n] = value
+        at += n
+    rep = rep[rng.permutation(e["P"])]
+    return [torch.as_tensor(a, device=device) for a in (
+        rep, rng.normal(size=(e["P"], 3, 3)).astype(np.float32),
+        rng.normal(size=(e["P"], 3)).astype(np.float32),
+        rng.normal(size=(e["P"], 3)).astype(np.float32))]
+
+
+def select_pad_checks(fit, cfg, device):
+    """K21, K22 and K23 against their plain versions, bit for bit: K21 at
+    the inputs the match stage gives it (recorded during a
+    match_descriptors of the fit's sets at the fit's min_exact), also at
+    n_use = P, and on K21_EDGE; K22 and K23 on the unreduced bench map,
+    the map's and the subunit's prepare (recorded) and edge_volume."""
+    import torch
+    import torch.nn.functional as F
+    from mad_tpu_torch.engine import match as em
+    from mad_tpu_torch.engine.pipeline import describe_structure
+    from mad_tpu_torch.kernels import crop_pad as k23
+    from mad_tpu_torch.kernels import select_exact as k21
+    from mad_tpu_torch.ops import scalespace
+    from mad_tpu_torch.testing import recording
+    out = {}
+    m, s, dmap = fit["map_set"], fit["sub_set"], fit["dmap"]
+
+    # K21. Work: rep read once, the n_use rows' rotations and coordinates
+    # read and written, top written; a key a row. Library: torch.sort of
+    # the keys (stable, descending), then the first n_use.
+    with recording(em, "select_exact") as calls:
+        em.match_descriptors(m, s, dmap.shape, dmap.origin, dmap.voxsp,
+                             cfg.match, min_exact=cfg.filter.n_samples
+                             * N_COPIES, device=device)
+    check(len(calls) == 1, f"K21: {len(calls)} calls in the match stage")
+    args = calls[0]
+    rep, n_use = args[0], args[4]
+    P = rep.shape[0]
+    for what, a in (("the bench", args), ("n_use = P", args[:4] + (P,)),
+                    ("K21_EDGE", k21_edge_args(device) + [
+                        K21_EDGE["n_use"]]),
+                    ("K21_EDGE, n_use = P", k21_edge_args(device) + [
+                        K21_EDGE["P"]])):
+        got, want = k21.select_exact(*a), k21.select_exact_plain(*a)
+        check(all(same_bits(x, y) for x, y in zip(got, want)),
+              f"K21 differs from the plain version on {what}")
+        check(np.array_equal(got[0].cpu().numpy(), np.argsort(
+            -a[0].cpu().numpy(), kind="stable")[:a[4]]),
+            f"K21's order is not numpy's stable argsort on {what}")
+    keys = k21.order_keys(rep)
+    out["select_exact"] = measure(
+        0.0, lambda: k21.select_exact(*args),
+        lambda: k21.select_exact_plain(*args),
+        P * 4 + n_use * (36 + 12 + 12) * 2 + n_use * 8, P,
+        lambda: torch.sort(keys, descending=True, stable=True
+                           ).indices[:n_use])
+    out["select_exact"]["kernel_ms"] = alone_ms(
+        lambda: k21.select_exact(*args))
+    full = args[:4] + (P,)
+    say(f"  K21: {P} repeatabilities, n_use {n_use}, bit for bit (also at "
+        f"n_use = P and on K21_EDGE); alone "
+        f"{out['select_exact']['kernel_ms']:.4f} ms; at n_use = P alone "
+        f"{alone_ms(lambda: k21.select_exact(*full)):.4f} ms, wrapper "
+        f"{cuda_ms(lambda: k21.select_exact(*full)):.4f} ms")
+    del keys, calls
+
+    # K22 on the unreduced bench map. Work: the volume read once, the
+    # flags written; a compare a voxel. Library: three torch.any.
+    raw = unreduced_map(device).data
+    edge = edge_volume(device)
+    for what, v in (("the unreduced bench map", raw), ("edge_volume", edge)):
+        check(same_bits(k23.axis_flags(v), k23.axis_flags_plain(v)),
+              f"K22 differs from the plain version on {what}")
+    flags = k23.axis_flags(edge).cpu().numpy()
+    check(flags[1] and not flags[60] and flags[61 + 2] and flags[108 + 3]
+          and not flags[108 + 52], "K22: NaN or -0.0 counted wrongly")
+    V, X, Y, Z = raw.numel(), *raw.shape
+
+    def any3():
+        occ = raw != 0
+        return (occ.any(dim=(1, 2)), occ.any(dim=(0, 2)),
+                occ.any(dim=(0, 1)))
+
+    out["axis_flags"] = measure(
+        0.0, lambda: k23.axis_flags(raw), lambda: k23.axis_flags_plain(raw),
+        V * 4 + X + Y + Z, V, any3)
+    out["axis_flags"]["kernel_ms"] = alone_ms(lambda: k23.axis_flags(raw))
+    say(f"  K22: the unreduced map {tuple(raw.shape)}, bit for bit (also "
+        f"edge_volume); alone {out['axis_flags']['kernel_ms']:.4f} ms")
+
+    # K23: reduce_void's crop of the unreduced map, the map's and the
+    # subunit's prepare, edge_volume. Work: the box read once, the output
+    # written once. Library: F.pad of the cropped view.
+    fl = k23.axis_flags(raw).cpu().numpy()
+    axes = [fl[:X], fl[X:X + Y], fl[X + Y:]]
+    lo = [int(np.argmax(a)) for a in axes]
+    box = [len(a) - int(np.argmax(a[::-1])) - l for a, l in zip(axes, lo)]
+    with recording(scalespace, "crop_pad") as sub_pads:
+        describe_structure(fit["moved"], RES, dmap.voxsp, cfg,
+                           name="bench_sub", device=device)
+    with recording(scalespace, "crop_pad") as map_pads:
+        scalespace.prepare(dmap, cfg.scalespace)
+    check(len(sub_pads) == len(map_pads) == 1,
+          f"K23: {len(map_pads)} and {len(sub_pads)} prepare calls")
+    cases = {"map prepare": map_pads[0], "subunit prepare": sub_pads[0],
+             "reduce_void": (raw, lo, box, REDUCE_PAD),
+             "edge_volume": (edge, (1, 2, 3), (59, 44, 50), 9)}
+    for what, a in cases.items():
+        got = k23.crop_pad(*a)
+        check(same_bits(got, k23.crop_pad_plain(*a)),
+              f"K23 differs from the plain version on {what}")
+        vol, lo_, box_, pad = a
+        nbytes = 4 * (int(np.prod(box_)) + got.numel())
+        r = measure(0.0, lambda: k23.crop_pad(*a),
+                    lambda: k23.crop_pad_plain(*a), nbytes, 0,
+                    lambda: F.pad(vol[lo_[0]:lo_[0] + box_[0],
+                                      lo_[1]:lo_[1] + box_[1],
+                                      lo_[2]:lo_[2] + box_[2]],
+                                  (pad,) * 6))
+        r["kernel_ms"] = alone_ms(lambda: k23.crop_pad(*a))
+        say_measure(f"K23 {what} ({tuple(vol.shape)} -> "
+                    f"{tuple(got.shape)})", r)
+        if what == "map prepare":
+            out["crop_pad"] = r
+        del got
+    del raw, edge
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2885,10 +3108,11 @@ def phases(work):
     timings = {}
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    fit = run_fit(device, timings, cfg)
-    torch.cuda.synchronize()
-    total = time.perf_counter() - t0
+    with cuda_pads() as pads:
+        t0 = time.perf_counter()
+        fit = run_fit(device, timings, cfg)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     sols = fit["sols"]
@@ -2904,6 +3128,7 @@ def phases(work):
                                                  "pair_merge")]
     check(all(counts[n] > 0 for n in main_path),
           f"a kernel of the main path never launched: {counts}")
+    check(not pads, f"F.pad called on a CUDA tensor in the fit: {pads}")
     k1 = counts["conv1d"] + counts["log_gauss"]
     check(k1 <= K1_FIT_LAUNCHES, f"K1 launched {k1} times in the fit")
     check(counts["upsample2"] == K2_FIT_LAUNCHES,
@@ -2946,6 +3171,22 @@ def phases(work):
         "recovered); stages (s) kernel / plain: " + ", ".join(
             f"{k} {timings[k]:.4f} / {plain_fit_t.get(k, 0.0):.4f}"
             for k in timings))
+    del pf
+    # K21, K22 and K23 are bit for bit with their plain versions, so the
+    # fit with only those swapped in gives the timed fit's bits.
+    before = launch_counts()
+    with plain_versions(select_pad_swaps()):
+        pf = run_fit(device, None, cfg)
+    after = launch_counts()
+    check(all(after[k] == before[k]
+              for k in ("select_exact", "axis_flags", "crop_pad")),
+          "K21-K23 launched with their plain versions swapped in")
+    diff = solution_diff(fit["sols"], pf["sols"])
+    check(not diff and same_bits(fit["dmap"].data, pf["dmap"].data)
+          and same_bits(fit["map_set"].desc, pf["map_set"].desc),
+          f"the fit with K21-K23's plain versions differs: {diff}")
+    say("fit with K21-K23's plain versions: the map, the map's descriptors "
+        f"and the {len(pf['sols'])} solutions bit for bit")
     del pf
 
     # Phase 6: the same assembly with the plain versions on the card.

@@ -5,7 +5,9 @@ Parity with mad/MaD.py class MaD (:25-286): ``add_map``, ``add_subunit``,
 contract (results/<...> tree, dsc_db cache, Solutions_refined_*.csv,
 individual_solutions/sol_*.pdb, assembly_models/Model_*.pdb,
 complex_ranking.csv, anchor debug dumps), plus mad_tpu's pose_db
-checkpoint. The caches are ``.npz`` files (mad_tpu_torch/cache.py).
+checkpoint. The caches are mad_tpu's HDF5 files where ``h5py`` imports,
+``.npz`` files of the same names and keys otherwise
+(mad_tpu_torch/cache.py).
 
 The session runs on ``device`` (the card unless the caller names another)
 or, with ``mesh`` (mad_tpu/api.py:71-82: None, "auto" for one mesh over

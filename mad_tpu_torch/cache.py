@@ -1,9 +1,12 @@
 """Copied from mad_tpu/cache.py: the content-addressed descriptor cache
-(``dsc_db/``) and the pose-search checkpoint (``pose_db/``), stored as
-numpy ``.npz`` files in place of HDF5 (``h5py`` is not a dependency of
-the port). File names, dataset keys and the checkpoint digest are the
-original's; only the suffix differs, so the port neither reads nor writes
-mad_tpu's ``.h5`` files. The matching cache is not copied.
+(``dsc_db/``) and the pose-search checkpoint (``pose_db/``). Where
+``h5py`` imports, both are written as mad_tpu's HDF5 files, the same
+names, datasets, types and attribute, so the port and mad_tpu (or MaD)
+reuse each other's caches. Where it does not (it is not a dependency of
+the port), they are numpy ``.npz`` files with the same names but the
+suffix and the same keys. A file is read by its suffix: an ``.h5`` file
+needs ``h5py``, and a failed read raises. The matching cache is not
+copied.
 
 Parity with the reference's dsc_db/ store (mad/MaD.py:116-162, 848-875,
 mad/Descriptor.py:226-254): same dataset names ('dsc', 'info', 'coords',
@@ -15,11 +18,51 @@ from __future__ import annotations
 
 import hashlib
 import os
+from contextlib import contextmanager
 
 import numpy as np
 
 from .convert import descriptor_set_from_numpy
 from .engine.pipeline import DescriptorSet
+
+
+def suffix() -> str:
+    """The suffix of the files this process writes: mad_tpu's ``.h5``
+    where h5py imports, else ``.npz``."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return ".npz"
+    return ".h5"
+
+
+def _write(path: str, attrs: dict, arrays: dict) -> None:
+    """The datasets ``arrays`` (and the scalar attributes ``attrs``) to an
+    HDF5 file, or to an ``.npz`` file whose keys hold both."""
+    if path.endswith(".h5"):
+        import h5py
+        with h5py.File(path, "w") as hf:
+            for k, v in attrs.items():
+                hf.attrs[k] = v
+            for k, v in arrays.items():
+                hf.create_dataset(k, data=v)
+    else:
+        np.savez(path, **{k: np.asarray(v) for k, v in attrs.items()},
+                 **arrays)
+
+
+@contextmanager
+def _read(path: str):
+    """(attrs, arrays) of a file written by _write: two mappings whose
+    items read as numpy values."""
+    if path.endswith(".h5"):
+        import h5py
+        with h5py.File(path, "r") as hf:
+            yield ({k: hf.attrs[k] for k in hf.attrs},
+                   {k: np.asarray(hf[k]) for k in hf})
+    else:
+        with np.load(path) as f:
+            yield f, f
 
 
 def cache_filename(db_dir: str, name: str, resolution: float, isovalue: float,
@@ -31,7 +74,7 @@ def cache_filename(db_dir: str, name: str, resolution: float, isovalue: float,
         db_dir,
         f"{name}_res{resolution}_iso{isovalue}_detSig{detect_sigma}"
         f"_presmooth{presmooth_sigma}_patch{patch_size}_orieqsp{ori_eqsp}"
-        f"_dsceqsp{dsc_eqsp}_subregions{subregions}.npz")
+        f"_dsceqsp{dsc_eqsp}_subregions{subregions}{suffix()}")
 
 
 def save_descriptors(ds: DescriptorSet, path: str) -> None:
@@ -41,14 +84,15 @@ def save_descriptors(ds: DescriptorSet, path: str) -> None:
     ], axis=1).astype(np.uint16)
     coords = np.stack([ds.coords.astype(np.float64), ds.map_coords,
                        ds.subv_coords], axis=1)
-    np.savez(path, dsc=ds.desc.cpu().numpy().astype(np.int16), info=info,
-             coords=coords, rot=ds.rfinal.astype(np.float64))
+    _write(path, {}, dict(
+        dsc=ds.desc[:ds.n].cpu().numpy().astype(np.int16), info=info,
+        coords=coords, rot=ds.rfinal.astype(np.float64)))
 
 
 def load_descriptors(path: str, name: str = "", device="cuda"
                      ) -> DescriptorSet:
     """The cached table as a DescriptorSet with its rows on ``device``."""
-    with np.load(path) as f:
+    with _read(path) as (_attrs, f):
         desc, info, coords, rot = f["dsc"], f["info"], f["coords"], f["rot"]
     n = desc.shape[0]
     return descriptor_set_from_numpy(
@@ -73,7 +117,7 @@ def load_descriptors(path: str, name: str = "", device="cuda"
 def solutions_filename(db_dir: str, map_name: str, key: str,
                        state_hash: str) -> str:
     return os.path.join(db_dir, f"solutions_{map_name}_{key}_"
-                                f"{state_hash}.npz")
+                                f"{state_hash}{suffix()}")
 
 
 def dock_state_hash(struct_coords: np.ndarray, n_copies: int,
@@ -93,28 +137,27 @@ def save_solutions(sols, path: str) -> None:
     """Persist a docked subunit's Solution list (engine/docking.Solution):
     refined coords, scores and the ragged corresp-anchor / member tables."""
     if not sols:
-        np.savez(path, n=np.asarray(0))
+        _write(path, dict(n=0), {})
         return
     ca = [np.asarray(s.corresp_anchors, dtype=np.float64).reshape(-1, 3)
           for s in sols]
     mem = [np.asarray(m, dtype=np.float64) for s in sols for m in s.members]
-    np.savez(
-        path, n=np.asarray(len(sols)),
+    _write(path, dict(n=len(sols)), dict(
         coords=np.stack([s.structure.coords for s in sols]),
         scores=np.asarray([[s.repeat, float(s.weight), s.ccc, s.score]
                            for s in sols]),
         corresp=np.concatenate(ca), corresp_len=np.asarray([len(a)
                                                             for a in ca]),
         members=np.stack(mem) if mem else np.zeros((0, 8)),
-        members_len=np.asarray([len(s.members) for s in sols]))
+        members_len=np.asarray([len(s.members) for s in sols])))
 
 
 def load_solutions(path: str, struct):
     """Rebuild the Solution list against ``struct`` (the processed
     subunit)."""
     from .engine.docking import Solution
-    with np.load(path) as f:
-        n = int(f["n"])
+    with _read(path) as (attrs, f):
+        n = int(attrs["n"])
         if n == 0:
             return []
         coords, scores = f["coords"], f["scores"]

@@ -1,8 +1,10 @@
 """Density grid container (port of mad_tpu/core/grid.py).
 
 ``DensityGrid.data`` is a float32 torch tensor that stays on its device
-through the pipeline; ``origin`` stays float64 numpy. The map readers
-are copies of the originals (numpy only).
+through the pipeline; ``origin`` stays float64 numpy. ``reduce_void``
+takes its per-axis occupancy flags from K22 (one pull) and its crop and
+re-pad from K23, as ``padded`` does its padding (``kernels/crop_pad.py``).
+The map readers are copies of the originals (numpy only).
 """
 
 from __future__ import annotations
@@ -13,8 +15,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from ..kernels.crop_pad import axis_flags, crop_pad
 from .mrc_io import read_mrc as _read_mrc_file
 from .mrc_io import write_mrc as _write_mrc_file
 
@@ -59,23 +61,22 @@ class DensityGrid:
         return replace(self, data=self.data / m)
 
     def padded(self, pad: int) -> "DensityGrid":
-        return replace(self, data=F.pad(self.data, (pad,) * 6),
+        return replace(self, data=crop_pad(self.data, (0, 0, 0), self.shape,
+                                           pad),
                        origin=self.origin - pad * self.voxsp)
 
     def reduce_void(self, zeros_padding: int = 10) -> "DensityGrid":
         """Crop to the nonzero bounding box then re-pad
         (parity: mad/Dmap.py:73-90)."""
-        occ = self.data != 0
-        axes_any = [occ.any(dim=2).any(dim=1), occ.any(dim=2).any(dim=0),
-                    occ.any(dim=1).any(dim=0)]
-        axes_any = [a.cpu().numpy() for a in axes_any]
+        flags = axis_flags(self.data).cpu().numpy()
+        X, Y, _Z = self.shape
+        axes_any = [flags[:X], flags[X:X + Y], flags[X + Y:]]
         if not axes_any[0].any():
             return self
         lo = np.array([int(np.argmax(a)) for a in axes_any])
         hi = np.array([len(a) - int(np.argmax(a[::-1])) for a in axes_any])
         p = zeros_padding
-        crop = self.data[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
-        return replace(self, data=F.pad(crop, (p,) * 6),
+        return replace(self, data=crop_pad(self.data, lo, hi - lo, p),
                        origin=self.origin + (lo - p) * self.voxsp)
 
 

@@ -13,7 +13,9 @@ Replaces MaD._match_dsc (mad/MaD.py:414-453):
     anchor after the pose: an approximate score for every pair from a
     dilated occupancy field of the map anchors (K11, K12), then exact
     nearest-neighbour scores (K13) for the top pairs the clustering
-    consumes.
+    consumes, selected and gathered on the device (K21), so K12, K21 and
+    K13 run with no host step between them and the scores come back in
+    one pull.
 
 With a mesh (``parallel.mesh``, mad_tpu's ``match_pairs`` /
 ``_compiled_approx_repeat`` / ``_compiled_exact_repeat`` under a mesh):
@@ -22,8 +24,9 @@ product and K10's head on its block, and the second entry of K10's source
 (``pair_merge``) keeps the global head on the mesh's home device; K11 is
 built once per distinct device, K12 runs over each shard's block of the
 pairs and K13 over its block of the exactly scored rows, gathered on the
-home device. The selection of those rows and the final order stay on the
-host, so the table is the single-device one. A shard's product is taken
+home device. K21 selects those rows on the home device over the gathered
+scores, and the final order stays on the host, so the table is the
+single-device one. A shard's product is taken
 at the whole table's row count (its rows in a zero frame): cuBLAS picks
 its kernel by the row count, and a block of rows multiplied alone comes
 out in other roundings than the same rows of the whole product.
@@ -43,6 +46,7 @@ from ..kernels.field import anchor_field
 from ..kernels.pairs import (head_length, pair_head, pair_merge,
                              split_pair_keys)
 from ..kernels.repeat import exact_repeat
+from ..kernels.select_exact import select_exact
 from ..parallel.mesh import (Mesh, map_rows, replicate, run_device,
                              shard_bounds)
 from .pipeline import DescriptorSet
@@ -178,25 +182,30 @@ def match_descriptors(map_set: DescriptorSet, sub_set: DescriptorSet,
     shards = mesh or Mesh((device,))
 
     # Stage A: approximate repeatability of every pair (K11 once per
-    # device, K12 over each shard's pairs).
+    # device, K12 over each shard's pairs), gathered on the home device.
     r_vox = max(1, int(round(cfg.anchor_dist / voxsp)))
     vox = anchor_voxels(lo_cloud, grid_origin, voxsp, grid_shape)
     inv = float(np.float32(1.0 / voxsp))
     rep_in = replicate(shards, lambda d: (
         anchor_field(tuple(grid_shape), torch.as_tensor(vox, device=d),
                      r_vox), _f32(hi_cloud, d), _f32(grid_origin, d)))
-    rep = map_rows(shards, len(rows), lambda d, a, e: approx_repeat(
-        *rep_in[d], inv, _f32(rot[a:e], d), _f32(hi_coord[a:e], d),
-        _f32(lo_coord[a:e], d))).cpu().numpy()
+    poses = [_f32(a, shards.home) for a in (rot, hi_coord, lo_coord)]
+    rep_d = map_rows(shards, len(rows), lambda d, a, e: approx_repeat(
+        *rep_in[d], inv, *[t[a:e].to(d) for t in poses]))
 
-    # Stage B: exact scores for the ordering-critical top pairs. Selection
-    # count is mesh-independent, so a mesh run re-scores the same rows.
+    # Stage B: exact scores for the ordering-critical top pairs, selected
+    # and gathered by K21 on the home device. Selection count is
+    # mesh-independent, so a mesh run re-scores the same rows.
     want = max(cfg.exact_top, min_exact)
     if want > 0:
         n_use = min(bucket(want, 64), len(rows))
-        top = np.argsort(-rep, kind="stable")[:n_use]
-        rep[top] = _exact(shards, hi_cloud, lo_cloud, rot[top],
-                          hi_coord[top], lo_coord[top], cfg.anchor_dist)
+        top_d, *picked = select_exact(rep_d, *poses, n_use)
+        erep_d = _exact(shards, hi_cloud, lo_cloud, *picked,
+                        cfg.anchor_dist)
+        top, rep, erep = _pull(top_d, rep_d, erep_d)
+        rep[top] = erep
+    else:
+        rep = rep_d.cpu().numpy()
     order = np.argsort(-rep, kind="stable")
     return MatchTable(
         cc=ccs[order], repeat=rep[order], hi_idx=rows[order],
@@ -204,15 +213,30 @@ def match_descriptors(map_set: DescriptorSet, sub_set: DescriptorSet,
         lo_coord=lo_coord[order], hi_cloud=hi_cloud, lo_cloud=lo_cloud)
 
 
+def _pull(*parts: torch.Tensor):
+    """Tensors of one device as numpy arrays, in one device-to-host copy
+    (the 8-byte ones first, so each lands aligned for its type)."""
+    host = torch.cat([p.reshape(-1).view(torch.int32) for p in parts]).cpu()
+    out, at = [], 0
+    for p in parts:
+        n = p.numel() * p.element_size() // 4
+        out.append(host[at:at + n].view(p.dtype).reshape(p.shape).numpy())
+        at += n
+    return out
+
+
 def _exact(shards: Mesh, hi_cloud, lo_cloud, rot, hi_coord, lo_coord,
-           anchor_dist: float) -> np.ndarray:
-    """K13 over each shard's block of the given rows (clouds replicated
-    once per device), gathered."""
+           anchor_dist: float) -> torch.Tensor:
+    """K13 over each shard's block of the given rows (float32 tensors or
+    arrays; clouds replicated once per device), gathered on the mesh's
+    home device."""
     clouds = replicate(shards, lambda d: (_f32(hi_cloud, d),
                                           _f32(lo_cloud, d)))
+    rows = lambda a, d: (a.to(d) if isinstance(a, torch.Tensor)
+                         else _f32(a, d))
     return map_rows(shards, len(rot), lambda d, a, e: exact_repeat(
-        *clouds[d], _f32(rot[a:e], d), _f32(hi_coord[a:e], d),
-        _f32(lo_coord[a:e], d), float(anchor_dist))).cpu().numpy()
+        *clouds[d], rows(rot[a:e], d), rows(hi_coord[a:e], d),
+        rows(lo_coord[a:e], d), float(anchor_dist)))
 
 
 def exact_rescore(table: MatchTable, rows: np.ndarray, anchor_dist: float,
@@ -224,4 +248,4 @@ def exact_rescore(table: MatchTable, rows: np.ndarray, anchor_dist: float,
         return np.zeros(0, np.float32)
     return _exact(mesh or Mesh((torch.device(device),)), table.hi_cloud,
                   table.lo_cloud, table.rot[rows], table.hi_coord[rows],
-                  table.lo_coord[rows], anchor_dist)
+                  table.lo_coord[rows], anchor_dist).cpu().numpy()

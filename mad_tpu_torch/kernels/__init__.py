@@ -8,9 +8,10 @@ sources are in ``mad_tpu_torch/csrc`` and build on first use
 (:mod:`.build`).
 """
 
-from . import (approx, ccc, cluster, conv1d, describe, enumerate, field,
-               gather_norm, gradient, hetero, localize, orient, overlap,
-               pairs, peaks, post, refine, repeat, scatter, upsample)
+from . import (approx, ccc, cluster, conv1d, crop_pad, describe, enumerate,
+               field, gather_norm, gradient, hetero, localize, orient,
+               overlap, pairs, peaks, post, refine, repeat, scatter,
+               select_exact, upsample)
 
 # name -> (wrapper module, CUDA source, the mad_tpu body it replaces), in
 # the order of the bodies' K numbers (ROADMAP Queue 2)
@@ -73,6 +74,12 @@ KERNELS = {
                        "mad_tpu/engine/assemble.py:338"),
     "hetero_head": (hetero, "mad_tpu_torch/csrc/enumerate.cu",
                     "mad_tpu/engine/assemble.py:500"),
+    "select_exact": (select_exact, "mad_tpu_torch/csrc/select_exact.cu",
+                     "mad_tpu/engine/match.py:224"),
+    "axis_flags": (crop_pad, "mad_tpu_torch/csrc/crop_pad.cu",
+                   "mad_tpu/core/grid.py:31"),
+    "crop_pad": (crop_pad, "mad_tpu_torch/csrc/crop_pad.cu",
+                 "mad_tpu/core/grid.py:45"),
 }
 
 
@@ -80,13 +87,13 @@ KERNELS = {
 # K1's fused LoG passes and its blur epilogues (launches of the single-axis
 # entry, which "conv1d" counts as well), K9's scale-and-clamp pass, K10's
 # merge of the shards' heads, K16's lane, eligibility and compaction stages
-# ("post" counts its dedup)
+# ("post" counts its dedup), K23 (K22 shares its module)
 COUNTERS = {"log_gauss": "log_launches", "blur_divide": "divide_launches",
             "blur_max": "max_launches", "simulate_scale": "scale_launches",
             "pair_merge": "merge_launches",
             "post_lanes": "lane_launches",
             "post_points": "point_launches", "post_rows": "row_launches",
-            "post_compact": "compact_launches"}
+            "post_compact": "compact_launches", "crop_pad": "pad_launches"}
 
 
 def reset_launches() -> None:

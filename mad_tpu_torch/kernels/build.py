@@ -87,6 +87,9 @@ SIGNATURES = {
     "mad_post_compact": [_P, _I, _I, _P, _P],
     "mad_batched_ccc": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P,
                         _P],
+    "mad_select_exact": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "mad_axis_flags": [_P, _I, _I, _I, _P, _P],
+    "mad_crop_pad": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

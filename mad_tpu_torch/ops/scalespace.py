@@ -5,8 +5,9 @@ upsampled octave (Catmull-Rom, presmoothed) and the base octave, each with
 its scale-normalized negative LoG (clamped at 0) and the gradient of its
 Gaussian-smoothed volume (kernel K3, :mod:`mad_tpu_torch.kernels.gradient`).
 
-The map is zero-padded by ``map_padding`` voxels and used at its real
-size; mad_tpu's shape buckets only bounded XLA recompiles. Octaves build
+The map is zero-padded by ``map_padding`` voxels (one K23 copy,
+``kernels/crop_pad.py``) and used at its real size; mad_tpu's shape
+buckets only bounded XLA recompiles. Octaves build
 one at a time and each field is freed as soon as its consumer is done.
 
 Capacity mode (a mesh; the ``mesh`` branches of mad_tpu's ``_prepare``,
@@ -27,10 +28,10 @@ from typing import Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..core.config import ScaleSpaceConfig
 from ..core.grid import DensityGrid
+from ..kernels.crop_pad import crop_pad
 from ..kernels.gradient import gradient  # noqa: F401  (K3, the octave field)
 from ..parallel.mesh import Mesh, mesh_size
 from ..parallel.volume import (filter_radius, map_slabs, row_bounds,
@@ -138,11 +139,12 @@ class ShardedOctave:
 
 
 def prepare(grid: DensityGrid, cfg: ScaleSpaceConfig):
-    """Zero-pad the map by ``map_padding``; returns (volume, origin)."""
+    """Zero-pad the map by ``map_padding`` (K23); returns (volume,
+    origin)."""
     pad = int(cfg.map_padding)
     data = grid.data.to(torch.float32)
     if pad:
-        data = F.pad(data, (pad,) * 6)
+        data = crop_pad(data, (0, 0, 0), data.shape, pad)
     return data, grid.origin - pad * grid.voxsp
 
 

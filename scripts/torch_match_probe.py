@@ -4,7 +4,7 @@ card: where their time goes, two checkouts' kernels held bit for bit and
 timed in turns, and the host pose data of the match stage in parts.
 
     python3 scripts/torch_match_probe.py [--parent DIR] [--order ABBA]
-        [--variants paths,pairs,repeat]
+        [--variants paths,pairs,repeat,select]
 
 Runs chip_smoke.py's bench fit once in this checkout and records the
 inputs of every K10 head call (engine/match.pair_head) and every K13 call
@@ -19,6 +19,12 @@ map anchors), K10's head at (24, 16411) and (300, 700) cosines on a grid
 of levels (as tests/test_torch_match_cuda.py) and on the bench's cosines
 with max_pairs chip_smoke.K10_CUT_PAIRS, so that it keeps fewer keys than
 its row heads hold.
+The fit's descriptor sets are saved too, for the match stage
+(engine/match.match_descriptors at the fit's min_exact): each checkout
+times it whole (host clock, synchronized, median of 7) and its selection
+span, from K12's return to K13's call (both synchronized; median of 7):
+the host argsort and the pushes of the gathered rows before K21, K21
+since; the two checkouts' tables are held equal bit for bit.
 Prints each input's shape, and the host pose data of match_pairs
 (engine/match.py) on the bench's pairs in parts: the keys' pull, their
 decode (split_pair_keys), the two np.unique(..., axis=0) calls, the
@@ -46,7 +52,12 @@ in B's first process (A's without ``--parent``):
     sort, the stage alone (on the last call's bounds); the bucket's bounds
     alone, with its sample, and whole; buckets of 64 and 256 slots;
   * repeat: K13 with 1, 4 and 8 running minima a lane, and 4 and 16 warps
-    a block.
+    a block;
+  * select: K21 (csrc/select_exact.cu) with its select on a cluster of 1
+    (one block) and of 4 CTAs, 512 threads a CTA, without its rank launch
+    and without its select launch.
+K21 (engine/match.select_exact, the match stage's call in the bench fit,
+also at n_use = P) is timed in a checkout that has it.
 Prints the card's name and power limit first. Needs a card.
 """
 
@@ -62,7 +73,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Run in a checkout (cwd), its mad_tpu_torch; the helpers (bare,
 # kernel_ms, ...) from this checkout's chip_smoke, loaded by path.
 CHILD = r"""
-import ctypes, importlib.util, json, re, subprocess, sys, torch
+import ctypes, importlib.util, json, re, subprocess, sys, time, torch
 from mad_tpu_torch.kernels import build, approx as k12, pairs as k10
 from mad_tpu_torch.kernels import repeat as k13
 smoke, inputs, out_path, variants = (sys.argv[1], sys.argv[2], sys.argv[3],
@@ -94,11 +105,19 @@ for name, so, proc in procs:
     built.append((name, ctypes.CDLL(str(so))))
 inp = torch.load(inputs, weights_only=False, map_location=device)
 res, outs, bares = {}, {}, {}
-for kind, fn in (("K13", k13.exact_repeat), ("K10", k10.pair_head),
-                 ("K10 merge", k10.pair_merge)):
+kinds = [("K13", k13.exact_repeat), ("K10", k10.pair_head),
+         ("K10 merge", k10.pair_merge)]
+try:
+    from mad_tpu_torch.kernels import select_exact as k21
+    kinds.append(("K21", k21.select_exact))
+except ImportError:          # a checkout from before K21
+    pass
+for kind, fn in kinds:
     for label, a in inp[kind]:
         key = f"{kind} {label}"
-        outs[key] = [fn(*a).cpu()]
+        got = fn(*a)
+        outs[key] = [x.cpu() for x in (got if isinstance(got, tuple)
+                                        else (got,))]
         r = cs.bare(lambda: fn(*a))
         bares[key] = r
         res[key + " alone"] = cs.kernel_ms(r)
@@ -107,6 +126,42 @@ for label, (a12, a13) in inp["D2"]:
     d2 = lambda: (k12.approx_repeat(*a12), k13.exact_repeat(*a13))
     outs[f"D2 {label}"] = [x.cpu() for x in d2()]
     res[f"D2 {label} wrapper"] = cs.cuda_ms(d2, reps=10)
+# the match stage (match_descriptors, host clock), and its selection span:
+# from K12's return to K13's call, each side synchronized
+from mad_tpu_torch.engine import match as em
+m, s, shape, origin, voxsp, mc, min_exact = inp["match"]
+stage = lambda: em.match_descriptors(m, s, shape, origin, voxsp, mc,
+                                     min_exact=min_exact, device=device)
+table = stage()
+outs["match table"] = [torch.as_tensor(a) for a in (
+    table.repeat, table.hi_idx, table.lo_idx, table.rot)]
+walls, spans, marks = [], [], {}
+real12, real13 = em.approx_repeat, em.exact_repeat
+def k12_spy(*a):
+    out = real12(*a)
+    torch.cuda.synchronize()
+    marks["12"] = time.perf_counter()
+    return out
+def k13_spy(*a):
+    torch.cuda.synchronize()
+    marks.setdefault("13", time.perf_counter())
+    return real13(*a)
+for spied in (False, True):
+    em.approx_repeat, em.exact_repeat = ((k12_spy, k13_spy) if spied
+                                         else (real12, real13))
+    for _ in range(7):
+        marks.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stage()
+        torch.cuda.synchronize()
+        if spied:
+            spans.append((marks["13"] - marks["12"]) * 1e3)
+        else:
+            walls.append((time.perf_counter() - t0) * 1e3)
+em.approx_repeat, em.exact_repeat = real12, real13
+res["match stage, host clock"] = sorted(walls)[3]
+res["match stage, K12 to K13"] = sorted(spans)[3]
 for name, lib in built:
     for key, r in bares.items():
         export = r.call[0].__name__
@@ -180,6 +235,21 @@ PAIRS = (
     (f"buckets of {n} slots", "pairs.cu",
      [(r"constexpr int kBucketKeys = \d+;",
        f"constexpr int kBucketKeys = {n};")]) for n in (64, 256))
+_CLUSTER = r"constexpr int kCluster = \d+;"
+SELECT = (
+    ("select on one block", "select_exact.cu",
+     [(_CLUSTER, "constexpr int kCluster = 1;")]),
+    ("select on a cluster of 4", "select_exact.cu",
+     [(_CLUSTER, "constexpr int kCluster = 4;")]),
+    ("select at 512 threads a CTA", "select_exact.cu",
+     [(r"constexpr int kSelectThreads = \d+;",
+       "constexpr int kSelectThreads = 512;")]),
+    ("without the rank launch", "select_exact.cu",
+     [(r"  rank_gather<<<.*?hi_out, lo_out\);\n", "")]),
+    ("without the select launch", "select_exact.cu",
+     [(r"err = cudaLaunchKernelEx\(&cfg, select_keys,.*?\);\n",
+       "err = cudaSuccess;\n")]),
+)
 REPEAT = tuple(
     (f"{n} minima a lane", "repeat.cu",
      [(r"constexpr int kMinima = \d+;", f"constexpr int kMinima = {n};")])
@@ -267,8 +337,14 @@ def record(cs, path):
     cs.build_phase()
     cfg = cs.bench_config()
     with recording(em, "pair_head") as heads, \
-            recording(em, "exact_repeat") as reps:
+            recording(em, "exact_repeat") as reps, \
+            recording(em, "select_exact") as sels:
         fit = cs.run_fit(device, None, cfg)
+    k21 = []
+    for r, a in enumerate(sels):
+        k21 += [(f"call {r}", a), (f"call {r}, n_use = P",
+                                   a[:4] + (a[0].shape[0],))]
+        cs.say(f"K21 call {r}: {a[0].shape[0]} scores, n_use {a[4]}")
     k10 = []
     for r, a in enumerate(heads):
         k10.append((f"call {r}", a))
@@ -316,7 +392,11 @@ def record(cs, path):
     cs.say(f"D2 shard 1: K12 on {c12[1][4].shape[0]} pairs, K13 on "
            f"{c13[1][2].shape[0]} rows x {c13[1][0].shape[0]} x "
            f"{c13[1][1].shape[0]} anchors")
-    torch.save({"K13": k13, "K10": k10, "K10 merge": merge, "D2": d2}, path)
+    match = (fit["map_set"], fit["sub_set"], tuple(fit["dmap"].shape),
+             fit["dmap"].origin, fit["dmap"].voxsp, cfg.match,
+             cfg.filter.n_samples * cs.N_COPIES)
+    torch.save({"K13": k13, "K10": k10, "K10 merge": merge, "D2": d2,
+                "K21": k21, "match": match}, path)
     host_split(fit["map_set"], fit["sub_set"], cfg.match)
 
 
@@ -329,7 +409,8 @@ def main():
     groups = set(args.variants.split(",")) - {""}
     here = ((PATHS if "paths" in groups else ())
             + (PAIRS if "pairs" in groups else ())
-            + (REPEAT if "repeat" in groups else ()))
+            + (REPEAT if "repeat" in groups else ())
+            + (SELECT if "select" in groups else ()))
     variants = {"A": () if args.parent else here, "B": here}
     sys.path.insert(0, ROOT)
     import chip_smoke as cs

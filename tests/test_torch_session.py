@@ -14,8 +14,8 @@ Required:
     heteromer;
   * a second run() in the same workdir loads both caches (dsc_db and
     pose_db) and gives the same solutions;
-  * the caches' file names and the checkpoint digest are mad_tpu's, with
-    .npz in place of .h5;
+  * the caches' file names (``.h5``, h5py being installed) and the
+    checkpoint digest are mad_tpu's, letter for letter;
   * with save_pre_solutions, the same pre_solutions/ files and
     Solutions_filtered_*.csv IDs and weights.
 """
@@ -176,20 +176,22 @@ def test_second_run_uses_both_caches(sessions):
 
 def test_cache_names_and_digest_are_mad_tpus(sessions):
     jmad, tmad, _again, _log = sessions
-    for mod, mad, suffix in ((jcache, jmad, ".h5"), (tcache, tmad, ".npz")):
+    for mod, mad in ((jcache, jmad), (tcache, tmad)):
         db = os.path.join(mad.workdir, "dsc_db")
         assert sorted(os.listdir(db)) == sorted(
             os.path.basename(mod.cache_filename(
                 db, n, 8.0, 0.0, 2.0, 1.0, 16, 112, 16, 64))
             for n in ("dimer_map", KEY))
-        assert all(f.endswith(suffix) for f in os.listdir(db))
+        assert all(f.endswith(".h5") for f in os.listdir(db))
+    assert (sorted(os.listdir(os.path.join(jmad.workdir, "dsc_db")))
+            == sorted(os.listdir(os.path.join(tmad.workdir, "dsc_db"))))
     sub = jparse_pdb(jmad.processed_subunits[KEY][0])
     jh = jcache.dock_state_hash(sub.coords, 2, 8.0, 0.0, jmad.config)
     th = tcache.dock_state_hash(sub.coords, 2, 8.0, 0.0, tmad.config)
     assert jh == th
     jp = sorted(os.listdir(os.path.join(jmad.workdir, "pose_db")))
     tp = sorted(os.listdir(os.path.join(tmad.workdir, "pose_db")))
-    assert [f[:-3] for f in jp] == [f[:-4] for f in tp] and jh in tp[0]
+    assert jp == tp and jh in tp[0] and tp[0].endswith(".h5")
 
 
 @pytest.mark.parametrize("call", ["session", "grid", "enumerate"])
