@@ -80,7 +80,7 @@ Phases, each of which raises (non-zero exit) when it fails:
      and the operations it does over 67 TFLOP/s (float32, no tensor cores;
      K14's, K16's and K17's over 34 TFLOP/s, float64); a kernel alone
      (K4, K5, K7, K8 at the map's and the subunit's call, K10's head,
-     K11, K12, K13, K14, K15, K16's five entries, K18, K19) is timed on
+     K11, K12, K13, K14, K15, K16's five entries, K18, K19, K20) is timed on
      preallocated buffers with the stream held back while the host
      enqueues its launches (kernel_ms; bare: the wrapper's launch
      recorded once and repeated alone); then describe_grid
@@ -2095,8 +2095,11 @@ def assembly_kernel_checks(fit, cfg, device):
         lambda: hetero.hetero_head_plain(ov, lists, sizes, 256),
         ov.numel() * 4 + lists.numel() * 4 + 256 * 8,
         ov.numel() + tuples * (2 * n_g + n_g * (n_g - 1) // 2))
+    out["hetero_head"]["kernel_ms"] = alone_ms(
+        lambda: hetero.hetero_head(ov, lists, sizes, 256))
     say(f"  K20: {tuples} tuples over {ov.shape[0]} solutions, head "
-        f"{len(h1)}")
+        f"{len(h1)}; kernel alone {out['hetero_head']['kernel_ms']:.4f} ms, "
+        f"wrapper {out['hetero_head']['ms']:.4f} ms")
     return out
 
 

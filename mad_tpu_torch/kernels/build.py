@@ -56,9 +56,8 @@ SIGNATURES = {
                           _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
     "mad_simulate_scale": [_P, _I, _L, _P, _F, _I, _P],
     "mad_pack_overlap": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "mad_enumerate_head": [_P, _I, _P, _I, _I, _L, _I, _I, _I, _P, _P, _P],
-    "mad_hetero_head": [_P, _I, _I, _I, _P, _I, _P, _I, _L, _I, _I, _I, _P,
-                        _P, _P],
+    "mad_enumerate_head": [_P, _I, _P, _I, _I, _L, _I, _I, _P, _P, _P],
+    "mad_hetero_head": [_P, _I, _I, _P, _I, _P, _I, _L, _I, _I, _P, _P, _P],
     "mad_orient": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I,
                    _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _F,
                    _P, _P, _P, _P, _P],

@@ -8,18 +8,28 @@ t rows and columns as they stage them: ``sym = ov[:t, :t] + ov[:t, :t].T``
 equals the float64 sum rounded). :func:`sym_trim_plain` is that staging in
 PyTorch, which the heads' plain versions call.
 
-The CUDA source ``csrc/enumerate.cu`` takes one rank per thread: it decodes
-the combination from the binomial table into a uint64 membership mask,
-takes the largest ``sym[a][b]`` over the tuple's pairs and keeps the
-smallest ``head`` keys (score, rank) per block, then over the blocks;
-:func:`enumerate_head_plain` is the plain PyTorch version: the JAX body's
-scanned decode into occupancy masks and masked max, chunked, with a
-running merge of the same keys.
-
 A key is (float bits of the score, clamped at 0) << 32 | rank, so sorting
 keys sorts by (score, rank): the tie order of the JAX body's running
-``lax.top_k`` merge (earlier chunks and lower ranks first). The helpers
-here (keys, merge, block plan) serve K20 (:mod:`.hetero`) as well.
+``lax.top_k`` merge (earlier chunks and lower ranks first). Keys are
+unique, so any exact selection of the ``head`` smallest gives the same
+bits.
+
+The CUDA source ``csrc/enumerate.cu`` is a thresholded select in two
+launches (its header has the design): blocks of ranks score their tiles
+(the combination decoded from the binomial table into a uint64 membership
+mask, the masked max of sym) and keep a key only below the smaller of
+their own head-th kept key and a global threshold word, radix-selecting
+their buffer down to ``head`` keys when it fills and publishing that key
+by ``atomicMin``; then one CTA, or a cluster of up to 8 whose CTAs each
+select the head of their share of the blocks' kept keys at or below the
+final word and gather it in the first, takes the ``head`` smallest and
+sorts them. Each threshold is the ``head``-th of ``head`` real keys, so no
+key of the head is ever dropped. :func:`plan` sizes the first launch; one block
+writes the sorted head in one launch. :func:`enumerate_head_plain` is the
+plain PyTorch version: the JAX body's scanned decode into occupancy masks
+and masked max, chunked, with a running merge of the same keys. The
+helpers here (keys, merge, plan, buffers) serve K20 (:mod:`.hetero`) as
+well.
 """
 
 from __future__ import annotations
@@ -83,25 +93,33 @@ def split_keys(keys: torch.Tensor):
     return k & 0xFFFFFFFF, scores
 
 
-def plan(total: int, head: int, fixed_smem: int, device):
-    """(S, blocks) of a head launch: S keys of shared memory per block, a
-    power of two >= 2 head, and at most two blocks per SM."""
-    if head < 1:
-        raise ValueError("head must be >= 1")
-    S = max(2048, 1 << (2 * head - 1).bit_length())
-    if S * 8 + fixed_smem > build.SMEM_LIMIT:
-        raise ValueError(f"head {head} needs {S * 8 + fixed_smem} bytes of "
-                         f"shared memory, more than {build.SMEM_LIMIT}")
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks = max(1, min(-(-total // (S - head)), 2 * sms))
-    return S, blocks
+_C = build.constants("enumerate.cu")
+TILE = _C["kTile"]                  # ranks a first-launch block scores a tile
+MAX_HEAD = _C["kMaxHead"]
+
+
+def plan(total: int, head: int, sms: int) -> int:
+    """Blocks of a head's first launch on a card of ``sms`` SMs: a tile of
+    ranks each at least, at most one an SM, and no more than the final
+    launch's CTAs hold the heads of (each CTA kFinalKeys keys of them, and
+    at most kCluster CTAs whose heads together fit in kFinalKeys)."""
+    if not 1 <= head <= MAX_HEAD:
+        raise ValueError(f"head must be in [1, {MAX_HEAD}], got {head}")
+    per_cta = _C["kFinalKeys"] // head
+    return max(1, min(-(-total // TILE), sms,
+                      min(_C["kCluster"], per_cta) * per_cta))
+
+
+def card_sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def head_buffers(blocks: int, head: int, device):
-    partial = torch.empty(blocks * head if blocks > 1 else 1,
-                          dtype=torch.int64, device=device)
-    out = torch.empty(head, dtype=torch.int64, device=device)
-    return partial, out
+    """One int64 buffer: the output's ``head`` words, then, with more than
+    one block, the first launch's scratch (blocks x head kept keys, the
+    threshold word, the blocks' int32 counts)."""
+    scratch = blocks * head + 1 + (blocks + 1) // 2 if blocks > 1 else 0
+    return torch.empty(head + scratch, dtype=torch.int64, device=device)
 
 
 def enumerate_head_plain(ov: torch.Tensor, tab: torch.Tensor, head: int,
@@ -131,10 +149,10 @@ def enumerate_head_plain(ov: torch.Tensor, tab: torch.Tensor, head: int,
 
 def enumerate_head(ov: torch.Tensor, tab: torch.Tensor,
                    head: int) -> torch.Tensor:
-    """The ``head`` smallest keys (max pair overlap, rank) over the C(n, k)
-    ranks, ascending; ov (n_ov, n_ov) float32 overlap, of which the first
-    n rows and columns give sym = ov + ov^T, tab = comb_table(n, k) as
-    int32 on the same device, n <= 64."""
+    """The min(head, C(n, k)) smallest keys (max pair overlap, rank) over
+    the C(n, k) ranks, ascending; ov (n_ov, n_ov) float32 overlap, of which
+    the first n rows and columns give sym = ov + ov^T, tab = comb_table(n,
+    k) as int32 on the same device, n <= 64, 1 <= head <= MAX_HEAD."""
     if ov.device.type == "cpu":
         return enumerate_head_plain(ov, tab, head)
     global launches
@@ -143,16 +161,16 @@ def enumerate_head(ov: torch.Tensor, tab: torch.Tensor,
     build.require_cuda("enumerate_head", ov, tab)
     n, k = tab.shape
     check_overlap("enumerate_head", ov, n)
-    if n > 64 or k < 1:
+    if n > 64 or not 1 <= k <= n:
         raise ValueError(f"enumerate_head: bad table {tuple(tab.shape)} "
-                         "(n <= 64)")
+                         "(1 <= k <= n <= 64)")
     total = math.comb(n, k)
-    S, blocks = plan(total, head, 4 * n * (n + k), ov.device)
-    partial, out = head_buffers(blocks, head, ov.device)
+    blocks = plan(total, head, card_sms(ov.device))
+    buf = head_buffers(blocks, head, ov.device)
     lib = build.library()
     build.launch(
         lib.mad_enumerate_head, ov.device, ov.data_ptr(), ov.shape[0],
-        tab.data_ptr(), n, k, total, head, S, blocks, partial.data_ptr(),
-        out.data_ptr())
+        tab.data_ptr(), n, k, total, head, blocks, buf.data_ptr() + 8 * head,
+        buf.data_ptr())
     launches += 1
-    return out[out != -1]
+    return buf[:min(head, total)]
