@@ -44,7 +44,9 @@ Phases, each of which raises (non-zero exit) when it fails:
      (the upsampled Gaussian volume and ragged shapes cut from it, float32
      and bfloat16), both also with their 64-bit offsets forced on the
      ragged shapes, K5 (the LoG volumes of both map octaves with K4's
-     seeds) and K8 (the map's two octave tables and keep indices) bit for
+     seeds) and K8 (the map's two octave tables and keep indices, the
+     subunit's, both on its 16-byte path; the map's tables 2 bytes off
+     alignment on its scalar path; the cache loader's call) bit for
      bit, at the inputs a describe_grid of the bench map gives them; K7 at
      the fit's four octaves (the map's and the subunit's upsampled and
      base octaves, as describe_grid and describe_structure call it: its
@@ -87,13 +89,15 @@ Phases, each of which raises (non-zero exit) when it fails:
      on the bench map with the kernels and with the plain versions of K1's
      LoG, K2, K3, K5, K8 and K23 must give the same DescriptorSet (desc,
      desc_norm, coords, subv_coords, rfinal) bit for bit; K21 bit for bit
-     on the match stage's 46,848 repeatabilities at its n_use (1,024) and
-     at n_use = P, and on K21_EDGE (ties at the n_use-th key, zeros of
-     both signs, NaN, -inf); K22 and K23 bit for bit on the unreduced
-     bench map (its flags and reduce_void's crop), the map's and the
-     subunit's prepare (recorded during a describe) and a volume with NaN
-     and -0.0 (edge_volume), each with its library call (K21: torch.sort
-     of the keys, then a slice; K22: three torch.any reductions; K23:
+     on the match stage's 46,848 repeatabilities at its n_use (1,024; one
+     launch, and its three launches forced) and at n_use = P (three), and
+     on K21_EDGE (ties at the n_use-th key, zeros of both signs, NaN,
+     -inf; one launch, and three at n_use = P); K22 and K23 bit for bit on
+     the unreduced bench map (its flags and reduce_void's crop), the map's
+     and the subunit's prepare (recorded during a describe) and a volume
+     with NaN and -0.0 (edge_volume), each with its library call (K21:
+     torch.topk of the keys with its three gathers, torch.sort of the keys
+     and a slice printed beside it; K22: three torch.any reductions; K23:
      F.pad of the cropped view);
   5. timed pass of the main path (after one more warm pass) with every
      launch counter reset first;
@@ -860,6 +864,21 @@ def k21_edge_args(device):
         rng.normal(size=(e["P"], 3)).astype(np.float32))]
 
 
+@contextlib.contextmanager
+def k21_paths(one):
+    """K21's wrapper with its path forced: the one launch (one True, which
+    the wrapper takes by itself where the sizes allow) or the three
+    launches (False); yields the wrapper."""
+    from mad_tpu_torch.kernels import select_exact as k21
+    real = k21.one_launch
+    if not one:
+        k21.one_launch = lambda P, n_use: False
+    try:
+        yield k21.select_exact
+    finally:
+        k21.one_launch = real
+
+
 def select_pad_checks(fit, cfg, device):
     """K21, K22 and K23 against their plain versions, bit for bit: K21 at
     the inputs the match stage gives it (recorded during a
@@ -878,8 +897,12 @@ def select_pad_checks(fit, cfg, device):
     m, s, dmap = fit["map_set"], fit["sub_set"], fit["dmap"]
 
     # K21. Work: rep read once, the n_use rows' rotations and coordinates
-    # read and written, top written; a key a row. Library: torch.sort of
-    # the keys (stable, descending), then the first n_use.
+    # read and written, top written; a key a row. Library: torch.topk of
+    # the keys with the three gathers (printed beside torch.sort of the
+    # keys, stable, descending, then the first n_use); the keys made
+    # outside both. The one launch (the bench, K21_EDGE) and the three
+    # launches (the bench's shapes forced, n_use = P, K21_EDGE at n_use =
+    # P), each held against the plain version.
     with recording(em, "select_exact") as calls:
         em.match_descriptors(m, s, dmap.shape, dmap.origin, dmap.voxsp,
                              cfg.match, min_exact=cfg.filter.n_samples
@@ -888,33 +911,51 @@ def select_pad_checks(fit, cfg, device):
     args = calls[0]
     rep, n_use = args[0], args[4]
     P = rep.shape[0]
-    for what, a in (("the bench", args), ("n_use = P", args[:4] + (P,)),
-                    ("K21_EDGE", k21_edge_args(device) + [
-                        K21_EDGE["n_use"]]),
-                    ("K21_EDGE, n_use = P", k21_edge_args(device) + [
-                        K21_EDGE["P"]])):
-        got, want = k21.select_exact(*a), k21.select_exact_plain(*a)
+    full = args[:4] + (P,)
+    check(k21.one_launch(P, n_use) and not k21.one_launch(P, P),
+          f"K21: the bench's {n_use} of {P} rows not in one launch")
+    edge = k21_edge_args(device)
+    for what, a, one in (
+            ("the bench", args, True), ("the bench, three launches", args,
+                                        False),
+            ("n_use = P", full, False),
+            ("K21_EDGE", edge + [K21_EDGE["n_use"]], True),
+            ("K21_EDGE, n_use = P", edge + [K21_EDGE["P"]], False)):
+        with k21_paths(one) as kernel:
+            got, want = kernel(*a), k21.select_exact_plain(*a)
         check(all(same_bits(x, y) for x, y in zip(got, want)),
               f"K21 differs from the plain version on {what}")
         check(np.array_equal(got[0].cpu().numpy(), np.argsort(
             -a[0].cpu().numpy(), kind="stable")[:a[4]]),
             f"K21's order is not numpy's stable argsort on {what}")
     keys = k21.order_keys(rep)
+    rot, hi, lo = args[1:4]
+
+    def topk():
+        top = torch.topk(keys, n_use).indices
+        return top, rot[top], hi[top], lo[top]
+
     out["select_exact"] = measure(
         0.0, lambda: k21.select_exact(*args),
         lambda: k21.select_exact_plain(*args),
-        P * 4 + n_use * (36 + 12 + 12) * 2 + n_use * 8, P,
-        lambda: torch.sort(keys, descending=True, stable=True
-                           ).indices[:n_use])
+        P * 4 + n_use * (36 + 12 + 12) * 2 + n_use * 8, P, topk)
     out["select_exact"]["kernel_ms"] = alone_ms(
         lambda: k21.select_exact(*args))
-    full = args[:4] + (P,)
-    say(f"  K21: {P} repeatabilities, n_use {n_use}, bit for bit (also at "
-        f"n_use = P and on K21_EDGE); alone "
-        f"{out['select_exact']['kernel_ms']:.4f} ms; at n_use = P alone "
+    sort_ms = cuda_ms(lambda: torch.sort(keys, descending=True, stable=True
+                                         ).indices[:n_use])
+    with k21_paths(False) as three:
+        three_alone = alone_ms(lambda: three(*args))
+        three_ms = cuda_ms(lambda: three(*args))
+    say(f"  K21: {P} repeatabilities, n_use {n_use}, bit for bit (also "
+        f"three launches, at n_use = P and on K21_EDGE); one launch alone "
+        f"{out['select_exact']['kernel_ms']:.4f} ms, wrapper "
+        f"{out['select_exact']['ms']:.4f} ms; three launches alone "
+        f"{three_alone:.4f} ms, wrapper {three_ms:.4f} ms; torch.topk with "
+        f"its gathers {out['select_exact']['library_ms']:.4f} ms, "
+        f"torch.sort and a slice {sort_ms:.4f} ms; at n_use = P alone "
         f"{alone_ms(lambda: k21.select_exact(*full)):.4f} ms, wrapper "
         f"{cuda_ms(lambda: k21.select_exact(*full)):.4f} ms")
-    del keys, calls
+    del keys, calls, edge
 
     # K22 on the unreduced bench map. Work: the volume read once, the
     # flags written; a compare a voxel. Library: three torch.any.
@@ -998,6 +1039,7 @@ def describe_checks(fit, cfg, device):
     same DescriptorSet."""
     import torch
     import torch.nn.functional as F
+    from mad_tpu_torch import convert
     from mad_tpu_torch.engine import pipeline
     from mad_tpu_torch.kernels import (gather_norm as k8, gradient as k3,
                                        localize as k5, upsample as k2)
@@ -1119,12 +1161,36 @@ def describe_checks(fit, cfg, device):
     # K8: the map's two octave tables and keep indices. Work: the kept rows
     # read, the int16 and float32 rows written, the indices read, 3 flops a
     # bin; library: F.normalize of the gathered rows. The kernel alone at
-    # the map's and at the subunit's call (describe_structure's).
+    # the map's and at the subunit's call (describe_structure's), both on
+    # the 16-byte path, and on the scalar path at the map's call (its
+    # tables copied 2 bytes off 16-byte alignment); the cache loader's
+    # call (convert.descriptor_set_from_numpy, every row of the map's
+    # table), each bit for bit with the plain version.
     (tables, keeps), = gathers
-    got, ref = k8.gather_norm(tables, keeps), k8.gather_norm_plain(tables,
-                                                                   keeps)
-    check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
-          "K8 rows differ from the plain version")
+    (sub_tables, sub_keeps), = sub_gathers
+    odd = [torch.zeros(t.numel() + 1, dtype=t.dtype, device=device)
+           for t in tables]
+    for o, t in zip(odd, tables):
+        o[1:] = t.reshape(-1)
+    odd = [o[1:].view(t.shape) for o, t in zip(odd, tables)]
+    check(k8.vector_path(tables) and k8.vector_path(sub_tables)
+          and not k8.vector_path(odd),
+          "K8: the describe path's tables not on the 16-byte path")
+    for what, (t, k) in (("the map", (tables, keeps)),
+                         ("the subunit", (sub_tables, sub_keeps)),
+                         ("the map, scalar path", (odd, keeps))):
+        got, ref = k8.gather_norm(t, k), k8.gather_norm_plain(t, k)
+        check(same_bits(got[0], ref[0]) and same_bits(got[1], ref[1]),
+              f"K8 rows differ from the plain version on {what}")
+    n = got[0].shape[0]
+    z3, z = np.zeros((n, 3)), np.zeros(n, np.int32)
+    loaded = convert.descriptor_set_from_numpy(
+        got[0].cpu().numpy(), z3, z3, z3, np.zeros((n, 3, 3)), z, z, z, z,
+        device=device)
+    check(same_bits(loaded.desc, ref[0]) and same_bits(
+        loaded.desc_norm, k8.gather_norm_plain(
+            [ref[0]], [torch.arange(n, device=device)])[1]),
+        "K8 rows differ from the plain version in the cache loader")
     N, D = got[0].shape
     out["gather_norm"] = measure(
         0.0, lambda: k8.gather_norm(tables, keeps),
@@ -1134,11 +1200,19 @@ def describe_checks(fit, cfg, device):
                             .float(), dim=1))
     out["gather_norm"]["kernel_ms"] = alone_ms(
         lambda: k8.gather_norm(tables, keeps))
-    (sub_tables, sub_keeps), = sub_gathers
     sub_ms = alone_ms(lambda: k8.gather_norm(sub_tables, sub_keeps))
+    sub_n = sum(k.shape[0] for k in sub_keeps)
+    out["gather_norm"]["sub_kernel_ms"] = sub_ms
+    scalar_ms = alone_ms(lambda: k8.gather_norm(odd, keeps))
     say(f"  K8: {N} rows of {D} from {[t.shape[0] for t in tables]} lanes, "
-        f"equal; kernel alone {out['gather_norm']['kernel_ms']:.4f} ms, at "
-        f"the subunit's call {sub_ms:.4f} ms")
+        f"equal (also the subunit's, the scalar path's and the cache "
+        f"loader's); kernel alone {out['gather_norm']['kernel_ms']:.4f} ms "
+        f"(bound {bound(N * D * 8 + N * 8, 0)['bound_ms']:.5f}), at the "
+        f"subunit's call ({sub_n} rows) {sub_ms:.4f} ms (bound "
+        f"{bound(sub_n * D * 8 + sub_n * 8, 0)['bound_ms']:.5f}), the "
+        f"scalar path at the map's {scalar_ms:.4f} ms; wrapper "
+        f"{out['gather_norm']['ms']:.4f} ms")
+    del odd, loaded
     del gathers, tables, keeps, got, ref, sub_gathers, sub_tables, sub_keeps
 
     t0 = time.perf_counter()

@@ -7,9 +7,13 @@ indices name, the octaves in order one after the other: the (N, D) int16
 table and its float32 unit rows ``c / sqrt(sum c^2)`` (zero rows stay
 zero).
 
-The CUDA kernel ``csrc/gather_norm.cu`` gives one warp to each output row:
+The CUDA kernels ``csrc/gather_norm.cu`` give one warp to each output row:
 it gathers the row, sums the squares in integers (exact) and writes both
-tables. Counts of a ``patch_size``-16 lattice sum to at most 4096 a row,
+tables. Where every table is 16-byte aligned and D is a multiple of 8 up to
+:data:`MAX_VECTOR_D` (:func:`vector_path`; the describe path's and the
+cache loader's tables are) the row is held in registers, read and written
+16 bytes at a time; other tables take a scalar path, 2 bytes a load, with
+the same bits. Counts of a ``patch_size``-16 lattice sum to at most 4096 a row,
 so sum c^2 <= 2^24 and the plain version's float32 sum is exact too: the
 two are equal bit for bit. Above that (``patch_size`` 24: up to 13,824
 samples a row) the plain float32 sum may round where the kernel's does
@@ -28,6 +32,7 @@ from . import build
 launches = 0            # kernel launches since the last reset
 
 MAX_OCTAVES = 4         # tables one launch takes (csrc/gather_norm.cu)
+MAX_VECTOR_D = 2048     # bins a row of the 16-byte path (256 kMaxVec)
 
 
 def _unit_rows(desc: torch.Tensor) -> torch.Tensor:
@@ -44,6 +49,15 @@ def gather_norm_plain(tables, keeps):
     """``cat(table[keep] for each octave)`` as int16, and its unit rows."""
     desc = torch.cat([t[k] for t, k in zip(tables, keeps)]).to(torch.int16)
     return desc, _unit_rows(desc)
+
+
+def vector_path(tables) -> bool:
+    """Whether the kernel reads and writes these (L, D) int16 tables'
+    rows 16 bytes at a time: D a multiple of 8 up to MAX_VECTOR_D, every
+    table 16-byte aligned (the outputs, fresh, always are)."""
+    D = tables[0].shape[-1]
+    return (D % 8 == 0 and D <= MAX_VECTOR_D
+            and all(t.data_ptr() % 16 == 0 for t in tables))
 
 
 def gather_norm(tables, keeps):
@@ -83,6 +97,6 @@ def gather_norm(tables, keeps):
     lib = build.library()
     build.launch(
         lib.mad_gather_norm, dev, ptrs, starts, len(tables), idx.data_ptr(), N,
-        D, desc.data_ptr(), unit.data_ptr())
+        D, desc.data_ptr(), unit.data_ptr(), int(vector_path(tables)))
     launches += 1
     return desc, unit

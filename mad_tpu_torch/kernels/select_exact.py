@@ -9,19 +9,26 @@ with every NaN below -inf and -0.0 equal to +0.0, then the row index
 ascending, and the keys are unique; so the top keys are numpy's and
 ``jnp.argsort``'s stable descending order bit for bit.
 
-The CUDA kernels are in ``csrc/select_exact.cu``: a radix select of the
-n_use-th key on one cluster of 8 CTAs, then a launch that ranks the
-selected keys and gathers; ``launches`` counts both. :func:`select_exact_plain` is the plain
-PyTorch version (``torch.sort`` of the keys).
+The CUDA kernels are in ``csrc/select_exact.cu``. Up to ``kOneHead``
+(2,048) rows taken from up to ``kCluster * kChunk`` (65,536) rows
+(:func:`one_launch`; the bench takes 1,024 of 46,848) it is one launch on
+one cluster of 8 CTAs: each CTA selects the n_use largest of its chunk
+into the first CTA, which selects theirs and sorts them, and every CTA
+gathers an eighth of the rows. Above, a radix select on the cluster, a
+tile sort and a rank-and-gather launch (the select left out at n_use =
+P). ``launches`` counts the launches made. :func:`select_exact_plain` is
+the plain PyTorch version (``torch.sort`` of the keys).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import build
 
-launches = 0            # kernel launches since the last reset (2 a call)
+launches = 0            # kernel launches since the last reset
 
 
 def order_keys(rep: torch.Tensor) -> torch.Tensor:
@@ -41,12 +48,25 @@ def select_exact_plain(rep, rot, hi, lo, n_use: int):
     return top, rot[top], hi[top], lo[top]
 
 
+@functools.lru_cache(maxsize=1)
+def _limits():
+    c = build.constants("select_exact.cu")
+    return c["kOneHead"], c["kCluster"] * c["kChunk"]
+
+
+def one_launch(P: int, n_use: int) -> bool:
+    """Whether the kernel takes ``n_use`` of ``P`` rows in one launch (the
+    first CTA of the cluster holds the CTAs' heads and sorts them)."""
+    heads, rows = _limits()
+    return n_use <= heads and P <= rows
+
+
 def select_exact(rep: torch.Tensor, rot: torch.Tensor, hi: torch.Tensor,
                  lo: torch.Tensor, n_use: int):
     """(top, rot[top], hi[top], lo[top]): the rows of the ``n_use``
     largest float32 repeatabilities ``rep`` (P,), ties by row, as int64
     (n_use,) and the rows' (n_use, 3, 3) rotations and (n_use, 3) subunit
-    and map coordinates, contiguous."""
+    and map coordinates, contiguous views of one buffer."""
     if rep.device.type == "cpu":
         return select_exact_plain(rep, rot, hi, lo, n_use)
     global launches
@@ -58,17 +78,22 @@ def select_exact(rep: torch.Tensor, rot: torch.Tensor, hi: torch.Tensor,
                          "hi and lo (P, 3), 0 <= n_use <= P")
     rot, hi, lo = rot.contiguous(), hi.contiguous(), lo.contiguous()
     build.require_cuda("select_exact", rep, rot, hi, lo)
-    dev = rep.device
-    top = torch.empty(n_use, dtype=torch.int64, device=dev)
-    outs = (torch.empty((n_use, 3, 3), dtype=torch.float32, device=dev),
-            torch.empty((n_use, 3), dtype=torch.float32, device=dev),
-            torch.empty((n_use, 3), dtype=torch.float32, device=dev))
+    one = one_launch(P, n_use)
+    # top, then the 15 floats a row, then (three launches) the scratch
+    floats = (15 * n_use + 1) // 2
+    buf = torch.empty(n_use + floats + (0 if one else n_use + 1),
+                      dtype=torch.int64, device=rep.device)
+    top = buf[:n_use]
+    f = buf[n_use:n_use + floats].view(torch.float32)
+    outs = (f[:9 * n_use].view(n_use, 3, 3),
+            f[9 * n_use:12 * n_use].view(n_use, 3),
+            f[12 * n_use:15 * n_use].view(n_use, 3))
     if n_use == 0:
         return (top,) + outs
-    sel = torch.empty(n_use + 1, dtype=torch.int64, device=dev)  # + slot
-    build.launch(build.library().mad_select_exact, dev, rep.data_ptr(), P,
-                 n_use, rot.data_ptr(), hi.data_ptr(), lo.data_ptr(),
-                 sel.data_ptr(), top.data_ptr(),
+    scratch = None if one else buf[n_use + floats:].data_ptr()
+    build.launch(build.library().mad_select_exact, rep.device,
+                 rep.data_ptr(), P, n_use, rot.data_ptr(), hi.data_ptr(),
+                 lo.data_ptr(), scratch, top.data_ptr(),
                  *[t.data_ptr() for t in outs])
-    launches += 2
+    launches += 1 if one else 2 if n_use == P else 3
     return (top,) + outs

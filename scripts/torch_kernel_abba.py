@@ -16,8 +16,11 @@ best CA-RMSD below chip_smoke.RECOVER_RMSD), then its
 kernel_checks (each kernel at the bench fit's inputs against its plain
 version, CUDA events, mean of three after a warm call), and prints the
 chosen rows' kernel and plain ms, and the kernel alone where the row has
-it (``kernel_ms``: K4's, K5's, K7's, K14's, K15's, K16's and K18's rows;
-a row the checkout lacks is skipped;
+it (``kernel_ms``: K4's, K5's, K7's, K8's, K14's, K15's, K16's and K18's
+rows; K8's also at the subunit's call where the checkout reports it;
+a row the checkout lacks is skipped; rows all of K2, K3, K5 and K8
+(``upsample2``, ``gradient``, ``localize``, ``gather_norm``) run
+chip_smoke's describe_checks alone;
 the parent's ``upsample_axis``, K2's three per-axis launches, stands for
 ``upsample2``, the same work in one launch).
 ``--bodies``: the simulation body (``ops/simulate._simulate_batch``) at
@@ -44,6 +47,7 @@ from mad_tpu_torch import kernels
 from mad_tpu_torch.ops import simulate
 from mad_tpu_torch.testing import recording
 names, fits, bodies = sys.argv[1].split(","), int(sys.argv[2]), sys.argv[3]
+DESCRIBE_ROWS = {"upsample2", "gradient", "localize", "gather_norm"}
 device, _smi = cs.device_phase()
 cs.build_phase()
 cfg = cs.bench_config()
@@ -83,14 +87,19 @@ if bodies == "1":
                        peak]
     del sims
 print("BODY " + json.dumps(body))
-rows = cs.kernel_checks(fit, cfg, device) if names != [""] else {}
+# rows all of describe_checks (K2, K3, K5, K8): that phase alone
+if set(names) <= DESCRIBE_ROWS:
+    rows = cs.describe_checks(fit, cfg, device)
+else:
+    rows = cs.kernel_checks(fit, cfg, device) if names != [""] else {}
 # a row under its older name: K2's three per-axis launches (upsample_axis)
 # are the same work on the same input as its one launch (upsample2)
 for new, old in (("upsample2", "upsample_axis"),):
     if new not in rows and old in rows:
         rows[new] = rows[old]
 print("ROWS " + json.dumps({n: [rows[n]["ms"], rows[n]["plain_ms"],
-                                rows[n].get("kernel_ms")]
+                                rows[n].get("kernel_ms"),
+                                rows[n].get("sub_kernel_ms")]
                             for n in names if n in rows}))
 """
 
@@ -128,8 +137,9 @@ def main():
         fits[side] += passes
         print(f"run {i} {side} ({root}): " + ", ".join(
             f"{n} {k:.4f} ms (plain {p:.4f}"
-            + ("" if a is None else f", kernel alone {a:.4f}") + ")"
-            for n, (k, p, a) in rows.items()), flush=True)
+            + ("" if a is None else f", kernel alone {a:.4f}")
+            + ("" if b is None else f", the subunit's alone {b:.4f}") + ")"
+            for n, (k, p, a, b) in rows.items()), flush=True)
         for label, (ms, mib) in json.loads(lines["BODY "]).items():
             print(f"  body {side} {label}: {ms:.4f} ms, peak {mib:.1f} MiB",
                   flush=True)
@@ -147,6 +157,9 @@ def main():
                 + ("" if runs[0][n][2] is None else
                    f" (kernel alone "
                    f"{sum(r[n][2] for r in runs) / len(runs):.4f})")
+                + ("" if runs[0][n][3] is None else
+                   f" (the subunit's alone "
+                   f"{sum(r[n][3] for r in runs) / len(runs):.4f})")
                 for n in runs[0]))
         if fits[side]:
             keys = fits[side][0].keys()

@@ -4,7 +4,7 @@ card: where their time goes, two checkouts' kernels held bit for bit and
 timed in turns, and the host pose data of the match stage in parts.
 
     python3 scripts/torch_match_probe.py [--parent DIR] [--order ABBA]
-        [--variants paths,pairs,repeat,select]
+        [--variants paths,pairs,repeat,select,gather]
 
 Runs chip_smoke.py's bench fit once in this checkout and records the
 inputs of every K10 head call (engine/match.pair_head) and every K13 call
@@ -53,11 +53,22 @@ in B's first process (A's without ``--parent``):
     alone, with its sample, and whole; buckets of 64 and 256 slots;
   * repeat: K13 with 1, 4 and 8 running minima a lane, and 4 and 16 warps
     a block;
-  * select: K21 (csrc/select_exact.cu) with its select on a cluster of 1
-    (one block) and of 4 CTAs, 512 threads a CTA, without its rank launch
-    and without its select launch.
+  * select: K21's one launch (csrc/select_exact.cu) without the radix
+    selects' rank finish, with %globaltimer read by the first CTA at its
+    phases (the fit's call: load, select, compact into the first CTA,
+    barrier, AND and OR of the heads, second select, compact, sort,
+    barrier and the gathers), at 512 threads a CTA, and with a rank
+    finish at 128 keys (not 64);
+  * gather: K8 (csrc/gather_norm.cu) with __fdiv_rn in place of its
+    quotients from the row's reciprocal, without their two corrections
+    (wrong bits), without its float32 stores, at 8 warps a block, and
+    with each lane storing its own words' float32 (two 16-byte stores 32
+    bytes apart) in place of the words rearranged by shuffles.
+K8 (engine/pipeline.gather_norm: the fit's map and subunit calls) and
 K21 (engine/match.select_exact, the match stage's call in the bench fit,
-also at n_use = P) is timed in a checkout that has it.
+also at n_use = P) is timed in a checkout that has it, and in a checkout
+whose wrapper chooses between one launch and three (``one_launch``) also
+with the three launches forced at the fit's call.
 Prints the card's name and power limit first. Needs a card.
 """
 
@@ -75,9 +86,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = r"""
 import ctypes, importlib.util, json, re, subprocess, sys, time, torch
 from mad_tpu_torch.kernels import build, approx as k12, pairs as k10
-from mad_tpu_torch.kernels import repeat as k13
+from mad_tpu_torch.kernels import repeat as k13, gather_norm as k8
 smoke, inputs, out_path, variants = (sys.argv[1], sys.argv[2], sys.argv[3],
                                      json.loads(sys.argv[4]))
+CLOCK_PHASES = json.loads(sys.argv[5])
 spec = importlib.util.spec_from_file_location("smoke_helpers", smoke)
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
@@ -106,7 +118,7 @@ for name, so, proc in procs:
 inp = torch.load(inputs, weights_only=False, map_location=device)
 res, outs, bares = {}, {}, {}
 kinds = [("K13", k13.exact_repeat), ("K10", k10.pair_head),
-         ("K10 merge", k10.pair_merge)]
+         ("K10 merge", k10.pair_merge), ("K8", k8.gather_norm)]
 try:
     from mad_tpu_torch.kernels import select_exact as k21
     kinds.append(("K21", k21.select_exact))
@@ -122,6 +134,18 @@ for kind, fn in kinds:
         bares[key] = r
         res[key + " alone"] = cs.kernel_ms(r)
         res[key + " wrapper"] = cs.cuda_ms(lambda: fn(*a), reps=10)
+# K21's three launches at the one launch's shapes (a checkout whose
+# wrapper chooses between the two)
+if "K21" in dict(kinds) and hasattr(k21, "one_launch"):
+    one, k21.one_launch = k21.one_launch, lambda P, n_use: False
+    for label, a in inp["K21"]:
+        if one(a[0].shape[0], a[4]):
+            key = f"K21 {label}, three launches"
+            r = cs.bare(lambda: k21.select_exact(*a))
+            res[key + " alone"] = cs.kernel_ms(r)
+            res[key + " wrapper"] = cs.cuda_ms(lambda: k21.select_exact(*a),
+                                               reps=10)
+    k21.one_launch = one
 for label, (a12, a13) in inp["D2"]:
     d2 = lambda: (k12.approx_repeat(*a12), k13.exact_repeat(*a13))
     outs[f"D2 {label}"] = [x.cpu() for x in d2()]
@@ -171,6 +195,13 @@ for name, lib in built:
             fn.restype = ctypes.c_int
             res[f"{key} alone, {name}"] = cs.kernel_ms(
                 lambda: build.launch(fn, *r.call[1:]))
+            if name == "clock" and key == "K21 call 0":
+                # the first CTA's phases (ns, %globaltimer) in top
+                torch.cuda.synchronize()
+                top = next(t for t in r.kept if isinstance(t, torch.Tensor)
+                           and t.data_ptr() == r.call[9])
+                for i, d in enumerate(top[:len(CLOCK_PHASES)].tolist()):
+                    res[f"K21 clock {i} ({CLOCK_PHASES[i]}), us"] = d / 1e3
 torch.save(outs, out_path)
 print("RESULT " + json.dumps(res))
 """
@@ -235,20 +266,43 @@ PAIRS = (
     (f"buckets of {n} slots", "pairs.cu",
      [(r"constexpr int kBucketKeys = \d+;",
        f"constexpr int kBucketKeys = {n};")]) for n in (64, 256))
-_CLUSTER = r"constexpr int kCluster = \d+;"
+_CLOCK_PHASES = ("load", "select", "compact into the first CTA",
+                 "cluster barrier", "AND and OR of the heads",
+                 "second select", "compact", "sort", "barrier and gather")
+_CLOCK = [
+    (r"(namespace \{\n\ntypedef unsigned long long u64;\n)",
+     "\\1\n__device__ __forceinline__ u64 mad_clock() {\n  u64 t;\n"
+     "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+     "  return t;\n}\n"),
+    (r"(  if \(tid == 0\) s_n = 0;\n  for \(int i = tid; i < kBins; )",
+     "  u64 mc[9];\n  mc[0] = mad_clock();\n\\1"),
+    (r"(  u64 mask = 0, prefix = kNone;            // every key\n)",
+     "  mc[1] = mad_clock();\n\\1"),
+    (r"(  compact\(keys, n, mask, prefix, cluster.map_shared_rank\(heads, "
+     r"0\) \+ at,\n          &s_n\);\n)",
+     "  mc[2] = mad_clock();\n\\1  mc[3] = mad_clock();\n"),
+    (r"(  if \(rank == 0\) \{\n    a = kNone;\n)",
+     "  mc[4] = mad_clock();\n\\1"),
+    (r"(    mask = 0;\n    prefix = kNone;\n    if \(m > n_use\))",
+     "    mc[5] = mad_clock();\n\\1"),
+    (r"(    compact\(heads, m, mask, prefix, head, &s_n\);\n)",
+     "    mc[6] = mad_clock();\n\\1    mc[7] = mad_clock();\n"),
+    (r"(    else sort_rows<4>\(head, n_use, ib, keys, rows\);\n)",
+     "\\1    mc[8] = mad_clock();\n"),
+    (r"(  cluster_wait\(\);\n)\}",
+     "\\1  if (rank == 0 && tid == 0) {\n"
+     "    const u64 e = mad_clock();\n"
+     "    for (int i = 0; i < 8; ++i) top[i] = mc[i + 1] - mc[i];\n"
+     "    top[8] = e - mc[8];\n  }\n}"),
+]
 SELECT = (
-    ("select on one block", "select_exact.cu",
-     [(_CLUSTER, "constexpr int kCluster = 1;")]),
-    ("select on a cluster of 4", "select_exact.cu",
-     [(_CLUSTER, "constexpr int kCluster = 4;")]),
-    ("select at 512 threads a CTA", "select_exact.cu",
-     [(r"constexpr int kSelectThreads = \d+;",
-       "constexpr int kSelectThreads = 512;")]),
-    ("without the rank launch", "select_exact.cu",
-     [(r"  rank_gather<<<.*?hi_out, lo_out\);\n", "")]),
-    ("without the select launch", "select_exact.cu",
-     [(r"err = cudaLaunchKernelEx\(&cfg, select_keys,.*?\);\n",
-       "err = cudaSuccess;\n")]),
+    ("no rank finish", "select_exact.cu",
+     [(r"if \(cnt <= kFinish\) \{", "if (cnt < 0) {")]),
+    ("clock", "select_exact.cu", _CLOCK),
+    ("512 threads a CTA", "select_exact.cu",
+     [(r"constexpr int kThreads = \d+;", "constexpr int kThreads = 512;")]),
+    ("a rank finish at 128 keys", "select_exact.cu",
+     [(r"constexpr int kFinish = \d+;", "constexpr int kFinish = 128;")]),
 )
 REPEAT = tuple(
     (f"{n} minima a lane", "repeat.cu",
@@ -257,6 +311,38 @@ REPEAT = tuple(
     (f"{n} warps a block", "repeat.cu",
      [(r"constexpr int kWarps = \d+;", f"constexpr int kWarps = {n};")])
     for n in (4, 16))
+
+
+_QUOTIENT = (r"  float q = __fmul_rn\(a, inv\);\n.*?"
+             r"return __fmaf_rn\(__fmaf_rn\(-q, len, a\), inv, q\);")
+_OWN_WORDS = """#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    const int c = lane + 32 * k;
+    if (c >= C) break;
+    u[2 * c] = make_float4(unit_of(lo16(v[k].x), len, inv),
+                           unit_of(hi16(v[k].x), len, inv),
+                           unit_of(lo16(v[k].y), len, inv),
+                           unit_of(hi16(v[k].y), len, inv));
+    u[2 * c + 1] = make_float4(unit_of(lo16(v[k].z), len, inv),
+                               unit_of(hi16(v[k].z), len, inv),
+                               unit_of(lo16(v[k].w), len, inv),
+                               unit_of(hi16(v[k].w), len, inv));
+  }
+}
+"""
+GATHER = (
+    ("K8 with __fdiv_rn a bin", "gather_norm.cu",
+     [(_QUOTIENT, "return __fdiv_rn(a, len);")]),
+    ("K8 without its quotients' corrections", "gather_norm.cu",
+     [(_QUOTIENT, "return a * inv;")]),
+    ("K8 without its float32 stores", "gather_norm.cu",
+     [(r"      if \(j < 2 \* C\)\n        u\[j\] = make_float4\(.*?inv\)\);\n",
+       "")]),
+    ("K8 at 8 warps a block", "gather_norm.cu",
+     [(r"constexpr int kWarps = \d+;", "constexpr int kWarps = 8;")]),
+    ("K8 with each lane's own float32 words stored", "gather_norm.cu",
+     [(r"  // float4 j of the row \(bins.*?\n  \}\n\}\n", _OWN_WORDS)]),
+)
 
 
 def host_split(m, s, cfg, reps=7):
@@ -330,7 +416,7 @@ def record(cs, path):
     shard 1); save their inputs (and the stress inputs) to ``path``; print
     their shapes and the host pose data's parts."""
     import torch
-    from mad_tpu_torch.engine import docking, match as em
+    from mad_tpu_torch.engine import docking, match as em, pipeline
     from mad_tpu_torch.parallel.mesh import make_mesh
     from mad_tpu_torch.testing import recording
     device, _smi = cs.device_phase()
@@ -338,8 +424,13 @@ def record(cs, path):
     cfg = cs.bench_config()
     with recording(em, "pair_head") as heads, \
             recording(em, "exact_repeat") as reps, \
-            recording(em, "select_exact") as sels:
+            recording(em, "select_exact") as sels, \
+            recording(pipeline, "gather_norm") as gathers:
         fit = cs.run_fit(device, None, cfg)
+    k8 = [(label, a) for label, a in zip(("map", "subunit"), gathers)]
+    for label, (tables, keeps) in k8:
+        cs.say(f"K8 {label}: {sum(len(k) for k in keeps)} rows of "
+               f"{tables[0].shape[1]} from {[len(t) for t in tables]}")
     k21 = []
     for r, a in enumerate(sels):
         k21 += [(f"call {r}", a), (f"call {r}, n_use = P",
@@ -396,6 +487,7 @@ def record(cs, path):
              fit["dmap"].origin, fit["dmap"].voxsp, cfg.match,
              cfg.filter.n_samples * cs.N_COPIES)
     torch.save({"K13": k13, "K10": k10, "K10 merge": merge, "D2": d2,
+                "K8": k8,
                 "K21": k21, "match": match}, path)
     host_split(fit["map_set"], fit["sub_set"], cfg.match)
 
@@ -410,7 +502,8 @@ def main():
     here = ((PATHS if "paths" in groups else ())
             + (PAIRS if "pairs" in groups else ())
             + (REPEAT if "repeat" in groups else ())
-            + (SELECT if "select" in groups else ()))
+            + (SELECT if "select" in groups else ())
+            + (GATHER if "gather" in groups else ()))
     variants = {"A": () if args.parent else here, "B": here}
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
@@ -436,7 +529,8 @@ def main():
         proc = subprocess.run(
             [sys.executable, "-c", CHILD,
              os.path.join(ROOT, "chip_smoke.py"), path, out, json.dumps(
-                 variants[side] if order.index(side) == i else ())],
+                 variants[side] if order.index(side) == i else ()),
+             json.dumps(_CLOCK_PHASES)],
             cwd=root, env=env, capture_output=True, text=True)
         line = [x for x in proc.stdout.splitlines()
                 if x.startswith("RESULT ")]

@@ -1,5 +1,6 @@
-"""K21 (csrc/select_exact.cu: a one-block radix select, then a rank and
-gather launch), K22 and K23 (csrc/crop_pad.cu: the per-axis occupancy
+"""K21 (csrc/select_exact.cu: one launch, each CTA of a cluster selecting
+its chunk's head and the first joining them; three launches above its
+size), K22 and K23 (csrc/crop_pad.cu: the per-axis occupancy
 flags; the crop and zero re-pad) against their plain PyTorch versions on
 the card. Every test here needs a CUDA card and skips without one; the
 file imports neither JAX nor mad_tpu:
@@ -13,9 +14,10 @@ to the bench's 46,848 at n_use 1,024, and at n_use = P = 60,000 (more keys
 than one block's shared memory holds); K22 on empty, one-voxel and odd
 volumes with NaN (occupied) and -0.0 (not); K23 at odd boxes, offsets and
 pads, outputs whose size is not a multiple of four; ``reduce_void`` and
-``prepare`` on the card equal to the CPU's. The launch counters count each
-call's kernels (K21 two, K22 and K23 one). The plain versions are held
-against mad_tpu on the CPU by tests/test_torch_select_pad.py.
+``prepare`` on the card equal to the CPU's. The launch counters count
+each call's kernels (K21 one at the test's size, K22 and K23 one). The
+plain versions are held against mad_tpu on the CPU by
+tests/test_torch_select_pad.py.
 """
 
 import numpy as np
@@ -141,7 +143,7 @@ def test_launch_counts(cuda):
     k23.axis_flags_plain(v)
     k23.crop_pad(v, (0, 0, 0), v.shape, 3)
     k23.crop_pad_plain(v, (0, 0, 0), v.shape, 3)
-    assert (k21.launches, k23.launches, k23.pad_launches) == (2, 1, 1)
+    assert (k21.launches, k23.launches, k23.pad_launches) == (1, 1, 1)
     # the same inputs launched again give the same bits
     assert all(_same(a, b) for a, b in zip(k21.select_exact(*args, 64),
                                            k21.select_exact(*args, 64)))
