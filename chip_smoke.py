@@ -43,8 +43,10 @@ Phases, each of which raises (non-zero exit) when it fails:
      axes in one launch, and ragged shapes cut from the map's base), K3
      (the upsampled Gaussian volume and ragged shapes cut from it, float32
      and bfloat16), both also with their 64-bit offsets forced on the
-     ragged shapes, K5 (the LoG volumes of both map octaves with K4's
-     seeds) and K8 (the map's two octave tables and keep indices, the
+     ragged shapes, K5 (the fit's four LoG volumes with K4's peaks, in its
+     flat form and in its offset form on the same seeds; each launch alone
+     and wrapped, with its bound; then detect_anchors at each map octave)
+     and K8 (the map's two octave tables and keep indices, the
      subunit's, both on its 16-byte path; the map's tables 2 bytes off
      alignment on its scalar path; the cache loader's call) bit for
      bit, at the inputs a describe_grid of the bench map gives them; K7 at
@@ -93,7 +95,8 @@ Phases, each of which raises (non-zero exit) when it fails:
      launch, and its three launches forced) and at n_use = P (three), and
      on K21_EDGE (ties at the n_use-th key, zeros of both signs, NaN,
      -inf; one launch, and three at n_use = P); K22 and K23 bit for bit on
-     the unreduced bench map (its flags and reduce_void's crop), the map's
+     the unreduced bench map (its flags, also on a view of it off 16-byte
+     alignment, and reduce_void's crop), the map's
      and the subunit's prepare (recorded during a describe) and a volume
      with NaN and -0.0 (edge_volume), each with its library call (K21:
      torch.topk of the keys with its three gathers, torch.sort of the keys
@@ -223,8 +226,8 @@ K12_EDGE = 1e-4                 # voxel, K12's .5 rounding edge
 # bound.
 PEAK_BYTES_S, PEAK_F32_S, PEAK_F64_S = 3.35e12, 67e12, 34e12
 HOLD_CYCLES = 20_000_000        # kernel_ms's spin, ~10 ms at the card's clock
-# K4 at the fit's four LoG volumes (describe_grid's two octaves, then
-# describe_structure's), and at ragged cuts of the map's upsampled one:
+# K4 (K5, K7) at the fit's four LoG volumes (describe_grid's two octaves,
+# then describe_structure's), and K4 at ragged cuts of the map's upsampled one:
 # (cut, own row0, own rows or None, x0), own rows off a 16-byte boundary
 # where row0 * Y * Z is not a multiple of 4
 K4_SHAPES = ("map upsampled", "map base", "subunit upsampled",
@@ -478,6 +481,7 @@ def describe_swaps():
             (scalespace, "upsample2", k2.upsample2_plain),
             (pipeline, "gradient", k3.gradient_plain),
             (refine, "gradient", k3.gradient_plain),
+            (detect, "localize_peaks", k5.localize_peaks_plain),
             (detect, "localize", k5.localize_plain),
             (pipeline, "gather_norm", k8.gather_norm_plain),
             (convert, "gather_norm", k8.gather_norm_plain),
@@ -959,9 +963,14 @@ def select_pad_checks(fit, cfg, device):
 
     # K22 on the unreduced bench map. Work: the volume read once, the
     # flags written; a compare a voxel. Library: three torch.any.
+    # Also the map less its first voxel as an (X - 1, Y, Z) view: its data
+    # 4 bytes past a 16-byte boundary, so a scalar head and tail.
     raw = unreduced_map(device).data
     edge = edge_volume(device)
-    for what, v in (("the unreduced bench map", raw), ("edge_volume", edge)):
+    X, Y, Z = raw.shape
+    shifted = raw.reshape(-1)[1:1 + (X - 1) * Y * Z].view(X - 1, Y, Z)
+    for what, v in (("the unreduced bench map", raw), ("edge_volume", edge),
+                    ("the map's view off 16-byte alignment", shifted)):
         check(same_bits(k23.axis_flags(v), k23.axis_flags_plain(v)),
               f"K22 differs from the plain version on {what}")
     flags = k23.axis_flags(edge).cpu().numpy()
@@ -979,7 +988,12 @@ def select_pad_checks(fit, cfg, device):
         V * 4 + X + Y + Z, V, any3)
     out["axis_flags"]["kernel_ms"] = alone_ms(lambda: k23.axis_flags(raw))
     say(f"  K22: the unreduced map {tuple(raw.shape)}, bit for bit (also "
-        f"edge_volume); alone {out['axis_flags']['kernel_ms']:.4f} ms")
+        f"edge_volume and the view off alignment); alone "
+        f"{out['axis_flags']['kernel_ms']:.4f} ms, wrapper "
+        f"{out['axis_flags']['ms']:.4f} ms, bound "
+        f"{out['axis_flags']['bound_ms']:.5f} ms; the view alone "
+        f"{alone_ms(lambda: k23.axis_flags(shifted)):.4f} ms")
+    del shifted
 
     # K23: reduce_void's crop of the unreduced map, the map's and the
     # subunit's prepare, edge_volume. Work: the box read once, the output
@@ -1049,7 +1063,7 @@ def describe_checks(fit, cfg, device):
     dmap = fit["dmap"]
     t0 = time.perf_counter()
     with recording(pipeline, "gradient") as grads, \
-            recording(detect, "localize") as newton, \
+            recording(detect, "localize_peaks") as newton, \
             recording(pipeline, "gather_norm") as gathers, \
             recording(scalespace, "upsample2") as ups, \
             recording(detect, "peak_topk") as k4_calls, \
@@ -1060,10 +1074,13 @@ def describe_checks(fit, cfg, device):
     t_kernels = time.perf_counter() - t0
     with recording(scalespace, "upsample2") as sub_ups, \
             recording(pipeline, "gather_norm") as sub_gathers, \
+            recording(detect, "localize_peaks") as sub_newton, \
             recording(detect, "peak_topk") as sub_k4_calls, \
             recording(describe, "descriptor_hist") as sub_k7_calls:
         pipeline.describe_structure(fit["moved"], RES, dmap.voxsp, cfg,
                                     device=device)
+    with recording(pipeline, "detect_anchors") as detects:
+        pipeline.describe_grid(dmap, cfg, name="bench_map", device=device)
     out.update(k4_checks(k4_calls + sub_k4_calls))
     out.update(k7_checks(k7_calls + sub_k7_calls))
     del k4_calls, sub_k4_calls, k7_calls, sub_k7_calls
@@ -1134,29 +1151,58 @@ def describe_checks(fit, cfg, device):
             out["gradient"] = r
     del grads, gauss
 
-    # K5: both octaves' LoG volumes with K4's seeds; times and work summed
-    # over the two. Work: the active Newton steps of this run's peaks and
-    # the distinct voxels their patches read (newton_work).
+    # K5: the fit's four LoG volumes (the map's and the subunit's
+    # upsampled and base octaves) with K4's peaks, in the flat form as
+    # detect_anchors calls it and in the offset form on the same seeds, bit
+    # for bit; each launch alone and wrapped, with its bound; the row sums
+    # the four. Work: the active Newton steps of this run's peaks and the
+    # distinct voxels their patches read (newton_work), the peaks read and
+    # the anchors written. Then detect_anchors (K4, K5 and the host work
+    # between) at each map octave.
+    check(len(newton) == 2 and len(sub_newton) == 2,
+          f"K5 ran {len(newton)} and {len(sub_newton)} times a describe")
     total = dict(ms=0.0, plain_ms=0.0, kernel_ms=0.0)
     nbytes = ops = 0
-    for args in newton:
-        got, ref = k5.localize(*args), k5.localize_plain(*args)
-        check(all(torch.equal(x, y) for x, y in zip(got, ref)),
-              "K5 differs from the plain version")
-        K = args[1].shape[0]
-        steps, voxels = newton_work(*args)
-        nbytes += 4 * voxels + K * (24 + 24 + 12 + 1)
-        ops += steps * NEWTON_FLOPS + K * SADDLE_FLOPS
-        r = measure(0.0, lambda: k5.localize(*args),
-                    lambda: k5.localize_plain(*args), 0, 0)
-        total["ms"] += r["ms"]
-        total["plain_ms"] += r["plain_ms"]
-        total["kernel_ms"] += alone_ms(lambda: k5.localize(*args))
-        say(f"  K5: {K} peaks on {tuple(args[0].shape)}, {steps} Newton "
-            f"steps, {int(got[2].sum())} good, equal")
+    for label, args in zip(K4_SHAPES, newton + sub_newton):
+        vol, flat, vals, real, thr, eb, mo, n_iter = args
+        got = k5.localize_peaks(*args)
+        check(all(same_bits(x, y) for x, y in
+                  zip(got, k5.localize_peaks_plain(*args))),
+              f"K5 differs from the plain version on the {label} octave")
+        seeds = k5.flat_seeds(flat, vol.shape, real, eb)
+        walk = (vol, seeds, real, mo, n_iter)
+        got2 = k5.localize(*walk)
+        check(all(same_bits(x, y) for x, y in
+                  zip(got2, k5.localize_plain(*walk)))
+              and same_bits(got2[0], got[0]) and same_bits(got2[1], got[1])
+              and torch.equal(got2[2] & (vals > thr), got[2]),
+              f"K5's offset form differs on the {label} octave")
+        K = flat.shape[0]
+        steps, voxels, most = newton_work(*walk)
+        moved = int(((got[0] - seeds).abs().amax(dim=1) >= 2).sum())
+        b = bound(4 * voxels + K * (8 + 4 + 24 + 12 + 1),
+                  steps * NEWTON_FLOPS + K * SADDLE_FLOPS)
+        r = dict(ms=cuda_ms(lambda: k5.localize_peaks(*args)),
+                 plain_ms=cuda_ms(lambda: k5.localize_peaks_plain(*args)),
+                 kernel_ms=alone_ms(lambda: k5.localize_peaks(*args)))
+        for key in total:
+            total[key] += r[key]
+        nbytes += b["bytes"]
+        ops += b["ops"]
+        say(f"  K5 {label}: {K} peaks on {tuple(vol.shape)}, {steps} Newton "
+            f"steps (at most {most} a peak), {moved} walked 2+ voxels, "
+            f"{int(got[2].sum())} valid, bit for bit in both forms; alone "
+            f"{r['kernel_ms']:.4f} ms, wrapper {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {b['bound_ms']:.3g} ms "
+            f"({b['bound_by']}, {b['bound_ms'] / r['kernel_ms']:.2%} of "
+            f"alone)")
     out["localize"] = dict(max_abs_err=0.0, library_ms=None,
                            **total, **bound(nbytes, ops))
-    del newton
+    check(len(detects) == 2, f"{len(detects)} detect_anchors calls")
+    for label, args in zip(K4_SHAPES, detects):
+        say(f"  detect_anchors {label}: "
+            f"{cuda_ms(lambda: detect.detect_anchors(*args)):.4f} ms")
+    del newton, sub_newton, detects, args, vol, flat, vals, got, got2
 
     # K8: the map's two octave tables and keep indices. Work: the kept rows
     # read, the int16 and float32 rows written, the indices read, 3 flops a
@@ -1359,8 +1405,9 @@ def upsample_ops(shape):
 def newton_work(vol, seeds, real_shape, max_offset, n_iter, goff=0,
                 nx=None):
     """The Newton steps that this run's peaks take (a peak stops once it
-    is accepted or bad) and the distinct voxels their patches read: the
-    work of K5's function on these peaks. Walks as localize_plain."""
+    is accepted or bad), the distinct voxels their patches read (the work
+    of K5's function on these peaks) and the most steps a peak takes.
+    Walks as localize_plain."""
     import torch
     from mad_tpu_torch.kernels.localize import (_hessian_grad, _inv3,
                                                 patch_index)
@@ -1369,9 +1416,11 @@ def newton_work(vol, seeds, real_shape, max_offset, n_iter, goff=0,
     rs = torch.as_tensor(real_shape, device=vol.device)
     pos = seeds.clone()
     frozen = torch.zeros(K, dtype=torch.bool, device=vol.device)
-    steps, ids = 0, []
-    for _ in range(n_iter):
-        steps += int((~frozen).sum())
+    steps, ids, most = 0, [], 0
+    for it in range(n_iter):
+        active = int((~frozen).sum())
+        steps += active
+        most = it + 1 if active else most
         p = patch_index(pos, vol.shape, goff, nx)
         ids.append(((p[..., 0] * Y + p[..., 1]) * Z
                     + p[..., 2])[~frozen].reshape(-1))
@@ -1386,7 +1435,7 @@ def newton_work(vol, seeds, real_shape, max_offset, n_iter, goff=0,
         pos = torch.where((frozen | acc)[:, None], pos, pos + step)
         frozen = frozen | acc | ~ok
     distinct = int(torch.unique(torch.cat(ids)).numel()) if ids else 0
-    return steps, distinct
+    return steps, distinct, most
 
 
 def in_map_voxels(shape, box, starts):
@@ -2754,7 +2803,7 @@ def shard_checks(device, cfg, dmap):
                  lambda: k4.peak_topk_plain(*a4),
                  4 * a4[0].numel() + 12 * len(v1), 27 * own)
     K = a5[1].shape[0]
-    steps, voxels = newton_work(*a5)
+    steps, voxels, _most = newton_work(*a5)
     r5 = measure(0.0, lambda: k5.localize(*a5),
                  lambda: k5.localize_plain(*a5),
                  4 * voxels + K * (24 + 24 + 12 + 1),

@@ -72,8 +72,8 @@ SIGNATURES = {
                            _P, _P, _P, _P],
     "mad_upsample2": [_P, _P, _I, _I, _I, _L, _P],
     "mad_gradient": [_P, _I, _I, _I, _I, _P, _L, _P],
-    "mad_localize": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P,
-                     _P, _P, _P],
+    "mad_localize": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                     _F, _I, _I, _I, _P, _P, _P, _P],
     "mad_gather_norm": [_P, _P, _I, _P, _I, _I, _P, _P, _I, _P],
     "mad_post_lanes": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P,
                        _I, _D, _P, _P, _P, _P],

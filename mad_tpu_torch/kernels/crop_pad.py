@@ -8,9 +8,10 @@ so the host pulls them in one copy. K23 replaces mad_tpu/core/grid.py:45-57
 (``_compiled_prepare_pad``, without its bucket padding): a box of the
 volume copied into a zero volume ``pad`` voxels larger on every side.
 
-The CUDA kernels are in ``csrc/crop_pad.cu`` (K22: a memset and one launch,
-a block an x-plane's run of rows; K23: one launch writing every output
-voxel once, four a thread with a 16-byte store). :func:`axis_flags_plain`
+The CUDA kernels are in ``csrc/crop_pad.cu`` (K22: a memset and one launch
+that streams the volume in 16-byte loads, each block over a contiguous
+span, the flags gathered in shared memory; K23: one launch writing every
+output voxel once, four a thread with a 16-byte store). :func:`axis_flags_plain`
 and :func:`crop_pad_plain` are the plain PyTorch versions (``torch.any``
 reductions; a slice and ``F.pad``). Both kernels move the values as bits,
 so they equal their plain versions bit for bit.

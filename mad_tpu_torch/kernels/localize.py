@@ -2,30 +2,42 @@
 
 Replaces mad_tpu/ops/detect.py:125-163 (``localize``, with
 ``_hessian_grad`` :54-70, ``_inv3`` :73-88 and ``_neg_semidefinite``
-:91-103; parity: mad/Detector.py:66-107). Each peak runs up to ``n_iter``
-Newton steps on the finite-difference Hessian and gradient of the 3x3x3
-patch at its position (placed on a face as mad_tpu places it,
-:func:`patch_index`): an offset component beyond ``max_offset`` walks
-one voxel that way (clamped to the interior of the real extent), all
-components within it accept the peak, a singular Hessian (|det| <= 1e-20)
-marks it bad; an accepted or bad peak is frozen. Accepted peaks whose last
-Hessian has a positive eigenvalue (a saddle) are rejected.
+:91-103; parity: mad/Detector.py:66-107), and with :func:`localize_peaks`
+the rest of ``detect_counts`` after its top-k (:205-212: the seeds from
+the flat indices, their clip into the border, ``valid_seed & good``).
+Each peak runs up to ``n_iter`` Newton steps on the finite-difference
+Hessian and gradient of the 3x3x3 patch at its position (placed on a face
+as mad_tpu places it, :func:`patch_index`): an offset component beyond
+``max_offset`` walks one voxel that way (clamped to the interior of the
+real extent), all components within it accept the peak, a singular
+Hessian (|det| <= 1e-20) marks it bad; an accepted or bad peak is frozen.
+Accepted peaks whose last Hessian has a positive eigenvalue (a saddle)
+are rejected.
 
-The CUDA kernel ``csrc/localize.cu`` gives one thread to each peak, which
-stops once frozen (nothing it holds changes after that), and rounds every
-product, sum and quotient as :func:`localize_plain` (the batched torch-op
-walk) does, so the two agree bit for bit: one launch in place of ~60 small
-launches per Newton step.
+The CUDA kernel ``csrc/localize.cu`` gives each peak a warp, which loads
+the 5x5x5 window about the seed's patch in one round trip and walks on it
+(reloading only when the walk leaves it), stops once the peak is frozen
+(nothing it holds changes after that), and rounds every product, sum and
+quotient as :func:`localize_plain` (the batched torch-op walk) does, so
+the two agree bit for bit. It takes its seeds in one of two forms, one
+launch each:
 
-Both take an offset form for capacity mode (mad_tpu/ops/detect.py:236-275,
-``detect_shard``): ``vol`` is a shard's x-slab extended by its neighbours'
-rows, its row 0 global row ``goff`` of a field of ``nx`` rows. Seeds, the
-walk and its bounds stay global; the patch is placed on the whole field's
-extent and then moved into the block (:func:`patch_index`).
+* :func:`localize_peaks` (the single-device path): K4's flat indices and
+  values; the kernel makes the seeds (:func:`flat_seeds`) and writes
+  ``valid`` (value above the threshold, localized, not a saddle), so no
+  PyTorch op runs between K4 and the anchor table;
+* :func:`localize`: the seeds (K, 3) themselves, for capacity mode
+  (mad_tpu/ops/detect.py:236-275, ``detect_shard``), which splits them
+  among shards by x before K5 runs. ``vol`` is then a shard's x-slab
+  extended by its neighbours' rows, its row 0 global row ``goff`` of a
+  field of ``nx`` rows. Seeds, the walk and its bounds stay global; the
+  patch is placed on the whole field's extent and then moved into the
+  block (:func:`patch_index`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import build
@@ -155,6 +167,49 @@ def localize_plain(vol: torch.Tensor, seeds: torch.Tensor, real_shape,
     return pos, pos.to(vol.dtype) + offset, good
 
 
+def flat_seeds(flat: torch.Tensor, shape, real_shape, border: int
+               ) -> torch.Tensor:
+    """Voxel coords (K, 3) of flat indices into a volume of ``shape``,
+    clamped to [border, real - border - 1] per axis."""
+    seeds = torch.stack([flat // (shape[1] * shape[2]),
+                         (flat // shape[2]) % shape[1], flat % shape[2]], -1)
+    hi = torch.as_tensor(np.asarray(real_shape) - border - 1,
+                         device=seeds.device)
+    return torch.minimum(torch.clamp(seeds, min=border), hi)
+
+
+def localize_peaks_plain(vol: torch.Tensor, flat: torch.Tensor,
+                         vals: torch.Tensor, real_shape, threshold: float,
+                         border: int, max_offset: float, n_iter: int):
+    """The seeds of K4's peaks, their Newton walk and their validity:
+    (coords, subvox, valid)."""
+    seeds = flat_seeds(flat, vol.shape, real_shape, border)
+    pos, subvox, good = localize_plain(vol, seeds, real_shape, max_offset,
+                                       n_iter)
+    return pos, subvox, (vals > threshold) & good
+
+
+def localize_peaks(vol: torch.Tensor, flat: torch.Tensor,
+                   vals: torch.Tensor, real_shape, threshold: float,
+                   border: int, max_offset: float, n_iter: int):
+    """Newton walk of K4's peaks (``flat`` (K,) int64 indices into the
+    float32 volume ``vol``, ``vals`` (K,) float32 their values) from their
+    seeds clamped ``border`` voxels inside ``real_shape``. Returns (coords
+    (K, 3) int64, subvox (K, 3) float32, valid (K,) bool: value above
+    ``threshold``, accepted and not a saddle)."""
+    _check_volume(vol)
+    if vol.device.type == "cpu":
+        return localize_peaks_plain(vol, flat, vals, real_shape, threshold,
+                                    border, max_offset, n_iter)
+    if flat.dtype != torch.int64 or vals.dtype != torch.float32 \
+            or flat.dim() != 1 or vals.shape != flat.shape:
+        raise ValueError(f"localize_peaks: flat (K,) int64 and vals (K,) "
+                         f"float32, got {tuple(flat.shape)} {flat.dtype} "
+                         f"and {tuple(vals.shape)} {vals.dtype}")
+    return _launch(vol, None, flat, vals, real_shape, threshold, border,
+                   max_offset, n_iter, 0, None)
+
+
 def localize(vol: torch.Tensor, seeds: torch.Tensor, real_shape,
              max_offset: float, n_iter: int, goff: int = 0, nx=None):
     """Newton walk from each seed of ``seeds`` (K, 3) int64 on the float32
@@ -162,35 +217,55 @@ def localize(vol: torch.Tensor, seeds: torch.Tensor, real_shape,
     rows; by default the whole field); ``real_shape`` bounds the walk.
     Returns (coords (K, 3) int64, subvox (K, 3) float32, good (K,) bool:
     accepted and not a saddle)."""
-    if vol.dim() != 3 or min(vol.shape) < 3:
-        raise ValueError(f"localize: need a 3D volume of extent >= 3, got "
-                         f"{tuple(vol.shape)}")
+    _check_volume(vol)
     if vol.device.type == "cpu":
         return localize_plain(vol, seeds, real_shape, max_offset, n_iter,
                               goff, nx)
+    if seeds.dim() != 2 or seeds.shape[1] != 3 or seeds.dtype != torch.int64:
+        raise ValueError(f"localize: seeds must be (K, 3) int64, got "
+                         f"{tuple(seeds.shape)} {seeds.dtype}")
+    return _launch(vol, seeds, None, None, real_shape, 0.0, 0, max_offset,
+                   n_iter, goff, nx)
+
+
+def _check_volume(vol: torch.Tensor) -> None:
+    if vol.dim() != 3 or min(vol.shape) < 3:
+        raise ValueError(f"localize: need a 3D volume of extent >= 3, got "
+                         f"{tuple(vol.shape)}")
+
+
+def _launch(vol, seeds, flat, vals, real_shape, threshold, border,
+            max_offset, n_iter, goff, nx):
+    """One launch of K5 with either seed source (``seeds``, or ``flat``
+    and ``vals``). Its host work is checks that launch nothing and the
+    three outputs' allocations (three ``torch.empty`` take less of the
+    host than one buffer cut into typed views: 16.5 against 23.1 us a call
+    on the H100 machine's host, scripts/torch_localize_flags_probe.py
+    --host)."""
     global launches
     if vol.dtype != torch.float32:
         raise ValueError(f"localize: need a 3D float32 volume, got "
                          f"{tuple(vol.shape)} {vol.dtype}")
-    if seeds.dim() != 2 or seeds.shape[1] != 3 or seeds.dtype != torch.int64:
-        raise ValueError(f"localize: seeds must be (K, 3) int64, got "
-                         f"{tuple(seeds.shape)} {seeds.dtype}")
-    vol, seeds = vol.contiguous(), seeds.contiguous()
-    build.require_cuda("localize", vol, seeds)
-    K = seeds.shape[0]
-    pos = torch.empty((K, 3), dtype=torch.int64, device=vol.device)
-    subvox = torch.empty((K, 3), dtype=torch.float32, device=vol.device)
-    good = torch.empty(K, dtype=torch.bool, device=vol.device)
+    vol = vol.contiguous()
+    if seeds is not None:
+        seeds = seeds.contiguous()
+        ins, ptrs = (seeds,), (seeds.data_ptr(), 0, 0)
+    else:
+        ins, ptrs = (flat, vals), (0, flat.data_ptr(), vals.data_ptr())
+    build.require_cuda("localize", vol, *ins)
+    K, dev = ins[0].shape[0], vol.device
+    pos = torch.empty((K, 3), dtype=torch.int64, device=dev)
+    subvox = torch.empty((K, 3), dtype=torch.float32, device=dev)
+    good = torch.empty(K, dtype=torch.bool, device=dev)
     if K == 0:
         return pos, subvox, good
-    rx, ry, rz = (int(s) for s in real_shape)
-    lib = build.library()
-    # max_offset goes over as a C float: the plain version compares the
-    # float32 offsets with the Python float in float32.
-    nx = vol.shape[0] if nx is None else int(nx)
+    # threshold and max_offset go over as C floats: the plain version
+    # compares float32 tensors with the Python floats in float32.
     build.launch(
-        lib.mad_localize, vol.device, vol.data_ptr(), *vol.shape,
-        seeds.data_ptr(), K, rx, ry, rz, float(max_offset), int(n_iter),
-        int(goff), nx, pos.data_ptr(), subvox.data_ptr(), good.data_ptr())
+        build.library().mad_localize, dev, vol.data_ptr(), *vol.shape, *ptrs,
+        K, *(int(s) for s in real_shape), int(border), float(threshold),
+        float(max_offset), int(n_iter), int(goff),
+        vol.shape[0] if nx is None else int(nx), pos.data_ptr(),
+        subvox.data_ptr(), good.data_ptr())
     launches += 1
     return pos, subvox, good

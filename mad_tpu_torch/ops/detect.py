@@ -10,7 +10,9 @@ Replaces Detector.find_anchors / check_localize (mad/Detector.py:18-123):
     and gradient; offsets > max_offset walk one voxel, convergence needs
     all |offset| < max_offset, saddles (an eigenvalue > 0, tested by the
     characteristic-polynomial invariants) are rejected (kernel K5,
-    :mod:`mad_tpu_torch.kernels.localize`).
+    :mod:`mad_tpu_torch.kernels.localize`, which on one device also makes
+    the seeds from K4's flat indices and the validity flags: no PyTorch op
+    runs between the two kernels).
 The anchor table holds exactly the peaks found (at most ``max_anchors``).
 
 Capacity mode (a mesh; mad_tpu's ``detect_shard``, ops/detect.py:221-275):
@@ -27,11 +29,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from ..core.config import DetectConfig
-from ..kernels.localize import localize
+from ..kernels.localize import flat_seeds, localize, localize_peaks
 from ..kernels.peaks import _order, peak_topk
 from ..parallel.volume import halo_extend, map_owned
 
@@ -50,28 +51,19 @@ class Anchors:
         return self.coords.shape[0]
 
 
-def _seeds(flat: torch.Tensor, shape, real_shape, eb: int) -> torch.Tensor:
-    """Voxel coords of flat indices, clamped into the border."""
-    seeds = torch.stack([flat // (shape[1] * shape[2]),
-                         (flat // shape[2]) % shape[1], flat % shape[2]], -1)
-    hi = torch.as_tensor(np.asarray(real_shape) - eb - 1, device=seeds.device)
-    return torch.minimum(torch.clamp(seeds, min=eb), hi)
-
-
 def detect_anchors(log_vol, real_shape, cfg: DetectConfig,
                    mesh=None) -> Anchors:
     """Anchors of one octave's LoG volume (real_shape = its real extent);
     with a mesh, ``log_vol`` is the list of its x-slabs."""
     if mesh is not None:
         return _detect_mesh(log_vol, real_shape, cfg, mesh)
-    eb = int(cfg.exclude_border)
-    vals, flat = peak_topk(log_vol, real_shape, float(cfg.threshold_abs), eb,
+    eb, thr = int(cfg.exclude_border), float(cfg.threshold_abs)
+    vals, flat = peak_topk(log_vol, real_shape, thr, eb,
                            int(cfg.max_anchors))
-    seeds = _seeds(flat, log_vol.shape, real_shape, eb)
-    pos, subvox, good = localize(log_vol, seeds, real_shape,
-                                 float(cfg.max_offset), int(cfg.newton_iters))
-    return Anchors(coords=pos, subvox=subvox, values=vals,
-                   valid=(vals > cfg.threshold_abs) & good)
+    pos, subvox, valid = localize_peaks(log_vol, flat, vals, real_shape, thr,
+                                        eb, float(cfg.max_offset),
+                                        int(cfg.newton_iters))
+    return Anchors(coords=pos, subvox=subvox, values=vals, valid=valid)
 
 
 def _detect_mesh(slabs, real_shape, cfg: DetectConfig, mesh) -> Anchors:
@@ -91,6 +83,6 @@ def _detect_mesh(slabs, real_shape, cfg: DetectConfig, mesh) -> Anchors:
         blocks, lambda blk, lo, seeds: localize(
             blk, seeds, real_shape, float(cfg.max_offset), n_iter, lo,
             shape[0]),
-        _seeds(flat, shape, real_shape, eb))
+        flat_seeds(flat, shape, real_shape, eb))
     return Anchors(coords=pos, subvox=subvox, values=vals,
                    valid=(vals > cfg.threshold_abs) & good)

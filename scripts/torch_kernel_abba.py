@@ -3,7 +3,8 @@
 port, timed in interleaved order on one NVIDIA card.
 
     python3 scripts/torch_kernel_abba.py DIR_A DIR_B [--order ABBA]
-        [--kernels peak_mask_compact,localize,orient,descriptor_hist]
+        [--kernels peak_mask_compact,localize,orient,descriptor_hist,
+                   axis_flags]
         [--fits 0] [--bodies] [--echo "  K9 ,  K19"]
 
 Each DIR holds a checkout (its chip_smoke.py and mad_tpu_torch/). For
@@ -18,9 +19,14 @@ version, CUDA events, mean of three after a warm call), and prints the
 chosen rows' kernel and plain ms, and the kernel alone where the row has
 it (``kernel_ms``: K4's, K5's, K7's, K8's, K14's, K15's, K16's and K18's
 rows; K8's also at the subunit's call where the checkout reports it;
-a row the checkout lacks is skipped; rows all of K2, K3, K5 and K8
-(``upsample2``, ``gradient``, ``localize``, ``gather_norm``) run
-chip_smoke's describe_checks alone;
+a row the checkout lacks is skipped; rows all of K2, K3 and K8
+(``upsample2``, ``gradient``, ``gather_norm``) run chip_smoke's
+describe_checks alone; ``localize`` (K5, one row a launch at the fit's
+four octaves, its wrapper over 20 calls, and the host's time a call over
+200 with no sync; ``detect_anchors`` at the map's two, the span from K4
+to the anchor table) and ``axis_flags`` (K22 on the unreduced bench map
+and on a view of it off 16-byte alignment) are recorded and timed by the
+child itself, so they take no other phase;
 the parent's ``upsample_axis``, K2's three per-axis launches, stands for
 ``upsample2``, the same work in one launch).
 ``--bodies``: the simulation body (``ops/simulate._simulate_batch``) at
@@ -47,7 +53,7 @@ from mad_tpu_torch import kernels
 from mad_tpu_torch.ops import simulate
 from mad_tpu_torch.testing import recording
 names, fits, bodies = sys.argv[1].split(","), int(sys.argv[2]), sys.argv[3]
-DESCRIBE_ROWS = {"upsample2", "gradient", "localize", "gather_norm"}
+DESCRIBE_ROWS = {"upsample2", "gradient", "gather_norm"}
 device, _smi = cs.device_phase()
 cs.build_phase()
 cfg = cs.bench_config()
@@ -87,11 +93,61 @@ if bodies == "1":
                        peak]
     del sims
 print("BODY " + json.dumps(body))
+RECORDED = {"localize", "detect_anchors", "axis_flags"}
+rows = {}
+if {"localize", "detect_anchors"} & set(names):
+    # K5 per launch at the fit's four octaves and detect_anchors at each map
+    # octave, recorded at their call sites in this checkout (the flat form
+    # where it has one, else the seed form) and timed here
+    from mad_tpu_torch.engine import pipeline
+    from mad_tpu_torch.kernels import localize as k5
+    from mad_tpu_torch.ops import detect
+    site = "localize_peaks" if hasattr(detect, "localize_peaks") \
+        else "localize"
+    fn, plain = getattr(k5, site), getattr(k5, site + "_plain")
+    with recording(detect, site) as k5_calls, \
+            recording(pipeline, "detect_anchors") as detects:
+        pipeline.describe_grid(fit["dmap"], cfg, name="m", device=device)
+    with recording(detect, site) as sub_calls:
+        pipeline.describe_structure(fit["moved"], cs.RES, fit["dmap"].voxsp,
+                                    cfg, device=device)
+    for label, args in zip(cs.K4_SHAPES, k5_calls + sub_calls):
+        rows[f"localize[{label}]"] = dict(
+            ms=cs.cuda_ms(lambda: fn(*args), reps=20),
+            plain_ms=cs.cuda_ms(lambda: plain(*args)),
+            kernel_ms=cs.alone_ms(lambda: fn(*args)))
+        # the host's time a call, 200 calls with no sync between them
+        fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn(*args)
+        rows[f"localize host[{label}]"] = dict(
+            ms=(time.perf_counter() - t0) / 200 * 1e3, plain_ms=None)
+        torch.cuda.synchronize()
+    for label, args in zip(cs.K4_SHAPES, detects):
+        rows[f"detect_anchors[{label}]"] = dict(
+            ms=cs.cuda_ms(lambda: detect.detect_anchors(*args), reps=10),
+            plain_ms=None)
+    del k5_calls, sub_calls, detects
+if "axis_flags" in names:
+    # K22 on the unreduced bench map and on its view off 16-byte alignment
+    from mad_tpu_torch.kernels import crop_pad as k22
+    raw = cs.unreduced_map(device).data
+    X, Y, Z = raw.shape
+    view = raw.reshape(-1)[1:1 + (X - 1) * Y * Z].view(X - 1, Y, Z)
+    for label, v in (("map", raw), ("view off alignment", view)):
+        rows[f"axis_flags[{label}]"] = dict(
+            ms=cs.cuda_ms(lambda: k22.axis_flags(v), reps=10),
+            plain_ms=cs.cuda_ms(lambda: k22.axis_flags_plain(v)),
+            kernel_ms=cs.alone_ms(lambda: k22.axis_flags(v)))
+    del raw, view
+rest = [n for n in names if n and n not in RECORDED]
 # rows all of describe_checks (K2, K3, K5, K8): that phase alone
-if set(names) <= DESCRIBE_ROWS:
-    rows = cs.describe_checks(fit, cfg, device)
-else:
-    rows = cs.kernel_checks(fit, cfg, device) if names != [""] else {}
+if rest and set(rest) <= DESCRIBE_ROWS:
+    rows.update(cs.describe_checks(fit, cfg, device))
+elif rest:
+    rows.update(cs.kernel_checks(fit, cfg, device))
 # a row under its older name: K2's three per-axis launches (upsample_axis)
 # are the same work on the same input as its one launch (upsample2)
 for new, old in (("upsample2", "upsample_axis"),):
@@ -100,7 +156,8 @@ for new, old in (("upsample2", "upsample_axis"),):
 print("ROWS " + json.dumps({n: [rows[n]["ms"], rows[n]["plain_ms"],
                                 rows[n].get("kernel_ms"),
                                 rows[n].get("sub_kernel_ms")]
-                            for n in names if n in rows}))
+                            for n in rows
+                            if n.split("[")[0] in names or "[" in n}))
 """
 
 
@@ -110,7 +167,7 @@ def main():
     ap.add_argument("--order", default="ABBA")
     ap.add_argument("--kernels",
                     default="peak_mask_compact,localize,orient,"
-                            "descriptor_hist")
+                            "descriptor_hist,axis_flags")
     ap.add_argument("--fits", type=int, default=0)
     ap.add_argument("--bodies", action="store_true")
     ap.add_argument("--echo", default="")
@@ -136,7 +193,8 @@ def main():
         got[side].append(rows)
         fits[side] += passes
         print(f"run {i} {side} ({root}): " + ", ".join(
-            f"{n} {k:.4f} ms (plain {p:.4f}"
+            f"{n} {k:.4f} ms ("
+            + ("no plain" if p is None else f"plain {p:.4f}")
             + ("" if a is None else f", kernel alone {a:.4f}")
             + ("" if b is None else f", the subunit's alone {b:.4f}") + ")"
             for n, (k, p, a, b) in rows.items()), flush=True)

@@ -39,7 +39,7 @@ pytestmark = pytest.mark.cuda
 # (module, name, plain version): the four kernels' call sites on the path
 SWAPS = ((scalespace, "upsample2", k2.upsample2_plain),
          (pipeline, "gradient", k3.gradient_plain),
-         (detect, "localize", k5.localize_plain),
+         (detect, "localize_peaks", k5.localize_peaks_plain),
          (pipeline, "gather_norm", k8.gather_norm_plain))
 
 
@@ -96,22 +96,31 @@ def test_k3_gradient_bitwise(system):
 
 
 def test_k5_localize_bitwise(system):
-    """The LoG volumes of both octaves with K4's seeds, as detect_anchors
-    passes them."""
+    """The LoG volumes of both octaves with K4's peaks, as detect_anchors
+    passes them (the flat form), and the offset form on their seeds."""
     cfg, dmap = system
-    with recording(detect, "localize") as calls:
+    with recording(detect, "localize_peaks") as calls:
         pipeline.describe_grid(dmap, cfg, device=dmap.device)
     assert len(calls) == 2
     goods = []
     for args in calls:
-        got = launched(k5, k5.localize, *args)
-        ref = k5.localize_plain(*args)
+        got = launched(k5, k5.localize_peaks, *args)
+        ref = k5.localize_peaks_plain(*args)
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
         goods.append(ref[2])
+        vol, flat, vals, real, thr, eb, mo, n = args
+        walk = (vol, k5.flat_seeds(flat, vol.shape, real, eb), real, mo, n)
+        got = launched(k5, k5.localize, *walk)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(got, k5.localize_plain(*walk)))
     good = torch.cat(goods)
     assert int(good.sum()) > 10 and not bool(good.all())
     # no iteration: nothing accepted, positions the seeds
-    vol, seeds, real, mo, _n = calls[0]
+    vol, flat, vals, real, thr, eb, mo, _n = calls[0]
+    seeds = k5.flat_seeds(flat, vol.shape, real, eb)
+    pos, _sub, good = k5.localize_peaks(vol, flat, vals, real, thr, eb, mo,
+                                        0)
+    assert torch.equal(pos, seeds) and not bool(good.any())
     pos, _sub, good = k5.localize(vol, seeds, real, mo, 0)
     assert torch.equal(pos, seeds) and not bool(good.any())
 
