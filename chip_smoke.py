@@ -31,8 +31,11 @@ Phases, each of which raises (non-zero exit) when it fails:
      launched twice; K15 on the first-round candidates (its steps, and
      the kernel alone beside the wrapper); the matching
      front on the bench's pairs: K10's head, K11 and K14 equal, K12 equal
-     except pairs with a moved anchor within 1e-4 voxel of a .5 rounding
-     edge, counted; K10's head also with max_pairs K10_CUT_PAIRS (fewer
+     on every pair (those with a moved anchor within 1e-4 voxel of a .5
+     rounding edge counted, and among them those whose edge is on the
+     pair's own anchor; its field reads, the in-grid anchors in a set
+     cell of its coarse map, beside the 1.5 M moved anchors); K10's head
+     also with max_pairs K10_CUT_PAIRS (fewer
      keys kept than its row heads hold); K13 on the match stage's head
      pairs and at K13_STRESS (groups of 32 anchors and map tiles repeat),
      equal except pairs with an anchor within 1e-4 A of the radius,
@@ -66,7 +69,9 @@ Phases, each of which raises (non-zero exit) when it fails:
      slots and rows equal, moved anchors within 1e-12 A; the hits and rows
      also equal to cKDTree's on its poses; then each of its five stage
      entries, lanes, dedup ("post"), cloud points, table rows and
-     compaction, against its plain version), K17 at both of
+     compaction, against its plain version, and the fold of the lanes and
+     the dedup that the round takes on one device, post_lanes_dedup,
+     equal to the two entries bit for bit), K17 at both of
      its call sites (the solutions' score and score_models: CCC within
      1e-5) and the simulation body at the fit's five simulate calls
      (the map, the subunit, score, overlap, score_models: K9 with its
@@ -104,7 +109,9 @@ Phases, each of which raises (non-zero exit) when it fails:
      F.pad of the cropped view);
   5. timed pass of the main path (after one more warm pass) with every
      launch counter reset first;
-     fails unless every kernel of the path launched, K1 (both entries)
+     fails unless every kernel of the path launched (the mesh's entries,
+     MESH_ONLY, none: K10's merge, K16's lane and dedup entries, which one
+     device runs as the fold), K1 (both entries)
      at most K1_FIT_LAUNCHES times, K2 K2_FIT_LAUNCHES times (once a
      described structure), the solutions are
      finite, at least 9 of 10 copies are recovered (best CA-RMSD < 10 A)
@@ -248,8 +255,8 @@ ASSEMBLY_STAGES = ("overlap", "enumerate", "score_models")
 # kernels the session's first run must launch (K1's LoG, K2, K3, K5, K6,
 # K8, K15, K16, K17, K21; K22 and K23 as it loads the map)
 SESSION_KERNELS = ("log_gauss", "upsample2", "gradient", "localize",
-                   "orient", "gather_norm", "refine", "post", "batched_ccc",
-                   "select_exact", "axis_flags", "crop_pad")
+                   "orient", "gather_norm", "refine", "post_lanes_dedup",
+                   "batched_ccc", "select_exact", "axis_flags", "crop_pad")
 # capacity mode: the shard counts, the kernels its octave chain must
 # launch, the DescriptorSet fields held bit for bit, and the report rows of
 # the shard bodies: name -> (the kernels whose launches it counts, source,
@@ -267,6 +274,10 @@ SET_FIELDS = ("coords", "map_coords", "subv_coords", "rfinal", "octave",
 # bodies: name -> (the kernels whose launches it counts, source, the
 # mad_tpu body)
 DOCK_SHARDS = (4, 3)
+# entries that only a mesh runs (on one device the merge of the shards'
+# heads is not needed, and K16's lanes and dedup are one launch, the fold);
+# their launches in the report are the 4-shard dock's
+MESH_ONLY = ("pair_merge", "post_lanes", "post")
 DOCK_KERNELS = ("pair_head", "pair_merge", "anchor_field", "approx_repeat",
                 "select_exact", "exact_repeat", "cluster_select", "refine",
                 "post",
@@ -1456,6 +1467,7 @@ def post_ccc_checks(fit, cfg, device):
     import torch
     from mad_tpu_torch.engine import docking
     from mad_tpu_torch.kernels import ccc as k17, post as k16
+    from mad_tpu_torch.kernels import launch_counts
     from mad_tpu_torch.ops import simulate
     from mad_tpu_torch.testing import recording
     out = {}
@@ -1506,6 +1518,13 @@ def post_ccc_checks(fit, cfg, device):
     d, _ = cKDTree(atoms).query(rows_np, distance_upper_bound=ad)
     check(np.array_equal(got[5], np.nonzero(d > ad)[0][:n_top]),
           "K16 eligible rows differ from cKDTree's")
+    before = launch_counts()
+    k16.post(*args)
+    after = launch_counts()
+    check(after["post_lanes_dedup"] == before["post_lanes_dedup"] + 1
+          and after["post_lanes"] == before["post_lanes"]
+          and after["post"] == before["post"],
+          "K16's round on one device did not take the fold alone")
     whole_ms = cuda_ms(lambda: k16.post(*args))
     out.update(post_stage_checks(args, n_acc))
     say(f"  K16: {C} lanes x {A} anchors x {B} map anchors, {S} earlier "
@@ -1513,7 +1532,7 @@ def post_ccc_checks(fit, cfg, device):
         f"{n_acc} accepted, {int((got[4] >= 0).sum()) - n_acc} merged; "
         f"{len(got[5])} rows taken of {P} (at most {n_top}); equal, moved "
         f"anchors within {err:g} A; hits and rows equal to cKDTree's; the "
-        f"round (five entries) {whole_ms:.4f} ms")
+        f"round (the fold and three entries) {whole_ms:.4f} ms")
     del posts, args
 
     # K17 at both call sites. Work: each in-map model voxel and its map
@@ -1731,28 +1750,37 @@ def match_kernel_checks(fit, cfg, device):
         f"{tuple(f1.shape)}, {int(f1.sum())} voxels set")
     del f2
 
-    # K12: equal except pairs with a moved anchor within K12_EDGE voxel of
-    # a .5 rounding edge. Work: each pair's pose and the subunit cloud
-    # read, ~APPROX_FLOPS per moved anchor, the distinct in-grid voxels it
-    # looks up read once, the scores written.
+    # K12: equal on every pair, those with a moved anchor within K12_EDGE
+    # voxel of a .5 rounding edge counted (and those whose edge is on the
+    # pair's own anchor, x = h, so y = l exactly). Work: each pair's pose,
+    # the subunit cloud and the map anchors' voxels read, ~APPROX_FLOPS
+    # per moved anchor, the distinct in-grid voxels it looks up read once,
+    # the scores written; beside it the field reads the kernel makes (the
+    # in-grid anchors in a set cell of its coarse map).
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
-    args = (f1, f32(p["hi_cloud"]), f32(dmap.origin),
+    args = (f1, lo_vox, r_vox, f32(p["hi_cloud"]), f32(dmap.origin),
             float(np.float32(1.0 / dmap.voxsp)), f32(p["rot"]),
             f32(p["hi_coord"]), f32(p["lo_coord"]))
     r1, r2 = approx.approx_repeat(*args), approx.approx_repeat_plain(*args)
-    edge, touched = approx_edges(*args)
-    bad = (r1 != r2) & ~edge
-    check(not bool(bad.any()), f"K12 differs on {int(bad.sum())} pairs")
-    P, a_hi = args[4].shape[0], args[1].shape[0]
+    e = approx_edges(*args)
+    check(torch.equal(r1, r2),
+          f"K12 differs on {int((r1 != r2).sum())} pairs from the plain "
+          f"version ({int((e['edge'] & (r1 != r2)).sum())} on a .5 edge)")
+    P, a_hi = args[6].shape[0], args[3].shape[0]
     out["approx_repeat"] = measure(
-        float((r1 - r2).abs().max()), lambda: approx.approx_repeat(*args),
+        0.0, lambda: approx.approx_repeat(*args),
         lambda: approx.approx_repeat_plain(*args),
-        touched + a_hi * 12 + 12 + P * (36 + 24 + 4),
-        P * a_hi * APPROX_FLOPS)
+        e["touched"] + a_hi * 12 + lo_vox.shape[0] * 12 + 12
+        + P * (36 + 24 + 4), P * a_hi * APPROX_FLOPS)
     out["approx_repeat"]["kernel_ms"] = alone_ms(
         lambda: approx.approx_repeat(*args))
-    say(f"  K12: {P} pairs x {a_hi} anchors, {int(edge.sum())} pairs on a "
-        f".5 edge, {int((r1 != r2).sum())} differ")
+    say(f"  K12: {P} pairs x {a_hi} anchors, equal; {int(e['edge'].sum())} "
+        f"pairs on a .5 edge, {int(e['own'].sum())} of them on the pair's "
+        f"own anchor ({int(e['own_only'].sum())} only there); "
+        f"{e['in_grid']} moved anchors in the grid, {e['gathers']} in a set "
+        f"cell of edge {1 << approx.coarse_shift(f1.shape)} (the kernel's "
+        f"field reads, against {P * a_hi}); kernel alone "
+        f"{out['approx_repeat']['kernel_ms']:.4f} ms")
     del args, r1, r2, f1
 
     # K14: the first round's selection equal, and its candidates those of
@@ -1826,25 +1854,47 @@ def k13_stress_args(device):
         float(bench_config().match.anchor_dist),)
 
 
-def approx_edges(field, hi_cloud, origin, inv, rot, hi, lo, chunk=1024):
-    """Per pair, whether a moved anchor lies within K12_EDGE voxel of a
-    .5 rounding edge (float64), and the number of distinct in-grid voxels
-    the pairs look up."""
+def approx_edges(field, vox, r_vox, hi_cloud, origin, inv, rot, hi, lo,
+                 chunk=1024):
+    """K12's work and edges on its arguments: per pair, whether a moved
+    anchor lies within K12_EDGE voxel of a .5 rounding edge (float64,
+    ``edge``), whether such an anchor is the pair's own (x = h: y = l
+    exactly; ``own``) and whether only own anchors are (``own_only``); the
+    distinct in-grid voxels the pairs look up (``touched``), the moved
+    anchors in the grid (``in_grid``) and those in a set cell of the
+    kernel's coarse map (``gathers``: its field reads)."""
     import torch
+    from mad_tpu_torch.core.geometry import rows_times
+    from mad_tpu_torch.kernels import approx
     dims = torch.as_tensor(field.shape, device=field.device)
     seen = torch.zeros(field.numel(), dtype=torch.bool, device=field.device)
-    edge = []
+    cells = approx.coarse_cells(tuple(field.shape), vox, r_vox)
+    s = approx.coarse_shift(tuple(field.shape))
+    out = dict(edge=[], own=[], own_only=[], in_grid=0, gathers=0)
     for s0 in range(0, rot.shape[0], chunk):
-        x = hi_cloud.double()[None] - hi[s0:s0 + chunk, None].double()
+        h = hi[s0:s0 + chunk]
+        x = hi_cloud.double()[None] - h[:, None].double()
         y = (torch.einsum("pad,ped->pae", x, rot[s0:s0 + chunk].double())
              + lo[s0:s0 + chunk, None].double())
         v = (y - origin.double()) * inv
-        edge.append(((v - torch.floor(v) - 0.5).abs() < K12_EDGE)
-                    .any(dim=(1, 2)))
-        vox = torch.round(v).long().reshape(-1, 3)
-        vox = vox[((vox >= 0) & (vox < dims)).all(dim=1)]
-        seen[(vox[:, 0] * dims[1] + vox[:, 1]) * dims[2] + vox[:, 2]] = True
-    return torch.cat(edge), int(seen.sum())
+        near = ((v - torch.floor(v) - 0.5).abs() < K12_EDGE).any(dim=2)
+        own = (hi_cloud[None] == h[:, None]).all(dim=2)
+        out["edge"].append(near.any(dim=1))
+        out["own"].append((near & own).any(dim=1))
+        out["own_only"].append(near.any(dim=1) & ~(near & ~own).any(dim=1))
+        # the voxels as K12 rounds them (float32, the plain version's sums)
+        t = torch.round((rows_times(hi_cloud[None] - h[:, None],
+                                    rot[s0:s0 + chunk].transpose(1, 2))
+                         + lo[s0:s0 + chunk, None] - origin) * inv)
+        t = t[((t >= 0) & (t < dims)).all(dim=2)].long()
+        out["in_grid"] += t.shape[0]
+        out["gathers"] += int(cells[t[:, 0] >> s, t[:, 1] >> s,
+                                    t[:, 2] >> s].sum())
+        seen[(t[:, 0] * dims[1] + t[:, 1]) * dims[2] + t[:, 2]] = True
+    for k in ("edge", "own", "own_only"):
+        out[k] = torch.cat(out[k])
+    out["touched"] = int(seen.sum())
+    return out
 
 
 def orient_check(fit, cfg, device):
@@ -2515,6 +2565,39 @@ def post_stage_checks(args, n_acc, blocks=None):
         C * N * 12 + S * N * 24 + C * 9 + n_idx * 8 + C * 16,
         C * (S + C) * n_idx * DIST_FLOPS, peak_ops=PEAK_F64_S)
     out["post"]["kernel_ms"] = alone_ms(lambda: k16.post_dedup(*da))
+    if blocks is None:
+        # The fold (one device): the two stages in one launch, its outputs
+        # those of the lane and dedup entries bit for bit (the dedup on the
+        # kernel's counts, equal to the plain ones), and the plain stages'
+        # within K16_ANCHOR_TOL for the moved anchors. Work: the two's.
+        fa = (rot_m, trans_m, coords_m, failed, cand_rot, cand_hi, cand_lo,
+              x0, hi_cloud, lo_cloud, prev, idx, hit, dedup)
+        g = k16.post_lanes_dedup(*fa)
+        two = k16.post_lanes(*la[:-2], 0, C)
+        two += k16.post_dedup(coords_m, failed, two[2], prev, idx, dedup)
+        w = k16.post_lanes_dedup_plain(*fa)
+        check(all(same_bits(x, y) for x, y in zip(g, two)),
+              "K16 fold differs from the lane and dedup entries")
+        check(all(torch.equal(x, y) for x, y in zip(g[1:], w[1:])),
+              "K16 fold: hits, counts, accepted or slots differ from the "
+              "plain stages")
+        err = float((g[0] - w[0]).abs().max())
+        check(err <= K16_ANCHOR_TOL, f"K16 fold: anchors differ by {err:g} A")
+        lanes_r = out["post_lanes"]
+        out["post_lanes_dedup"] = measure(
+            err, lambda: k16.post_lanes_dedup(*fa),
+            lambda: k16.post_lanes_dedup_plain(*fa),
+            lanes_r["bytes"] + out["post"]["bytes"],
+            lanes_r["ops"] + out["post"]["ops"], peak_ops=PEAK_F64_S)
+        out["post_lanes_dedup"]["kernel_ms"] = alone_ms(
+            lambda: k16.post_lanes_dedup(*fa))
+        say(f"  K16 fold: {C} lanes' blocks and the dedup's in one "
+            f"launch, equal to the two entries; "
+            f"alone {out['post_lanes_dedup']['kernel_ms']:.4f} ms (lanes "
+            f"{out['post_lanes']['kernel_ms']:.4f} + dedup "
+            f"{out['post']['kernel_ms']:.4f}), wrapper "
+            f"{out['post_lanes_dedup']['ms']:.4f} ms (the two "
+            f"{out['post_lanes']['ms'] + out['post']['ms']:.4f})")
     g, w = k16.post_points(*pa), k16.post_points_plain(*pa)
     check(torch.equal(g, w), "K16 points differ from the plain version")
     out["post_points"] = measure(
@@ -2888,7 +2971,7 @@ def dock_mesh_phase(device, cfg, bench, session):
     case (rescue_phase), the shard bodies at shard 1's inputs
     (dock_shard_checks), MaD(mesh=) on the session's inputs (phase 7's
     solutions) and multichip_step(4). Returns the report rows of
-    DOCK_ROWS and of the merge entry (pair_merge), and its launches in the
+    DOCK_ROWS and of the merge entry (pair_merge), and the launches of the
     4-shard run."""
     import torch
     from mad_tpu_torch.engine.docking import dock_structure
@@ -2939,7 +3022,7 @@ def dock_mesh_phase(device, cfg, bench, session):
     check(n_sols >= 1, "multichip_step(4) found no solution")
     say(f"multichip_step(4) on {device}: {n_sols} solutions, "
         f"{time.perf_counter() - t0:.3f} s")
-    return rows, counts["pair_merge"]
+    return rows, counts
 
 
 def rescue_args(device, cfg):
@@ -3079,25 +3162,28 @@ def dock_shard_checks(device, cfg, bench):
     # and kernel_checks.
     a12, a13 = c12[1], c13[1]
     r1, r2 = approx.approx_repeat(*a12), approx.approx_repeat_plain(*a12)
-    edge, touched = approx_edges(*a12)
-    check(not bool(((r1 != r2) & ~edge).any()),
-          "D2: K12 on shard 1 differs off the .5 edges")
+    e12 = approx_edges(*a12)
+    edge, touched = e12["edge"], e12["touched"]
+    check(torch.equal(r1, r2), "D2: K12 on shard 1 differs from the plain "
+          "version")
     e1, e2 = repeat.exact_repeat(*a13), repeat.exact_repeat_plain(*a13)
     near = _near_radius(*a13)
     check(not bool(((e1 != e2) & ~near).any()),
           "D2: K13 on shard 1 differs off the radius")
-    P, a_hi, a_lo = a12[4].shape[0], a12[1].shape[0], a13[1].shape[0]
+    P, a_hi, a_lo = a12[6].shape[0], a12[3].shape[0], a13[1].shape[0]
     n13 = a13[2].shape[0]
     out["repeat_shard"] = measure(
         max(float((r1 - r2).abs().max()), float((e1 - e2).abs().max())),
         lambda: (approx.approx_repeat(*a12), repeat.exact_repeat(*a13)),
         lambda: (approx.approx_repeat_plain(*a12),
                  repeat.exact_repeat_plain(*a13)),
-        touched + a_hi * 12 + 12 + P * (36 + 24 + 4)
+        touched + a_hi * 12 + a12[1].shape[0] * 12 + 12 + P * (36 + 24 + 4)
         + (a_hi + a_lo) * 12 + n13 * (36 + 24 + 4),
         P * a_hi * APPROX_FLOPS + n13 * a_hi * (15 + 9 * a_lo))
     say(f"  repeat_shard: K12 on {P} pairs ({int(edge.sum())} on a .5 "
-        f"edge), K13 on {n13} rows ({int(near.sum())} at the radius)")
+        f"edge; {e12['gathers']} field reads), K13 on {n13} rows "
+        f"({int(near.sum())} at the radius); K12 alone "
+        f"{alone_ms(lambda: approx.approx_repeat(*a12)):.4f} ms")
 
     # D3: K16's lane, point and row stages on shard 1's blocks of the
     # first round.
@@ -3250,10 +3336,11 @@ def phases(work):
     say(f"launches: {counts}")
     say(f"{len(sols)} solutions, {found}/{N_COPIES} subunits recovered, "
         f"median best CA-RMSD {np.median(rmsds):.3f} A")
-    main_path = [n for n in KERNELS if n not in ("hetero_head",
-                                                 "pair_merge")]
+    main_path = [n for n in KERNELS if n not in MESH_ONLY + ("hetero_head",)]
     check(all(counts[n] > 0 for n in main_path),
           f"a kernel of the main path never launched: {counts}")
+    check(all(counts[n] == 0 for n in MESH_ONLY),
+          f"a mesh entry launched on one device: {counts}")
     check(not pads, f"F.pad called on a CUDA tensor in the fit: {pads}")
     k1 = counts["conv1d"] + counts["log_gauss"]
     check(k1 <= K1_FIT_LAUNCHES, f"K1 launched {k1} times in the fit")
@@ -3340,7 +3427,8 @@ def phases(work):
     counts["hetero_head"] = hetero_phase(device)
     small_reference(device, cfg)
     capacity = capacity_phase(device, cfg, dmap)
-    dock, counts["pair_merge"] = dock_mesh_phase(device, cfg, bench, session)
+    dock, mesh_counts = dock_mesh_phase(device, cfg, bench, session)
+    counts.update({k: mesh_counts[k] for k in MESH_ONLY})
     checks["pair_merge"] = dock.pop("pair_merge")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

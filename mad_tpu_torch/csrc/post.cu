@@ -4,13 +4,19 @@
 // body) on the port's split path, whose host version (mad_tpu's
 // engine/docking._merge_refined, numpy and cKDTree) computes in float64;
 // so does this file, on the same inputs (kernels/post.py says what each
-// output is). Five launchers (the stages), on one stream:
-//   1. post_lanes, a block per lane of a range: the composed pose
-//      (A = rot^T, b = lo - hi A, center = mean(x0 A + b) by a block sum),
-//      then a warp per subunit anchor moves it, s_a = ((h A + b) - center)
-//      R + center + t, and takes its least squared distance to the map
-//      anchors (lanes over the cloud, a shuffle min); hit = d2 <
-//      hit_thresh^2;
+// output is). Five launchers (the stages), on one stream, and on one
+// device a sixth that runs stages 1 and 2 in one grid (mad_post_lanes_dedup,
+// one ticket: the dedup scan needs the lanes' counts only in its last
+// block):
+//   1. post_lanes, ceil(A / 8) blocks a lane of a range (lane_group; a
+//      block a lane before): each block the composed pose
+//      (A = rot^T, b = lo - hi A, center = mean(x0 A + b) by a block sum in
+//      one fixed order), then a warp per subunit anchor of its group moves
+//      it, s_a = ((h A + b) - center) R + center + t, and takes its least
+//      squared distance to the map anchors (staged in shared memory, lanes
+//      over them with two running minima, a shuffle min); hit = d2 <
+//      hit_thresh^2, counted by barrier counts and summed over the
+//      lane's blocks, which are a cluster (or, in the fold, by a ticket);
 //   2. post_dedup_k (mad_post_dedup), a block per (lane i, 8 targets): its
 //      CA-RMSD to each earlier solution and to each lane of the round, lane
 //      i's RMSD atoms staged in shared memory, a warp per pair, lanes over
@@ -55,6 +61,13 @@
 // depend on their order. So a cloud out of order costs time, never a
 // result.
 //
+// The lane stage had a block a lane, 28 of the card's 132 SMs at the
+// bench, each a chain of three block sums and four anchors a warp one
+// after another, and its own launch and wrapper a round (0.0985 ms of
+// events for 0.0099 ms of kernel). Now 112 blocks at the bench, one pass
+// of barriers for the center, one anchor a warp; on one device the fold
+// takes its launch away.
+//
 // Bound: float64 operations, ~9 per anchor-to-point distance, atom pair of
 // an RMSD and point-to-atom distance of the eligibility (bench: 28 lanes x
 // 32 anchors x 414 points, 28 x 28 RMSDs of 260 CA atoms, 414 points x
@@ -67,11 +80,18 @@
 
 #include "common.cuh"
 
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStage = 1024;        // dedup: RMSD atoms staged at a time
+                                    // (lanes: map anchors)
+constexpr int kLaneBlocks = 8;      // lanes: blocks (a cluster) a lane
+constexpr int kAtomsAhead = 4;      // lanes: x0 atoms a thread reads first
 constexpr int kPointTile = 32;      // points: cloud points a block
 constexpr int kAtomChunk = 1024;    // points: atoms a block (at most)
 constexpr int kCompact = 1024;      // compaction: threads, 16 rows each
@@ -120,17 +140,10 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-// Sum of v over the block in a fixed order, valid in thread 0.
-__device__ double block_sum(double v, double* red) {
-  v = warp_sum(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    v = red[0];
-    for (int w = 1; w < kWarps; ++w) v = dadd(v, red[w]);
-  }
-  return v;
+// Blocks a lane of the lane stage: one a group of kWarps anchors, at most
+// kLaneBlocks (one when there are none).
+__host__ __device__ __forceinline__ int lane_blocks(int A) {
+  return A > kWarps ? min((A + kWarps - 1) / kWarps, kLaneBlocks) : 1;
 }
 
 // True when the last of the launch's blocks arrives: every thread's writes
@@ -148,6 +161,184 @@ __device__ bool last_block(unsigned* ticket) {
   return last;
 }
 
+// G = lane_blocks(A) blocks a lane o of a range (at most kLaneBlocks), a
+// warp an anchor: warp w of block g takes anchors g kWarps + w + k kWarps G.
+// Every block of a lane recomputes the lane's pose and center in the order
+// of the earlier form (one block a lane): kThreads strided partial sums,
+// each warp's xor tree, then warps 0 .. kWarps - 1 in order, the three
+// coordinates in one pass; so each holds the same bits. The map anchors
+// are staged kStage at a time in cloud (x | y | z, kStage doubles each:
+// lanes read neighbouring words); the first chunk, the pose, the warp's
+// first anchor and each thread's first kAtomsAhead atoms are read before
+// the first barrier. A warp's lanes run over the staged map anchors with
+// two running minima. The block's hits are counted by barrier counts, and
+// the lane's count is the sum of its G blocks': kCluster, the G blocks are
+// a cluster and the first sums them through distributed shared memory
+// after a cluster barrier (no scratch to clear); else a 64-bit ticket
+// (blocks arrived << 32 | hits; zeroed by the launcher) whose last arrival
+// writes it. A failed lane's blocks write zeros.
+template <bool kCluster>
+__device__ void lane_group(int blk, const float* __restrict__ rot_m,
+                           const float* __restrict__ trans_m,
+                           const unsigned char* __restrict__ failed,
+                           const double* __restrict__ cand_rot,
+                           const double* __restrict__ cand_hi,
+                           const double* __restrict__ cand_lo,
+                           const double* __restrict__ x0, int N,
+                           const double* __restrict__ hi_cloud, int A,
+                           const double* __restrict__ lo_cloud, int B,
+                           double thr2, int start, double* cloud,
+                           unsigned long long* lane_tk,
+                           double* __restrict__ out_sa,
+                           double* __restrict__ out_hits,
+                           double* __restrict__ out_counts) {
+  __shared__ double sA[9], sR[9], sb[3], sc[3], st[3], red[3][kWarps];
+  const int G = lane_blocks(A);
+  const int o = blk / G, g = blk % G, c = start + o;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int step = kWarps * G, first = g * kWarps + warp;
+  // Every global read that needs nothing of the block is issued first:
+  // the lane's flag, its pose, the warp's first anchor and the first chunk
+  // of the map anchors; one barrier then shows the pose and the chunk.
+  double pA = 0.0, pR = 0.0, pt = 0.0, pb = 0.0, ha[3] = {0.0, 0.0, 0.0};
+  if (threadIdx.x < 9) {            // A[d][e] = rot[e][d]
+    const int d = threadIdx.x / 3, e = threadIdx.x % 3;
+    pA = cand_rot[9 * c + 3 * e + d];
+    pR = static_cast<double>(rot_m[9 * c + threadIdx.x]);
+  }
+  if (threadIdx.x < 3) {            // b = lo - hi A, as vecmat(hi, A, e)
+    const int e = threadIdx.x;
+    const double* h = cand_hi + 3 * c;
+    const double* r = cand_rot + 9 * c + 3 * e;
+    pt = static_cast<double>(trans_m[3 * c + e]);
+    pb = dsub(cand_lo[3 * c + e],
+              dadd(dadd(dmul(h[0], r[0]), dmul(h[1], r[1])),
+                   dmul(h[2], r[2])));
+  }
+  if (first < A)
+    for (int e = 0; e < 3; ++e) ha[e] = hi_cloud[3 * first + e];
+  double xp[kAtomsAhead][3];        // the thread's first atoms of x0
+#pragma unroll
+  for (int k = 0; k < kAtomsAhead; ++k) {
+    const int n = threadIdx.x + k * kThreads;
+    for (int e = 0; e < 3; ++e) xp[k][e] = n < N ? x0[3 * n + e] : 0.0;
+  }
+  if (failed[c]) {
+    for (int a = first; a < A; a += step) {
+      const long long ca = static_cast<long long>(o) * A + a;
+      if (lane < 3) out_sa[3 * ca + lane] = 0.0;
+      if (lane == 0) out_hits[ca] = 0.0;
+    }
+    if (g == 0 && threadIdx.x == 0) out_counts[o] = 0.0;
+    return;
+  }
+  const bool once = B <= kStage;    // the map anchors staged once
+  auto stage = [&](int j0, int m) {
+    for (int q = threadIdx.x; q < m; q += blockDim.x) {
+      cloud[q] = lo_cloud[3 * (j0 + q)];
+      cloud[kStage + q] = lo_cloud[3 * (j0 + q) + 1];
+      cloud[2 * kStage + q] = lo_cloud[3 * (j0 + q) + 2];
+    }
+  };
+  if (once) stage(0, B);
+  if (threadIdx.x < 9) {
+    sA[threadIdx.x] = pA;
+    sR[threadIdx.x] = pR;
+  }
+  if (threadIdx.x < 3) {
+    st[threadIdx.x] = pt;
+    sb[threadIdx.x] = pb;
+  }
+  __syncthreads();
+  double acc[3] = {0.0, 0.0, 0.0};
+#pragma unroll
+  for (int k = 0; k < kAtomsAhead; ++k)
+    if (threadIdx.x + k * kThreads < N)
+      for (int e = 0; e < 3; ++e)
+        acc[e] = dadd(acc[e], dadd(vecmat(xp[k], sA, e), sb[e]));
+#pragma unroll 4
+  for (int n = threadIdx.x + kAtomsAhead * kThreads; n < N; n += kThreads)
+    for (int e = 0; e < 3; ++e)
+      acc[e] = dadd(acc[e], dadd(vecmat(x0 + 3 * n, sA, e), sb[e]));
+  for (int e = 0; e < 3; ++e) {
+    acc[e] = warp_sum(acc[e]);
+    if (lane == 0) red[e][warp] = acc[e];
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    const int e = threadIdx.x;
+    double v = red[e][0];
+    for (int w = 1; w < kWarps; ++w) v = dadd(v, red[e][w]);
+    sc[e] = v / N;
+  }
+  __syncthreads();
+  int hits = 0;
+  for (int a0 = g * kWarps; a0 < A; a0 += step) {      // block-uniform
+    const int a = a0 + warp;
+    double s[3] = {0.0, 0.0, 0.0};
+    if (a < A) {
+      if (a != first)
+        for (int e = 0; e < 3; ++e) ha[e] = hi_cloud[3 * a + e];
+      double u[3];
+      for (int e = 0; e < 3; ++e)
+        u[e] = dsub(dadd(vecmat(ha, sA, e), sb[e]), sc[e]);
+      for (int e = 0; e < 3; ++e)
+        s[e] = dadd(dadd(vecmat(u, sR, e), sc[e]), st[e]);
+    }
+    double best0 = INFINITY, best1 = INFINITY;
+    for (int j0 = 0; j0 < B; j0 += kStage) {
+      const int m = min(kStage, B - j0);
+      if (!once) {
+        __syncthreads();
+        stage(j0, m);
+        __syncthreads();
+      }
+      if (a < A) {
+        int j = lane;
+        for (; j + 32 < m; j += 64) {
+          best0 = min_nan(best0, dist2(s, cloud[j], cloud[kStage + j],
+                                       cloud[2 * kStage + j]));
+          best1 = min_nan(best1, dist2(s, cloud[j + 32],
+                                       cloud[kStage + j + 32],
+                                       cloud[2 * kStage + j + 32]));
+        }
+        if (j < m)
+          best0 = min_nan(best0, dist2(s, cloud[j], cloud[kStage + j],
+                                       cloud[2 * kStage + j]));
+      }
+    }
+    const bool hit = a < A && warp_min(min_nan(best0, best1)) < thr2;
+    if (a < A && lane == 0) {
+      const long long ca = static_cast<long long>(o) * A + a;
+      for (int e = 0; e < 3; ++e) out_sa[3 * ca + e] = s[e];
+      out_hits[ca] = hit ? 1.0 : 0.0;
+    }
+    hits += __syncthreads_count(lane == 0 && hit);
+  }
+  if constexpr (kCluster) {
+    __shared__ int part[kLaneBlocks];
+    cg::cluster_group cluster = cg::this_cluster();
+    if (threadIdx.x == 0) cluster.map_shared_rank(part, 0)[g] = hits;
+    cluster.sync();
+    if (g == 0 && threadIdx.x == 0) {
+      int total = 0;
+      for (int k = 0; k < G; ++k) total += part[k];
+      out_counts[o] = static_cast<double>(total);
+    }
+  } else if (threadIdx.x == 0) {
+    if (G == 1) {
+      out_counts[o] = static_cast<double>(hits);
+    } else {
+      const unsigned long long old = atomicAdd(
+          lane_tk + o, (1ULL << 32) | static_cast<unsigned>(hits));
+      if (static_cast<int>(old >> 32) == G - 1)
+        out_counts[o] = static_cast<double>((old & 0xffffffffULL) + hits);
+    }
+  }
+}
+
+// Stage 1 alone (the mesh's shards): lane_group over the range's blocks,
+// launched in clusters of lane_blocks(A).
 __global__ void post_lanes(const float* __restrict__ rot_m,
                            const float* __restrict__ trans_m,
                            const unsigned char* __restrict__ failed,
@@ -161,62 +352,10 @@ __global__ void post_lanes(const float* __restrict__ rot_m,
                            double* __restrict__ out_sa,
                            double* __restrict__ out_hits,
                            double* __restrict__ out_counts) {
-  __shared__ double sA[9], sR[9], sb[3], sc[3], st[3], red[kWarps];
-  __shared__ int s_count;
-  const int c = start + blockIdx.x;       // the lane; outputs at blockIdx.x
-  const int o = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (failed[c]) {
-    for (int q = threadIdx.x; q < 3 * A; q += blockDim.x)
-      out_sa[3LL * o * A + q] = 0.0;
-    for (int a = threadIdx.x; a < A; a += blockDim.x)
-      out_hits[static_cast<long long>(o) * A + a] = 0.0;
-    if (threadIdx.x == 0) out_counts[o] = 0.0;
-    return;
-  }
-  if (threadIdx.x < 9) {            // A[d][e] = rot[e][d]
-    const int d = threadIdx.x / 3, e = threadIdx.x % 3;
-    sA[threadIdx.x] = cand_rot[9 * c + 3 * e + d];
-    sR[threadIdx.x] = static_cast<double>(rot_m[9 * c + threadIdx.x]);
-  }
-  if (threadIdx.x < 3)
-    st[threadIdx.x] = static_cast<double>(trans_m[3 * c + threadIdx.x]);
-  if (threadIdx.x == 0) s_count = 0;
-  __syncthreads();
-  if (threadIdx.x < 3)
-    sb[threadIdx.x] = dsub(cand_lo[3 * c + threadIdx.x],
-                           vecmat(cand_hi + 3 * c, sA, threadIdx.x));
-  __syncthreads();
-  double acc[3] = {0.0, 0.0, 0.0};
-  for (int n = threadIdx.x; n < N; n += blockDim.x)
-    for (int e = 0; e < 3; ++e)
-      acc[e] = dadd(acc[e], dadd(vecmat(x0 + 3 * n, sA, e), sb[e]));
-  for (int e = 0; e < 3; ++e) {
-    const double s = block_sum(acc[e], red);
-    if (threadIdx.x == 0) sc[e] = s / N;
-  }
-  __syncthreads();
-  for (int a = warp; a < A; a += kWarps) {
-    double u[3], s[3];
-    for (int e = 0; e < 3; ++e)
-      u[e] = dsub(dadd(vecmat(hi_cloud + 3 * a, sA, e), sb[e]), sc[e]);
-    for (int e = 0; e < 3; ++e)
-      s[e] = dadd(dadd(vecmat(u, sR, e), sc[e]), st[e]);
-    double best = INFINITY;
-    for (int j = lane; j < B; j += 32)
-      best = min_nan(best, dist2(s, lo_cloud[3 * j], lo_cloud[3 * j + 1],
-                                 lo_cloud[3 * j + 2]));
-    best = warp_min(best);
-    if (lane == 0) {
-      const long long ca = static_cast<long long>(o) * A + a;
-      for (int e = 0; e < 3; ++e) out_sa[3 * ca + e] = s[e];
-      const bool hit = best < thr2;
-      out_hits[ca] = hit ? 1.0 : 0.0;
-      if (hit) atomicAdd(&s_count, 1);
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) out_counts[o] = static_cast<double>(s_count);
+  __shared__ double cloud[3 * kStage];
+  lane_group<true>(blockIdx.x, rot_m, trans_m, failed, cand_rot, cand_hi,
+                   cand_lo, x0, N, hi_cloud, A, lo_cloud, B, thr2, start,
+                   cloud, nullptr, out_sa, out_hits, out_counts);
 }
 
 // Atom `k` of target j: an earlier solution (j < S, float64) or lane
@@ -249,8 +388,8 @@ __device__ __forceinline__ void target_atom(const double* prev,
 // tile the lowest unblocked valid lane is accepted and one ballot drops
 // the lanes below dedup of it; then each merged lane takes its argmin over
 // the accepted before it (the first on ties). Staged: R, acc_lanes and the
-// valid flags in shared memory; else R is rmat, read through L2 (the
-// launch's other blocks wrote it), and acc_lanes is lane_of.
+// valid flags in shared memory; else R is rmat and counts are read through
+// L2 (the launch's other blocks wrote them), and acc_lanes is lane_of.
 template <bool kStaged>
 __device__ void dedup_scan(const double* R, int* acc_lanes, const int* ok,
                            const unsigned char* failed,
@@ -268,7 +407,8 @@ __device__ void dedup_scan(const double* R, int* acc_lanes, const int* ok,
     const double* r = R + static_cast<long long>(i) * (S + C);
     bool valid = false, blocked = false;
     if (row) {
-      valid = kStaged ? ok[i] != 0 : !(failed[i] || counts[i] <= 0.0);
+      valid = kStaged ? ok[i] != 0
+                      : !(failed[i] || __ldcg(counts + i) <= 0.0);
       for (int k = 0; valid && !blocked && k < S; ++k)
         blocked = at(r + k) < dedup;
       for (int a = 0; valid && !blocked && a < n_acc; ++a)
@@ -308,27 +448,19 @@ __device__ void dedup_scan(const double* R, int* acc_lanes, const int* ok,
   }
 }
 
-// A block per (lane i, kWarps targets): lane i's RMSD atoms (idx and
-// coordinates) staged in shared memory kStage at a time, then a warp per
-// target j, lanes over the atoms a = lane, lane + 32, ..., each lane's sum
-// in ascending a and the warp's sum by warp_sum (the order of a warp per
-// pair); the last block stages rmat and the lanes' flags in the same
-// shared memory, where they fit, and runs the dedup scan with its first
-// warp.
-__global__ void post_dedup_k(const float* __restrict__ coords,
-                             const double* __restrict__ prev, int S, int C,
-                             int N, const long long* __restrict__ idx, int n,
-                             int groups, double* __restrict__ rmat,
-                             const unsigned char* __restrict__ failed,
-                             const double* __restrict__ counts,
-                             double dedup, int* __restrict__ lane_of,
-                             double* __restrict__ out_acc,
-                             double* __restrict__ out_slot) {
-  __shared__ double sp[3 * kStage];
-  __shared__ int sidx[kStage];
-  const int i = blockIdx.x / groups;
+// Block blk of the RMSDs, a block per (lane i, kWarps targets): lane i's
+// RMSD atoms (idx and coordinates) staged in shared memory kStage at a
+// time, then a warp per target j, lanes over the atoms a = lane, lane +
+// 32, ..., each lane's sum in ascending a and the warp's sum by warp_sum
+// (the order of a warp per pair).
+__device__ void dedup_rmsd(int blk, const float* __restrict__ coords,
+                           const double* __restrict__ prev, int S, int C,
+                           int N, const long long* __restrict__ idx, int n,
+                           int groups, double* __restrict__ rmat, double* sp,
+                           int* sidx) {
+  const int i = blk / groups;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int j = (blockIdx.x % groups) * kWarps + warp;
+  const int j = (blk % groups) * kWarps + warp;
   double sum = 0.0;
   for (int a0 = 0; a0 < n; a0 += kStage) {
     const int m = min(kStage, n - a0);
@@ -353,13 +485,24 @@ __global__ void post_dedup_k(const float* __restrict__ coords,
     if (lane == 0)
       rmat[static_cast<long long>(i) * (S + C) + j] = sqrt(sum / n);
   }
-  if (!last_block(reinterpret_cast<unsigned*>(lane_of + C))) return;
+}
+
+// The launch's last block: rmat and the lanes' flags staged in shared
+// memory where they fit, and the dedup scan by its first warp. rmat and
+// counts are read through L2: other blocks of the launch wrote them.
+__device__ void dedup_last(const double* rmat,
+                           const unsigned char* __restrict__ failed,
+                           const double* counts, int S, int C, double dedup,
+                           int* lane_of, double* __restrict__ out_acc,
+                           double* __restrict__ out_slot, double* sp,
+                           int* sidx) {
+  const int warp = threadIdx.x >> 5;
   const long long cells = static_cast<long long>(C) * (S + C);
   if (cells <= 3 * kStage && 2 * C <= kStage) {
     for (int k = threadIdx.x; k < cells; k += blockDim.x)
       sp[k] = __ldcg(rmat + k);
     for (int k = threadIdx.x; k < C; k += blockDim.x)
-      sidx[C + k] = !(failed[k] || counts[k] <= 0.0);
+      sidx[C + k] = !(failed[k] || __ldcg(counts + k) <= 0.0);
     __syncthreads();
     if (warp == 0)
       dedup_scan<true>(sp, sidx, sidx + C, failed, counts, S, C, dedup,
@@ -368,6 +511,64 @@ __global__ void post_dedup_k(const float* __restrict__ coords,
     dedup_scan<false>(rmat, lane_of, nullptr, failed, counts, S, C, dedup,
                       out_acc, out_slot);
   }
+}
+
+// Stage 2 alone: the RMSD blocks, then the last block's scan (a ticket).
+__global__ void post_dedup_k(const float* __restrict__ coords,
+                             const double* __restrict__ prev, int S, int C,
+                             int N, const long long* __restrict__ idx, int n,
+                             int groups, double* __restrict__ rmat,
+                             const unsigned char* __restrict__ failed,
+                             const double* __restrict__ counts,
+                             double dedup, int* __restrict__ lane_of,
+                             double* __restrict__ out_acc,
+                             double* __restrict__ out_slot) {
+  __shared__ double sp[3 * kStage];
+  __shared__ int sidx[kStage];
+  dedup_rmsd(blockIdx.x, coords, prev, S, C, N, idx, n, groups, rmat, sp,
+             sidx);
+  if (!last_block(reinterpret_cast<unsigned*>(lane_of + C))) return;
+  dedup_last(rmat, failed, counts, S, C, dedup, lane_of, out_acc, out_slot,
+             sp, sidx);
+}
+
+// Stages 1 and 2 in one grid (one device): blocks 0 .. lane_grid - 1 are
+// lane_group's over all C lanes, the rest dedup_rmsd's; one ticket (after
+// the C lane tickets in tk) elects the last block, which reads the lanes'
+// counts through L2 and runs the scan.
+__global__ void post_lanes_dedup(const float* __restrict__ rot_m,
+                                 const float* __restrict__ trans_m,
+                                 const float* __restrict__ coords,
+                                 const unsigned char* __restrict__ failed,
+                                 const double* __restrict__ cand_rot,
+                                 const double* __restrict__ cand_hi,
+                                 const double* __restrict__ cand_lo, int C,
+                                 const double* __restrict__ x0, int N,
+                                 const double* __restrict__ hi_cloud, int A,
+                                 const double* __restrict__ lo_cloud, int B,
+                                 double thr2, int lane_grid,
+                                 const double* __restrict__ prev, int S,
+                                 const long long* __restrict__ idx, int n,
+                                 int groups, double dedup,
+                                 double* __restrict__ rmat, int* lane_of,
+                                 unsigned long long* tk,
+                                 double* __restrict__ out_sa,
+                                 double* __restrict__ out_hits,
+                                 double* out_counts,
+                                 double* __restrict__ out_acc,
+                                 double* __restrict__ out_slot) {
+  __shared__ double sp[3 * kStage];
+  __shared__ int sidx[kStage];
+  if (static_cast<int>(blockIdx.x) < lane_grid)
+    lane_group<false>(blockIdx.x, rot_m, trans_m, failed, cand_rot,
+                      cand_hi, cand_lo, x0, N, hi_cloud, A, lo_cloud, B,
+                      thr2, 0, sp, tk, out_sa, out_hits, out_counts);
+  else
+    dedup_rmsd(blockIdx.x - lane_grid, coords, prev, S, C, N, idx, n,
+               groups, rmat, sp, sidx);
+  if (!last_block(reinterpret_cast<unsigned*>(tk + C))) return;
+  dedup_last(rmat, failed, out_counts, S, C, dedup, lane_of, out_acc,
+             out_slot, sp, sidx);
 }
 
 // Least squared distance of p to the atoms of the earlier solutions and of
@@ -595,8 +796,9 @@ __global__ void post_compact(const unsigned char* __restrict__ row_flag,
 // The launchers, one a stage; inputs as kernels/post.py's stage wrappers
 // say. Each returns cudaGetLastError() after its launches.
 
-// Stage 1, lanes start .. start + count - 1 of the C-lane inputs; out_sa
-// (count A 3), out_hits (count A), out_counts (count) f64.
+// Stage 1, lanes start .. start + count - 1 of the C-lane inputs, in
+// clusters of lane_blocks(A) blocks; out_sa (count A 3), out_hits (count A),
+// out_counts (count) f64.
 MAD_EXPORT int mad_post_lanes(const float* rot_m, const float* trans_m,
                               const unsigned char* failed,
                               const double* cand_rot, const double* cand_hi,
@@ -607,10 +809,23 @@ MAD_EXPORT int mad_post_lanes(const float* rot_m, const float* trans_m,
                               double hit_thresh, double* out_sa,
                               double* out_hits, double* out_counts,
                               cudaStream_t stream) {
-  post_lanes<<<count, kThreads, 0, stream>>>(
-      rot_m, trans_m, failed, cand_rot, cand_hi, cand_lo, x0, N, hi_cloud,
-      A, lo_cloud, B, hit_thresh * hit_thresh, start, out_sa, out_hits,
-      out_counts);
+  const int G = lane_blocks(A);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(count * G);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, post_lanes, rot_m, trans_m, failed, cand_rot, cand_hi, cand_lo,
+      x0, N, hi_cloud, A, lo_cloud, B, hit_thresh * hit_thresh, start,
+      out_sa, out_hits, out_counts);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -631,6 +846,31 @@ MAD_EXPORT int mad_post_dedup(const float* coords,
   post_dedup_k<<<C * groups, kThreads, 0, stream>>>(
       coords, prev, S, C, N, idx, n, groups, rmat, failed, counts, dedup,
       lane_of, out_acc, out_slot);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stages 1 and 2 on all C lanes in one launch (one device): inputs as the
+// two above; scratch rmat (C (S + C)) f64, lane_of (C) int32 and tk (C + 1)
+// 64-bit tickets (the lanes', then the launch's); outputs as the two.
+MAD_EXPORT int mad_post_lanes_dedup(
+    const float* rot_m, const float* trans_m, const float* coords,
+    const unsigned char* failed, const double* cand_rot,
+    const double* cand_hi, const double* cand_lo, int C, const double* x0,
+    int N, const double* hi_cloud, int A, const double* lo_cloud, int B,
+    double hit_thresh, const double* prev, int S, const long long* idx,
+    int n, double dedup, double* rmat, int* lane_of, unsigned long long* tk,
+    double* out_sa, double* out_hits, double* out_counts, double* out_acc,
+    double* out_slot, cudaStream_t stream) {
+  const cudaError_t err = cudaMemsetAsync(
+      tk, 0, sizeof(unsigned long long) * (C + 1), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int lane_grid = C * lane_blocks(A);
+  const int groups = (S + C + kWarps - 1) / kWarps;
+  post_lanes_dedup<<<lane_grid + C * groups, kThreads, 0, stream>>>(
+      rot_m, trans_m, coords, failed, cand_rot, cand_hi, cand_lo, C, x0, N,
+      hi_cloud, A, lo_cloud, B, hit_thresh * hit_thresh, lane_grid, prev, S,
+      idx, n, groups, dedup, rmat, lane_of, tk, out_sa, out_hits, out_counts,
+      out_acc, out_slot);
   return static_cast<int>(cudaGetLastError());
 }
 

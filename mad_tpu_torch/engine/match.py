@@ -182,13 +182,18 @@ def match_descriptors(map_set: DescriptorSet, sub_set: DescriptorSet,
     shards = mesh or Mesh((device,))
 
     # Stage A: approximate repeatability of every pair (K11 once per
-    # device, K12 over each shard's pairs), gathered on the home device.
+    # device, replicated with the anchor voxels that K12's coarse map
+    # takes; K12 over each shard's pairs), gathered on the home device.
     r_vox = max(1, int(round(cfg.anchor_dist / voxsp)))
     vox = anchor_voxels(lo_cloud, grid_origin, voxsp, grid_shape)
     inv = float(np.float32(1.0 / voxsp))
-    rep_in = replicate(shards, lambda d: (
-        anchor_field(tuple(grid_shape), torch.as_tensor(vox, device=d),
-                     r_vox), _f32(hi_cloud, d), _f32(grid_origin, d)))
+
+    def rep_in_on(d):
+        v = torch.as_tensor(vox, device=d)
+        return (anchor_field(tuple(grid_shape), v, r_vox), v, r_vox,
+                _f32(hi_cloud, d), _f32(grid_origin, d))
+
+    rep_in = replicate(shards, rep_in_on)
     poses = [_f32(a, shards.home) for a in (rot, hi_coord, lo_coord)]
     rep_d = map_rows(shards, len(rows), lambda d, a, e: approx_repeat(
         *rep_in[d], inv, *[t[a:e].to(d) for t in poses]))

@@ -60,6 +60,8 @@ KERNELS = {
              "mad_tpu/engine/dock_fused.py:344"),
     "post_lanes": (post, "mad_tpu_torch/csrc/post.cu",
                    "mad_tpu/engine/dock_fused.py:374"),
+    "post_lanes_dedup": (post, "mad_tpu_torch/csrc/post.cu",
+                         "mad_tpu/engine/dock_fused.py:374"),
     "post_points": (post, "mad_tpu_torch/csrc/post.cu",
                     "mad_tpu/engine/dock_fused.py:419"),
     "post_rows": (post, "mad_tpu_torch/csrc/post.cu",
@@ -87,11 +89,13 @@ KERNELS = {
 # K1's fused LoG passes and its blur epilogues (launches of the single-axis
 # entry, which "conv1d" counts as well), K9's scale-and-clamp pass, K10's
 # merge of the shards' heads, K16's lane, eligibility and compaction stages
-# ("post" counts its dedup), K23 (K22 shares its module)
+# ("post" counts its dedup) and the lanes and dedup in one launch, K23 (K22
+# shares its module)
 COUNTERS = {"log_gauss": "log_launches", "blur_divide": "divide_launches",
             "blur_max": "max_launches", "simulate_scale": "scale_launches",
             "pair_merge": "merge_launches",
             "post_lanes": "lane_launches",
+            "post_lanes_dedup": "fold_launches",
             "post_points": "point_launches", "post_rows": "row_launches",
             "post_compact": "compact_launches", "crop_pad": "pad_launches"}
 

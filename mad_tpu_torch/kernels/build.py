@@ -66,8 +66,8 @@ SIGNATURES = {
     "mad_pair_head": [_P, _I, _I, _I, _F, _I, _L, _P, _P, _P, _P, _P],
     "mad_pair_merge": [_P, _L, _L, _P, _P, _P, _P],
     "mad_anchor_field": [_P, _I, _I, _I, _I, _I, _P, _P],
-    "mad_approx_repeat": [_P, _I, _I, _I, _P, _I, _P, _F, _P, _P, _P, _I,
-                          _P, _P],
+    "mad_approx_repeat": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _F, _P,
+                          _P, _P, _I, _P, _P],
     "mad_cluster_select": [_P, _P, _P, _P, _P, _P, _I, _D, _I, _D, _I, _P,
                            _P, _P, _P, _P],
     "mad_upsample2": [_P, _P, _I, _I, _I, _L, _P],
@@ -77,6 +77,9 @@ SIGNATURES = {
     "mad_gather_norm": [_P, _P, _I, _P, _I, _I, _P, _P, _I, _P],
     "mad_post_lanes": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P,
                        _I, _D, _P, _P, _P, _P],
+    "mad_post_lanes_dedup": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I,
+                             _P, _I, _D, _P, _I, _P, _I, _D, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _P],
     "mad_post_dedup": [_P, _P, _P, _I, _I, _P, _I, _P, _I, _D, _P, _P, _P,
                        _P, _P],
     "mad_post_points": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _D, _I, _P, _P,

@@ -37,11 +37,13 @@ The lane, point and row stages take a (start, count) range: with a mesh,
 :func:`post` runs them on each shard's block on its device and gathers the
 parts on the home device, where the dedup and the compaction run once, as
 mad_tpu's mesh form does (its ``lane_map_fn`` and ``pair_scan_fn``,
-engine/dock_fused.py:455-524); without one, on one block. :func:`post_plain`
-is the same composition of the plain versions. Both return one float64
-vector that :func:`split_post` cuts on the host: s_a (C, A, 3) | hits
-(C, A) | counts (C) | accepted (C) | slot (C) | number of rows taken |
-rows (n_top, -1 past them). ``slot`` is the lane's index in the solution
+engine/dock_fused.py:455-524). Without one, the lanes and the dedup run
+in one launch (:func:`post_lanes_dedup`, counted by ``fold_launches``;
+its plain version is the two plain stages), the point and row stages on
+one block. :func:`post_plain` is the same composition of the plain
+versions. Both return one float64 vector that :func:`split_post` cuts on
+the host: s_a (C, A, 3) | hits (C, A) | counts (C) | accepted (C) | slot
+(C) | number of rows taken | rows (n_top, -1 past them). ``slot`` is the lane's index in the solution
 list: the new one it founds, or the one it merges into; -1 for a skipped
 lane. A failed lane's s_a is 0.
 """
@@ -59,6 +61,7 @@ ATOM_CHUNK = build.constants("post.cu")["kAtomChunk"]
 
 launches = 0            # post_dedup launches since the last reset
 lane_launches = 0       # post_lanes launches
+fold_launches = 0       # post_lanes_dedup launches
 point_launches = 0      # post_points launches
 row_launches = 0        # post_rows launches
 compact_launches = 0    # post_compact launches
@@ -166,6 +169,16 @@ def post_dedup_plain(coords_m, failed, counts, prev, idx, dedup_rmsd):
             cols.append(S + i)
     return (torch.as_tensor(accepted, dtype=f64, device=dev),
             torch.as_tensor(slot, dtype=f64, device=dev))
+
+
+def post_lanes_dedup_plain(rot_m, trans_m, coords_m, failed, cand_rot,
+                           cand_hi, cand_lo, x0, hi_cloud, lo_cloud, prev,
+                           idx, hit_thresh, dedup_rmsd):
+    s_a, hits, counts = post_lanes_plain(
+        rot_m, trans_m, failed, cand_rot, cand_hi, cand_lo, x0, hi_cloud,
+        lo_cloud, hit_thresh, 0, rot_m.shape[0])
+    return (s_a, hits, counts) + post_dedup_plain(coords_m, failed, counts,
+                                                  prev, idx, dedup_rmsd)
 
 
 def post_points_plain(lo_cloud, prev, coords_m, accepted, anchor_dist,
@@ -286,6 +299,62 @@ def post_dedup(coords_m: torch.Tensor, failed: torch.Tensor,
     return acc, slot
 
 
+def post_lanes_dedup(rot_m: torch.Tensor, trans_m: torch.Tensor,
+                     coords_m: torch.Tensor, failed: torch.Tensor,
+                     cand_rot: torch.Tensor, cand_hi: torch.Tensor,
+                     cand_lo: torch.Tensor, x0: torch.Tensor,
+                     hi_cloud: torch.Tensor, lo_cloud: torch.Tensor,
+                     prev: torch.Tensor, idx: torch.Tensor,
+                     hit_thresh: float, dedup_rmsd: float):
+    """Stages 1-3 on all C lanes in one launch (one device): (s_a (C, A,
+    3), hits (C, A), counts (C), accepted (C), slot (C)) float64, as
+    :func:`post_lanes` on every lane and then :func:`post_dedup` give
+    them."""
+    if x0.device.type == "cpu":
+        return post_lanes_dedup_plain(rot_m, trans_m, coords_m, failed,
+                                      cand_rot, cand_hi, cand_lo, x0,
+                                      hi_cloud, lo_cloud, prev, idx,
+                                      hit_thresh, dedup_rmsd)
+    global fold_launches
+    C, N, A_hi = rot_m.shape[0], x0.shape[0], hi_cloud.shape[0]
+    S = prev.shape[0]
+    if (rot_m.shape != (C, 3, 3) or trans_m.shape != (C, 3)
+            or coords_m.shape != (C, N, 3) or failed.shape != (C,)
+            or cand_rot.shape != (C, 3, 3) or cand_hi.shape != (C, 3)
+            or cand_lo.shape != (C, 3) or x0.shape != (N, 3)
+            or hi_cloud.shape != (A_hi, 3) or lo_cloud.dim() != 2
+            or lo_cloud.shape[1] != 3 or prev.shape != (S, N, 3)
+            or idx.dim() != 1 or not 0 < idx.shape[0] <= N):
+        raise ValueError("post_lanes_dedup: bad shapes")
+    f32 = [t.to(torch.float32).contiguous()
+           for t in (rot_m, trans_m, coords_m)]
+    f64 = _f64(cand_rot, cand_hi, cand_lo, x0, hi_cloud, lo_cloud, prev)
+    failed = failed.to(torch.uint8).contiguous()
+    idx = idx.to(torch.int64).contiguous()
+    build.require_cuda("post_lanes_dedup", *f32, failed, *f64, idx)
+    dev = x0.device
+    s_a = torch.empty((C, A_hi, 3), dtype=torch.float64, device=dev)
+    hits = torch.empty((C, A_hi), dtype=torch.float64, device=dev)
+    counts, acc, slot = torch.empty((3, C), dtype=torch.float64,
+                                    device=dev)
+    if C == 0:
+        return s_a, hits, counts, acc, slot
+    rmat = torch.empty(C * (S + C), dtype=torch.float64, device=dev)
+    lane_of = torch.empty(C, dtype=torch.int32, device=dev)
+    tickets = torch.empty(C + 1, dtype=torch.int64, device=dev)
+    build.launch(
+        build.library().mad_post_lanes_dedup, dev,
+        *(t.data_ptr() for t in f32), failed.data_ptr(),
+        *(t.data_ptr() for t in f64[:3]), C, f64[3].data_ptr(), N,
+        f64[4].data_ptr(), A_hi, f64[5].data_ptr(), f64[5].shape[0],
+        float(hit_thresh), f64[6].data_ptr(), S, idx.data_ptr(),
+        idx.shape[0], float(dedup_rmsd), rmat.data_ptr(), lane_of.data_ptr(),
+        tickets.data_ptr(), s_a.data_ptr(), hits.data_ptr(),
+        counts.data_ptr(), acc.data_ptr(), slot.data_ptr())
+    fold_launches += 1
+    return s_a, hits, counts, acc, slot
+
+
 def post_points(lo_cloud: torch.Tensor, prev: torch.Tensor,
                 coords_m: torch.Tensor, accepted: torch.Tensor,
                 anchor_dist: float, start: int, count: int) -> torch.Tensor:
@@ -378,27 +447,34 @@ def post_compact(row_flag: torch.Tensor, n_top: int) -> torch.Tensor:
 # -- the round ----------------------------------------------------------------
 
 PLAIN = dict(lanes=post_lanes_plain, dedup=post_dedup_plain,
-             points=post_points_plain, rows=post_rows_plain,
-             compact=post_compact_plain)
+             fold=post_lanes_dedup_plain, points=post_points_plain,
+             rows=post_rows_plain, compact=post_compact_plain)
 
 
 def _round(stage, rot_m, trans_m, coords_m, failed, cand_rot, cand_hi,
            cand_lo, x0, hi_cloud, lo_cloud, prev, idx, hit_thresh,
            dedup_rmsd, lo_rows, anchor_dist, n_top, mesh):
     """The round's vector from the stage functions ``stage`` (name ->
-    function), the lane, point and row stages over ``mesh``'s shards
-    (one block on the inputs' device without one)."""
+    function), the lane, point and row stages over ``mesh``'s shards;
+    without one the lanes and the dedup in one call (``fold``), the point
+    and row stages on one block on the inputs' device."""
     home = coords_m.device
     shards = mesh or Mesh((home,))
     C, B = coords_m.shape[0], lo_cloud.shape[0]
     P = lo_rows.shape[0] if n_top > 0 else 0
-    lane_in = replicate(shards, lambda d: tuple(t.to(d) for t in (
-        rot_m, trans_m, failed, cand_rot, cand_hi, cand_lo, x0, hi_cloud,
-        lo_cloud)))
-    s_a, hits, counts = map_rows(shards, C, lambda d, a, e: stage["lanes"](
-        *lane_in[d], hit_thresh, a, e - a))
-    accepted, slot = stage["dedup"](coords_m, failed, counts, prev, idx,
-                                    dedup_rmsd)
+    if mesh is None:
+        s_a, hits, counts, accepted, slot = stage["fold"](
+            rot_m, trans_m, coords_m, failed, cand_rot, cand_hi, cand_lo,
+            x0, hi_cloud, lo_cloud, prev, idx, hit_thresh, dedup_rmsd)
+    else:
+        lane_in = replicate(shards, lambda d: tuple(t.to(d) for t in (
+            rot_m, trans_m, failed, cand_rot, cand_hi, cand_lo, x0,
+            hi_cloud, lo_cloud)))
+        s_a, hits, counts = map_rows(
+            shards, C, lambda d, a, e: stage["lanes"](*lane_in[d],
+                                                      hit_thresh, a, e - a))
+        accepted, slot = stage["dedup"](coords_m, failed, counts, prev, idx,
+                                        dedup_rmsd)
     row_flag = torch.zeros(0, dtype=torch.uint8, device=home)
     if P > 0:
         atoms = replicate(shards, lambda d: tuple(t.to(d) for t in (
@@ -438,8 +514,8 @@ def post(rot_m: torch.Tensor, trans_m: torch.Tensor, coords_m: torch.Tensor,
     hi_cloud (A, 3) and lo_cloud (B, 3) the anchor clouds; prev (S, N, 3)
     the earlier rounds' solutions; lo_rows (P, 3) the table's map anchors
     (read only when n_top > 0). idx (n,) int64 the RMSD atoms."""
-    stages = dict(lanes=post_lanes, dedup=post_dedup, points=post_points,
-                  rows=post_rows, compact=post_compact)
+    stages = dict(lanes=post_lanes, dedup=post_dedup, fold=post_lanes_dedup,
+                  points=post_points, rows=post_rows, compact=post_compact)
     return _round(stages, rot_m, trans_m, coords_m, failed, cand_rot,
                   cand_hi, cand_lo, x0, hi_cloud, lo_cloud, prev, idx,
                   hit_thresh, dedup_rmsd, lo_rows, anchor_dist, n_top, mesh)

@@ -4,7 +4,7 @@ port, timed in interleaved order on one NVIDIA card.
 
     python3 scripts/torch_kernel_abba.py DIR_A DIR_B [--order ABBA]
         [--kernels peak_mask_compact,localize,orient,descriptor_hist,
-                   axis_flags]
+                   axis_flags,approx_repeat,post_lanes,post_dedup]
         [--fits 0] [--bodies] [--echo "  K9 ,  K19"]
 
 Each DIR holds a checkout (its chip_smoke.py and mad_tpu_torch/). For
@@ -26,7 +26,11 @@ four octaves, its wrapper over 20 calls, and the host's time a call over
 200 with no sync; ``detect_anchors`` at the map's two, the span from K4
 to the anchor table) and ``axis_flags`` (K22 on the unreduced bench map
 and on a view of it off 16-byte alignment) are recorded and timed by the
-child itself, so they take no other phase;
+child itself, so they take no other phase, as are ``approx_repeat``,
+``post_lanes`` and ``post_dedup`` (K12 and K16's lane and dedup entries at
+the inputs of one more bench fit, with the fold of the two where the
+checkout has it, ``post_dedup[fold]``, the round, ``post_dedup[round]``,
+and the match stage, ``approx_repeat[match]``, in events);
 the parent's ``upsample_axis``, K2's three per-axis launches, stands for
 ``upsample2``, the same work in one launch).
 ``--bodies``: the simulation body (``ops/simulate._simulate_batch``) at
@@ -93,7 +97,8 @@ if bodies == "1":
                        peak]
     del sims
 print("BODY " + json.dumps(body))
-RECORDED = {"localize", "detect_anchors", "axis_flags"}
+RECORDED = {"localize", "detect_anchors", "axis_flags", "approx_repeat",
+            "post_lanes", "post_dedup"}
 rows = {}
 if {"localize", "detect_anchors"} & set(names):
     # K5 per launch at the fit's four octaves and detect_anchors at each map
@@ -142,6 +147,43 @@ if "axis_flags" in names:
             plain_ms=cs.cuda_ms(lambda: k22.axis_flags_plain(v)),
             kernel_ms=cs.alone_ms(lambda: k22.axis_flags(v)))
     del raw, view
+if {"approx_repeat", "post_lanes", "post_dedup"} & set(names):
+    # K12, K16's lane and dedup entries (the round's first, on stage inputs
+    # from the plain stages before each) and the fold of the two where this
+    # checkout has it, recorded at their call sites in one more fit of this
+    # checkout and timed here; the round (docking.post) and the match stage
+    # whole, in events
+    from mad_tpu_torch.engine import docking, match as em
+    from mad_tpu_torch.kernels import approx as k12, post as k16
+    with recording(em, "approx_repeat") as c12, \
+            recording(docking, "post") as posts:
+        cs.run_fit(device, None, cfg)
+    timed = lambda fn, plain: dict(
+        ms=cs.cuda_ms(fn, reps=20),
+        plain_ms=None if plain is None else cs.cuda_ms(plain),
+        kernel_ms=cs.alone_ms(fn))
+    a12, a17 = c12[0], posts[0][:17]
+    st = cs.stage_inputs(a17)
+    la, da = st["post_lanes"], st["post_dedup"]
+    rows["approx_repeat"] = timed(lambda: k12.approx_repeat(*a12),
+                                  lambda: k12.approx_repeat_plain(*a12))
+    rows["post_lanes"] = timed(lambda: k16.post_lanes(*la),
+                               lambda: k16.post_lanes_plain(*la))
+    rows["post_dedup"] = timed(lambda: k16.post_dedup(*da),
+                               lambda: k16.post_dedup_plain(*da))
+    if hasattr(k16, "post_lanes_dedup"):
+        rows["post_dedup[fold]"] = timed(
+            lambda: k16.post_lanes_dedup(*a17[:14]),
+            lambda: k16.post_lanes_dedup_plain(*a17[:14]))
+    rows["post_dedup[round]"] = dict(ms=cs.cuda_ms(lambda: k16.post(*a17),
+                                                   reps=20), plain_ms=None)
+    m, s, dm, mc = fit["map_set"], fit["sub_set"], fit["dmap"], cfg.match
+    rows["approx_repeat[match]"] = dict(ms=cs.cuda_ms(
+        lambda: em.match_descriptors(
+            m, s, dm.shape, dm.origin, dm.voxsp, mc,
+            min_exact=cfg.filter.n_samples * cs.N_COPIES, device=device),
+        reps=7), plain_ms=None)
+    del c12, posts, st, la, da
 rest = [n for n in names if n and n not in RECORDED]
 # rows all of describe_checks (K2, K3, K5, K8): that phase alone
 if rest and set(rest) <= DESCRIBE_ROWS:

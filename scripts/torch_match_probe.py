@@ -84,7 +84,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Run in a checkout (cwd), its mad_tpu_torch; the helpers (bare,
 # kernel_ms, ...) from this checkout's chip_smoke, loaded by path.
 CHILD = r"""
-import ctypes, importlib.util, json, re, subprocess, sys, time, torch
+import ctypes, importlib.util, inspect, json, re, subprocess, sys, time
+import torch
 from mad_tpu_torch.kernels import build, approx as k12, pairs as k10
 from mad_tpu_torch.kernels import repeat as k13, gather_norm as k8
 smoke, inputs, out_path, variants = (sys.argv[1], sys.argv[2], sys.argv[3],
@@ -147,6 +148,9 @@ if "K21" in dict(kinds) and hasattr(k21, "one_launch"):
                                                reps=10)
     k21.one_launch = one
 for label, (a12, a13) in inp["D2"]:
+    if len(a12) == 9 and "vox" not in inspect.signature(
+            k12.approx_repeat).parameters:     # a checkout without the map
+        a12 = (a12[0],) + tuple(a12[3:])
     d2 = lambda: (k12.approx_repeat(*a12), k13.exact_repeat(*a13))
     outs[f"D2 {label}"] = [x.cpu() for x in d2()]
     res[f"D2 {label} wrapper"] = cs.cuda_ms(d2, reps=10)
@@ -480,7 +484,7 @@ def record(cs, path):
     for label, a in merge:
         cs.say(f"K10 {label}: {a[0].shape[0]} keys into {a[1]}")
     d2 = [("shard 1", (c12[1], c13[1]))]
-    cs.say(f"D2 shard 1: K12 on {c12[1][4].shape[0]} pairs, K13 on "
+    cs.say(f"D2 shard 1: K12 on {c12[1][-3].shape[0]} pairs, K13 on "
            f"{c13[1][2].shape[0]} rows x {c13[1][0].shape[0]} x "
            f"{c13[1][1].shape[0]} anchors")
     match = (fit["map_set"], fit["sub_set"], tuple(fit["dmap"].shape),

@@ -133,12 +133,13 @@ def _spanned_match(times):
             rot_d, hc_d, lc_d = (em._f32(rot, device),
                                  em._f32(hi_coord, device),
                                  em._f32(lo_coord, device))
+        r_vox = max(1, int(round(cfg.anchor_dist / voxsp)))
         with span(SPANS[3], device):
-            field = em.anchor_field(tuple(grid_shape), lo_vox_d, max(
-                1, int(round(cfg.anchor_dist / voxsp))))
+            field = em.anchor_field(tuple(grid_shape), lo_vox_d, r_vox)
         with span(SPANS[4], device):
             rep = em.approx_repeat(
-                field, hi_cloud_d, em._f32(grid_origin, device),
+                field, lo_vox_d, r_vox, hi_cloud_d,
+                em._f32(grid_origin, device),
                 float(np.float32(1.0 / voxsp)), rot_d, hc_d,
                 lc_d).cpu().numpy()
         with span(SPANS[5], device):

@@ -223,6 +223,6 @@ def test_dock_on_two_cards(dimer):
             recording(k16, "post_rows") as rows:
         got = docking.dock_structure(*args, n_copies=1, mesh=make_mesh(2))
     cards = {torch.device("cuda", 0), torch.device("cuda", 1)}
-    assert {a[4].device for a in pairs} == cards
+    assert {a[6].device for a in pairs} == cards
     assert {a[0].device for a in rows} == cards
     _bit_equal(got, want)

@@ -107,14 +107,15 @@ def test_k12_approx_repeat_far_poses(cuda):
     lo = t["lo_coord"].copy()
     lo[:5] += [[1e9, 0, 0], [0, -1e9, 0], [0, 0, 3e38], [-3e38, 0, 0],
                [400.0, 0, 0]]                         # poses off the map
-    args = (field.to(cuda), f32(t["hi_cloud"]), f32(origin),
+    args = (field.to(cuda), torch.as_tensor(lo_vox, device=cuda), 3,
+            f32(t["hi_cloud"]), f32(origin),
             float(np.float32(1.0 / voxsp)), f32(t["rot"]),
             f32(t["hi_coord"] + rng.normal(size=(3000, 3)) * 0.01), f32(lo))
     before = k12.launches
     got = k12.approx_repeat(*args)
     assert k12.launches == before + 1
     want = k12.approx_repeat_plain(*args)
-    edge = _near_edge(args[1], args[2], args[3], args[4], args[5], args[6])
+    edge = _near_edge(*args[3:])
     assert torch.equal(got[~edge], want[~edge])
     assert (got[:5] == 0).all() and float(got.max()) > 50.0
 
@@ -153,6 +154,8 @@ def test_wrappers_raise_on_mixed_devices(cuda):
     with pytest.raises(ValueError):
         k12.approx_repeat(torch.zeros((4, 4, 4), dtype=torch.int8,
                                       device=cuda),
+                          torch.zeros((1, 3), dtype=torch.int32,
+                                      device=cuda), 1,
                           torch.zeros((3, 3)), torch.zeros(3, device=cuda),
                           1.0, torch.eye(3, device=cuda)[None],
                           torch.zeros((1, 3), device=cuda),

@@ -100,7 +100,8 @@ def test_approx_repeat_equals_compiled_approx_repeat():
         shape, cloud.shape[0], 512, 256)(
             field, cloud, np.ones(cloud.shape[0], bool), origin, inv, rot,
             hi, lo))
-    got = k12.approx_repeat(torch.as_tensor(field), torch.as_tensor(cloud),
+    got = k12.approx_repeat(torch.as_tensor(field), torch.as_tensor(lo_vox),
+                            3, torch.as_tensor(cloud),
                             torch.as_tensor(origin), float(inv),
                             torch.as_tensor(rot), torch.as_tensor(hi),
                             torch.as_tensor(lo)).numpy()
