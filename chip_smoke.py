@@ -60,7 +60,8 @@ Phases, each of which raises (non-zero exit) when it fails:
      for bit at the fit's four LoG volumes (the map's and the subunit's
      upsampled and base octaves: the voxels above threshold, the kernel
      alone beside the wrapper) and at ragged cuts of the map's upsampled
-     one, own rows off a 16-byte boundary in the offset form; K18 bit for
+     one, own rows off a 16-byte boundary in the offset form, and with a
+     NaN beside K4_NAN_PEAKS of its peaks (those no peaks); K18 bit for
      bit on the fit's solutions and on 80 (the heteromer phase's count),
      the kernel alone beside the wrapper, torch.mm of the frame-placed
      occupancy (the counts only) as its library yardstick at both; K16
@@ -172,7 +173,34 @@ Phases, each of which raises (non-zero exit) when it fails:
      the card through run on phase 7's inputs, the map and the subunit
      described afresh, must give phase 7's DescriptorSets and solutions
      bit for bit, and multichip_step(4) on the card at least one
-     solution.
+     solution;
+ 12. the public surface and the regimes: mad_tpu_torch.__all__ must be
+     mad_tpu's list (MAD_TPU_ALL) and every entry point's device
+     keyword-only; the bench map written by write_mrc and by write_sit
+     and read back by read_map(path, 0.0) must land on the card and equal
+     the map (bit for bit from MRC, within SIT_TOL from Situs); ccc_with,
+     ccc_maps_scaled and overlap_fraction against a shifted copy must be
+     finite; build_scale_space of the map must equal iter_octaves' fields
+     bit for bit; build_forward on the prepared base volume must launch
+     K1, K3, K4, K5, K6 and K7 and give describe_grid's base-octave rows,
+     coords and frames bit for bit; functional.setup -> get_descriptors
+     -> match_and_dock on the written files must recover >= 9/10 copies;
+     the stage sanitizer (MAD_TPU_NANCHECK=1) must stay silent on a clean
+     bench fit and, on the 48^3 map with one NaN voxel, match mad_tpu's
+     test (NAN_STAGES) and name exactly the stages the CPU port and
+     mad_tpu name there (NAN_STAGE_LIST), and global mode must name a
+     kernel there;
+     profiling (MAD_TPU_HBM=1) prints one fit's stage table, the same
+     seconds as timing.stage's, with a peak for every stage; then
+     mad_tpu's 20 documented regimes (testing.TOPOLOGY_REGIMES,
+     KNOB_REGIMES, DEGRADATION_LADDER) through the port's runners on the
+     card, each printed with its recovery, distinct solutions, median best
+     CA-RMSD, map shape and seconds, at mad_tpu's own test gates: every
+     topology all copies recovered and claiming distinct solutions, median
+     below half its threshold; every knob regime at least half the copies
+     in solutions, all recovered, median below half its threshold;
+     noise_10pct 3/3 with a median below 2.5 A; the other rungs printed
+     beside PARITY.md section 10's recovery (LADDER_PARITY), not asserted.
 The last three lines are the kernel report (JSON), the nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
@@ -188,6 +216,7 @@ import numpy as np
 
 RES, VOXSP, N_COPIES, N_RES, SPREAD, SEED = 10.0, 1.4, 10, 260, 115.0, 0
 BENCH_MAP_SHAPE = (273, 276, 262)
+T_START = time.perf_counter()   # reset by main()
 RECOVER_RMSD, MIN_RECOVERED = 10.0, 9
 SMALL = dict(n_copies=2, n_res=40, seed=3, spread=14.0, res=8.0, voxsp=2.0)
 SMALL_POSE_TOL = 0.5            # A, best CA-RMSD per copy, card vs CPU
@@ -243,6 +272,7 @@ K4_CUTS = (((1, 2, 3), 0, None, 0), ((5, 9, 67), 0, None, 0),
            ((37, 29, 31), 1, 20, 17), ((64, 65, 63), 3, 50, 0),
            ((291, 294, 279), 5, 200, 40))
 K4_RAGGED_THRESHOLD = -1.0      # every voxel of the LoG a candidate
+K4_NAN_PEAKS = 16               # peaks given a NaN z neighbour
 K18_HETERO_M = 80               # the heteromer phase's solution count
 # K21 on a synthetic table: P rows whose n_use-th key lies inside a run of
 # ties, with zeros of both signs, NaN and -inf ({value: rows}, the rest
@@ -391,7 +421,7 @@ def run_fit(device, timings, cfg, n_copies=N_COPIES, n_res=N_RES,
     coords = np.concatenate([c.coords for c in copies])
     masses = np.concatenate([c.masses for c in copies])
     with stage(timings, "simulate", device):
-        dmap = simulate_density(coords, res, voxsp, device,
+        dmap = simulate_density(coords, res, voxsp, device=device,
                                 masses=masses).reduce_void()
     moved = decoy_transform(sub)
     with stage(timings, "describe_map", device):
@@ -400,6 +430,7 @@ def run_fit(device, timings, cfg, n_copies=N_COPIES, n_res=N_RES,
         sub_set = describe_structure(moved, res, dmap.voxsp, cfg,
                                      name="bench_sub", device=device)
     sols = dock_structure(map_set, sub_set, moved, dmap, res, cfg,
+                          verbose=False,
                           n_copies=n_copies, device=device, timings=timings)
     assembly = None
     if len(sols) >= 2:
@@ -845,7 +876,7 @@ def unreduced_map(device):
     _sub, copies = make_assembly(n_copies=N_COPIES, n_res=N_RES, seed=SEED,
                                  spread=SPREAD, shell=True)
     return simulate_density(
-        np.concatenate([c.coords for c in copies]), RES, VOXSP, device,
+        np.concatenate([c.coords for c in copies]), RES, VOXSP, device=device,
         masses=np.concatenate([c.masses for c in copies]))
 
 
@@ -1348,6 +1379,21 @@ def k4_checks(calls):
     say(f"  K4 at {len(K4_CUTS)} ragged cuts of the map's upsampled LoG "
         "(own rows off a 16-byte boundary, offset form), thresholds "
         f"{thr} and {K4_RAGGED_THRESHOLD}: equal")
+    # NaN next to peaks: reduce_window's and max_pool3d's maximum is NaN
+    # there, so those voxels are no peaks
+    _v, first = peaks.peak_topk(*calls[0])
+    bad = log.clone()
+    flat = bad.view(-1)
+    for i in first[:K4_NAN_PEAKS].tolist():
+        flat[i + 1] = float("nan")
+    args = (bad,) + tuple(calls[0][1:])
+    v1, i1 = peaks.peak_topk(*args)
+    v2, i2 = peaks.peak_topk_plain(*args)
+    check(same_bits(v1, v2) and torch.equal(i1, i2)
+          and not set(first[:K4_NAN_PEAKS].tolist()) & set(i1.tolist()),
+          "K4 differs from the plain version next to NaN voxels")
+    say(f"  K4 with NaN beside the map's first {K4_NAN_PEAKS} peaks: equal, "
+        f"those peaks dropped ({len(first)} -> {len(i1)} peaks)")
     return out
 
 
@@ -2179,9 +2225,9 @@ def assembly_kernel_checks(fit, cfg, device):
     # the map's and the subunit's scatters, as run_fit simulates them
     with recording(simulate, "_simulate_batch") as sims:
         simulate_density(np.concatenate([c.coords for c in fit["copies"]]),
-                         RES, VOXSP, device, masses=np.concatenate(
+                         RES, VOXSP, device=device, masses=np.concatenate(
                              [c.masses for c in fit["copies"]]))
-        simulate_density(fit["moved"], RES, fit["dmap"].voxsp, device,
+        simulate_density(fit["moved"], RES, fit["dmap"].voxsp, device=device,
                          shape_bucket=cfg.shape_bucket)
     cases = [("map", sims[0][:6]), ("subunit", sims[1][:6]),
              ("solutions", scatter_args(sb, sm, cfg.assembly.sim_voxsp,
@@ -2980,7 +3026,8 @@ def dock_mesh_phase(device, cfg, bench, session):
     from mad_tpu_torch.parallel.step import multichip_step
     dock = lambda mesh=None: dock_structure(
         bench["map_set"], bench["sub_set"], bench["moved"], bench["dmap"],
-        RES, cfg, n_copies=N_COPIES, device=device if mesh is None else None,
+        RES, cfg, verbose=False,
+        n_copies=N_COPIES, device=device if mesh is None else None,
         mesh=mesh)
     torch.cuda.reset_peak_memory_stats()
     t_one, ref = median_seconds(dock)
@@ -3043,7 +3090,7 @@ def rescue_args(device, cfg):
                                 spread=SMALL["spread"])
     dmap = simulate_density(
         np.concatenate([c.coords for c in copies]), SMALL["res"],
-        SMALL["voxsp"], device,
+        SMALL["voxsp"], device=device,
         masses=np.concatenate([c.masses for c in copies])).reduce_void()
     moved = decoy_transform(sub)
     m = describe_grid(dmap, rc, name="map", device=device)
@@ -3062,14 +3109,16 @@ def rescue_phase(device, cfg):
     from mad_tpu_torch.parallel.mesh import make_mesh
     from mad_tpu_torch.testing import recording
     args, copies = rescue_args(device, cfg)
-    ref = docking.dock_structure(*args, n_copies=RESCUE["n_copies"],
+    ref = docking.dock_structure(*args, verbose=False,
+                                 n_copies=RESCUE["n_copies"],
                                  device=device)
     for n in DOCK_SHARDS:
         mesh = make_mesh(n, devices=[device] * n)
         reset_launches()
         with recording(docking, "exact_rescore") as rescue, \
                 recording(docking, "cluster_select") as rounds:
-            got = docking.dock_structure(*args, n_copies=RESCUE["n_copies"],
+            got = docking.dock_structure(*args, verbose=False,
+                                         n_copies=RESCUE["n_copies"],
                                          mesh=mesh)
         torch.cuda.synchronize()
         launches = launch_counts()
@@ -3121,7 +3170,8 @@ def dock_shard_checks(device, cfg, bench):
             recording(k16, "post_rows") as rows, \
             recording(k16, "post_dedup") as dedups:
         dock_structure(bench["map_set"], bench["sub_set"], bench["moved"],
-                       bench["dmap"], RES, cfg, n_copies=N_COPIES, mesh=mesh)
+                       bench["dmap"], RES, cfg, verbose=False,
+                       n_copies=N_COPIES, mesh=mesh)
         torch.cuda.synchronize()
 
     # D1: equal keys. Bytes: the shard's cosines read, its head written,
@@ -3281,14 +3331,346 @@ def mesh_session(device, cfg, session):
 # -- main -----------------------------------------------------------------
 
 
+# -- phase 12: the public surface and the regimes ---------------------------
+
+# mad_tpu/__init__.py's __all__ (the card's machine has no JAX to read it)
+MAD_TPU_ALL = [
+    "MaD", "MadConfig", "DensityGrid", "Structure", "DescriptorSet",
+    "Solution", "read_map", "write_mrc", "write_sit", "parse_pdb",
+    "write_pdb", "describe_grid", "describe_structure", "dock_structure",
+    "simulate_density"]
+SIT_TOL = 6e-7          # "%6.6f" rounds to 5e-7, then float32
+FORWARD_KERNELS = ("log_gauss", "gradient", "peak_mask_compact", "localize",
+                   "orient", "descriptor_hist")
+NAN_MAP = dict(n=48, voxel=(20, 20, 20), seed=0, voxsp=2.0)
+NAN_STAGES = r"detect\[o0\].*scalespace\.grad"
+# the stages the port names on the CPU and mad_tpu names there
+# (tests/test_torch_regimes_slow.py)
+NAN_STAGE_LIST = "detect[o0], scalespace.grad[o0], scalespace.grad[o1]"
+# PARITY.md section 10's recovered copies of 3 (mad_tpu) for each rung
+LADDER_PARITY = {"noise_2pct": 3, "noise_5pct": 3, "noise_10pct": 3,
+                 "noise_15pct": 3, "noise_20pct": 3,
+                 "bfactor_blur_1vox": 3, "bfactor_blur_2vox": 3,
+                 "bfactor_blur_3vox": 3, "bfactor_blur_4vox": 1,
+                 "aniso_z_1.5vox": 3, "aniso_z_3vox": 3,
+                 "aniso_z_4.5vox": 2}
+
+
+@contextlib.contextmanager
+def env(name, value):
+    """``os.environ[name]`` set to ``value`` (None: unset) in the block."""
+    import os
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def surface_phase(device, cfg, bench, root):
+    """Phase 12 (the module docstring); returns its seconds."""
+    import os
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "surface")
+    os.makedirs(work)
+    surface_checks(device, cfg, bench, work)
+    sanitizer_checks(device, cfg)
+    profiling_check(device, cfg)
+    regime_checks(device)
+    return time.perf_counter() - t_phase
+
+
+def surface_checks(device, cfg, bench, work):
+    """Exports, map files, grid scoring, build_scale_space, forward and
+    functional on the bench fit's map."""
+    import dataclasses
+    import inspect
+    import os
+    import torch
+    import mad_tpu_torch as M
+    from mad_tpu_torch import functional
+    from mad_tpu_torch.core.grid import (ccc_maps_scaled, overlap_fraction,
+                                         write_sit)
+    from mad_tpu_torch.core.structure import write_pdb
+    from mad_tpu_torch.engine.forward import build_forward
+    from mad_tpu_torch.kernels import launch_counts, reset_launches
+    from mad_tpu_torch.ops.scalespace import (build_scale_space,
+                                              iter_octaves, prepare)
+    from mad_tpu_torch.kernels.gradient import gradient
+
+    check(M.__all__ == MAD_TPU_ALL, f"__all__ is {M.__all__}")
+    for fn in (M.read_map, M.simulate_density, M.describe_grid,
+               M.describe_structure, M.dock_structure, M.MaD.__init__):
+        p = inspect.signature(fn).parameters["device"]
+        check(p.kind == p.KEYWORD_ONLY and p.default is None,
+              f"{fn.__qualname__}: device is not keyword-only")
+    say(f"exports: mad_tpu_torch.__all__ is mad_tpu's {len(M.__all__)} "
+        f"names, version {M.__version__}; device keyword-only")
+
+    # mad_tpu's positional calls, on the card by default: the fit's map and
+    # the subunit's rows again, bit for bit
+    dmap = bench["dmap"]
+    coords = np.concatenate([c.coords for c in bench["copies"]])
+    masses = np.concatenate([c.masses for c in bench["copies"]])
+    again = M.simulate_density(coords, RES, VOXSP, 0.0, 0,
+                               masses).reduce_void()
+    sub_set = M.describe_structure(bench["moved"], RES, dmap.voxsp, cfg,
+                                   0.0, "bench_sub")
+    check(again.device.type == "cuda" and same_bits(again.data, dmap.data)
+          and sub_set.desc.device.type == "cuda"
+          and same_bits(sub_set.desc, bench["sub_set"].desc),
+          "simulate_density / describe_structure with mad_tpu's positions "
+          "and the default device differ from the fit's")
+    say("simulate_density(c, r, v, 0.0, 0, masses) and describe_structure("
+        "s, r, v, cfg, 0.0, name) on the default device: the fit's map and "
+        "subunit rows bit for bit")
+    del again, sub_set
+    t0 = time.perf_counter()
+    paths = {ext: os.path.join(work, f"bench_map{ext}")
+             for ext in (".mrc", ".sit")}
+    M.write_mrc(dmap, paths[".mrc"])
+    t_mrc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_sit(dmap, paths[".sit"])
+    t_sit = time.perf_counter() - t0
+    for ext, path in paths.items():
+        t0 = time.perf_counter()
+        g = M.read_map(path, 0.0)
+        t_read = time.perf_counter() - t0
+        check(g.device.type == "cuda", f"read_map({ext}) on {g.device}")
+        check(g.shape == dmap.shape and np.allclose(g.origin, dmap.origin,
+                                                    atol=1e-6),
+              f"read_map({ext}): {g.shape}, origin {g.origin}")
+        err = float((g.data - dmap.data).abs().max())
+        check(err == 0.0 if ext == ".mrc" else err <= SIT_TOL,
+              f"read_map({ext}) differs from the map by {err:g}")
+        say(f"read_map({ext}, 0.0): {g.shape} on {g.device}, max diff "
+            f"{err:g}; written in {t_mrc if ext == '.mrc' else t_sit:.2f} "
+            f"s, read in {t_read:.2f} s")
+
+    shifted = dataclasses.replace(dmap, origin=dmap.origin
+                                  + np.array([3.0, -2.0, 1.0]) * dmap.voxsp)
+    scores = dict(ccc_with=dmap.ccc_with(shifted),
+                  ccc_maps_scaled=ccc_maps_scaled(dmap, shifted),
+                  overlap_fraction=overlap_fraction(
+                      dmap.data, dmap.origin, shifted.data, shifted.origin,
+                      dmap.voxsp))
+    check(all(np.isfinite(v) and 0.0 < v <= 1.0 for v in scores.values())
+          and dmap.ccc_with(dmap) == 1.0,
+          f"grid scores of the map against its shifted copy: {scores}")
+    say("grid scores against a copy shifted by (3, -2, 1) voxels: "
+        + ", ".join(f"{k} {v:.6f}" for k, v in scores.items()))
+
+    t0 = time.perf_counter()
+    ss = build_scale_space(dmap, cfg.scalespace)
+    torch.cuda.synchronize()
+    t_ss = time.perf_counter() - t0
+    octs = list(iter_octaves(dmap, cfg.scalespace))
+    check(len(ss.octaves) == len(octs), "build_scale_space octave count")
+    for f, (origin, octv) in zip(ss.octaves, octs):
+        log_vol, gauss = octv.log_gauss()
+        check(f.voxsp == octv.voxsp and f.real_shape == octv.real_shape
+              and np.array_equal(ss.origin, origin)
+              and same_bits(f.log, log_vol)
+              and same_bits(f.grad, gradient(gauss, octv.grad_dtype())),
+              f"build_scale_space octave {f.real_shape} differs from "
+              "iter_octaves'")
+        del log_vol, gauss
+    say(f"build_scale_space: {[f.real_shape for f in ss.octaves]} bit for "
+        f"bit with iter_octaves' fields, {t_ss:.3f} s")
+    del ss, octs
+    torch.cuda.empty_cache()
+
+    base, _origin = prepare(dmap, cfg.scalespace)
+    map_set = bench["map_set"]
+    rows = map_set.octave == 1
+    fn = build_forward(tuple(base.shape), cfg, cfg.detect.max_anchors,
+                       cfg.describe.max_descriptors)
+    reset_launches()
+    desc, valid, coords, rfinal = fn(base)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(all(counts[k] > 0 for k in FORWARD_KERNELS),
+          f"forward: a kernel did not launch: {counts}")
+    v = valid.cpu().numpy()
+    check(int(v.sum()) == int(rows.sum())
+          and same_bits(desc[valid], map_set.desc[torch.as_tensor(
+              rows, device=map_set.desc.device)])
+          and np.array_equal(coords[valid].cpu().numpy().astype(np.float32),
+                             map_set.coords[rows])
+          and np.array_equal(rfinal[valid].cpu().numpy(),
+                             map_set.rfinal[rows]),
+          "forward's valid rows differ from describe_grid's base octave")
+    say(f"forward on the prepared base {tuple(base.shape)}: {int(v.sum())} "
+        f"valid of {v.size} lanes, rows, coords and frames bit for bit with "
+        "describe_grid's base octave; launches "
+        + ", ".join(f"{k} {counts[k]}" for k in FORWARD_KERNELS))
+    del base, desc, valid, coords, rfinal
+
+    sub_path = os.path.join(work, "bench_sub.pdb")
+    write_pdb(bench["moved"], sub_path)
+    t0 = time.perf_counter()
+    grid, fcfg = functional.setup(paths[".mrc"], RES, config=cfg)
+    m_set = functional.get_descriptors(grid, RES, grid.voxsp, fcfg,
+                                       name="map")
+    s_set = functional.get_descriptors(sub_path, RES, grid.voxsp, fcfg,
+                                       name="sub")
+    sols = functional.match_and_dock(m_set, s_set, bench["moved"], grid,
+                                     RES, fcfg, n_copies=N_COPIES)
+    torch.cuda.synchronize()
+    t_fn = time.perf_counter() - t0
+    table = functional.benchmark_solutions(sols, bench["copies"])
+    best = table.min(axis=0) if len(sols) else np.full(N_COPIES, np.inf)
+    found = int(np.sum(best < RECOVER_RMSD))
+    rep = functional.get_repeatability(m_set, map_set)
+    check(found >= MIN_RECOVERED,
+          f"functional: {found}/{N_COPIES} copies recovered")
+    say(f"functional setup -> get_descriptors -> match_and_dock: "
+        f"{len(sols)} solutions, {found}/{N_COPIES} recovered, median best "
+        f"CA-RMSD {np.median(best):.3f} A, {t_fn:.2f} s; repeatability of "
+        f"its map anchors against the fit's: {rep}")
+
+
+def nan_map(device):
+    """The 48^3 map with one NaN voxel of
+    tests/test_misc_components.py:197-223."""
+    import torch
+    from mad_tpu_torch.core.grid import DensityGrid
+    n = NAN_MAP["n"]
+    data = np.random.default_rng(NAN_MAP["seed"]).random(
+        (n, n, n)).astype(np.float32)
+    data[NAN_MAP["voxel"]] = np.nan
+    return DensityGrid(torch.as_tensor(data, device=device), np.zeros(3),
+                       NAN_MAP["voxsp"])
+
+
+def sanitizer_checks(device, cfg):
+    """Stage mode silent on a clean bench fit and naming the stages on the
+    NaN map; global mode naming the kernel."""
+    import re
+    from mad_tpu_torch.core.config import MadConfig
+    from mad_tpu_torch.engine.pipeline import describe_grid
+    from mad_tpu_torch.utils import sanitize
+    with env("MAD_TPU_NANCHECK", "1"):
+        sanitize.clear()
+        t0 = time.perf_counter()
+        fit = run_fit(device, None, cfg)
+        sanitize.flush()
+        t_fit = time.perf_counter() - t0
+        check(fit["sols"], "stage mode: the clean fit gave no solution")
+        try:
+            describe_grid(nan_map(device), MadConfig(), name="bad")
+            msg = None
+        except FloatingPointError as e:
+            msg = str(e)
+        finally:
+            sanitize.clear()
+    check(msg is not None and re.search(NAN_STAGES, msg)
+          and f"stage(s): {NAN_STAGE_LIST} (" in msg,
+          f"stage mode on the NaN map: {msg}")
+    say(f"sanitizer stage mode: the clean bench fit silent ({t_fit:.2f} s); "
+        f"the NaN map: {msg}")
+    sanitize.set_nan_checks(True)
+    try:
+        describe_grid(nan_map(device), MadConfig(), name="bad")
+        msg = None
+    except FloatingPointError as e:
+        msg = str(e)
+    finally:
+        sanitize.set_nan_checks(False)
+    check(msg is not None and "after kernel mad_" in msg,
+          f"global mode on the NaN map: {msg}")
+    say(f"sanitizer global mode, the NaN map: {msg}")
+
+
+def profiling_check(device, cfg):
+    """One fit's stage table with per-stage peaks (MAD_TPU_HBM=1)."""
+    from mad_tpu_torch.utils import profiling
+    profiling.show_timing(reset=True)
+    timings = {}
+    with env("MAD_TPU_HBM", "1"):
+        run_fit(device, timings, cfg)
+    table = profiling.show_timing(reset=False)
+    peaks = profiling.hbm_peaks()
+    check(set(table) == set(timings) and all(
+        table[k] == timings[k] for k in timings),
+        f"profiling and timing.stage disagree: {table} / {timings}")
+    check(set(peaks) == set(timings) and all(v > 0 for v in peaks.values()),
+          f"MAD_TPU_HBM=1 kept no peak for a stage: {peaks}")
+    profiling.show_timing(reset=True)
+
+
+def regime_line(kind, r, dt, parity=None):
+    good = [x for x in r["rmsds"] if np.isfinite(x)]
+    med = float(np.median(good)) if good else float("inf")
+    distinct = r.get("distinct_claimed", "-")
+    say(f"  {kind} {r['name']}: recovered {r['recovered']}/{r['n_copies']}, "
+        f"distinct {distinct}, {r['n_solutions']} solutions, median best "
+        f"CA-RMSD {med:.3f} A, map {r['map_shape']}, {dt:.2f} s"
+        + (f" (PARITY.md: {parity}/3)" if parity is not None else ""))
+
+
+def regime_checks(device):
+    """mad_tpu's 20 documented regimes through the port on the card, at
+    mad_tpu's own test gates."""
+    import torch
+    from mad_tpu_torch import testing as T
+    misses = []
+    t_all = time.perf_counter()
+    for reg in T.TOPOLOGY_REGIMES:
+        t0 = time.perf_counter()
+        r = T.run_topology(reg, device=device)
+        torch.cuda.synchronize()
+        regime_line("topology", r, time.perf_counter() - t0)
+        good = [x for x in r["rmsds"] if x < r["threshold"]]
+        check(r["recovered"] == r["n_copies"] == r["distinct_claimed"]
+              and np.median(good) < r["threshold"] / 2.0,
+              f"topology {r['name']} misses mad_tpu's gate: {r}")
+    for reg in T.KNOB_REGIMES:
+        t0 = time.perf_counter()
+        r = T.run_knob_regime(reg, device=device)
+        torch.cuda.synchronize()
+        regime_line("knobs", r, time.perf_counter() - t0)
+        good = [x for x in r["rmsds"] if x < r["threshold"]]
+        check(r["n_solutions"] >= r["n_copies"] // 2
+              and r["recovered"] == r["n_copies"]
+              and np.median(good) < r["threshold"] / 2.0,
+              f"knob regime {r['name']} misses mad_tpu's gate: {r}")
+    for point in T.DEGRADATION_LADDER:
+        t0 = time.perf_counter()
+        r = T.run_degraded(point, device=device)
+        torch.cuda.synchronize()
+        parity = LADDER_PARITY[point["name"]]
+        regime_line("ladder", r, time.perf_counter() - t0, parity)
+        if point["name"] == "noise_10pct":
+            good = [x for x in r["rmsds"] if x < 5.0]
+            check(r["recovered"] == 3 and np.median(good) < 2.5,
+                  f"noise_10pct misses mad_tpu's gate: {r}")
+        elif r["recovered"] < parity:
+            misses.append(point["name"])
+    n = (len(T.TOPOLOGY_REGIMES) + len(T.KNOB_REGIMES)
+         + len(T.DEGRADATION_LADDER))
+    say(f"regimes: {n} in {time.perf_counter() - t_all:.2f} s; rungs below "
+        f"PARITY.md's recovery: {misses or 'none'}")
+
+
 def main():
+    global T_START
     import tempfile
+    T_START = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="mad_smoke_") as work:
         phases(work)
 
 
 def phases(work):
-    """Phases 1-11 (the module docstring); ``work`` is a scratch directory
+    """Phases 1-12 (the module docstring); ``work`` is a scratch directory
     for the sessions' workdirs."""
     import torch
     import mad_tpu_torch  # noqa: F401  (the port must be beside the script)
@@ -3419,7 +3801,8 @@ def phases(work):
         f"max diff {e_ccc:g})")
     del a, p
     session = session_phase(device, cfg, fit, work)
-    bench = {k: fit[k] for k in ("map_set", "sub_set", "moved", "dmap")}
+    bench = {k: fit[k] for k in ("map_set", "sub_set", "moved", "dmap",
+                                 "copies")}
     dmap = fit["dmap"]
     del fit
     torch.cuda.empty_cache()
@@ -3430,6 +3813,11 @@ def phases(work):
     dock, mesh_counts = dock_mesh_phase(device, cfg, bench, session)
     counts.update({k: mesh_counts[k] for k in MESH_ONLY})
     checks["pair_merge"] = dock.pop("pair_merge")
+    before = time.perf_counter() - T_START
+    t12 = surface_phase(device, cfg, bench, work)
+    say(f"phases 1-11: {before:.2f} s; phase 12 (public surface and "
+        f"regimes): {t12:.2f} s; the script so far "
+        f"{time.perf_counter() - T_START:.2f} s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

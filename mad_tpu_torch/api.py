@@ -59,7 +59,7 @@ class MaD:
     """Session object mirroring the reference's user API."""
 
     def __init__(self, workdir: str = ".", config: Optional[MadConfig] = None,
-                 device=None, mesh=None):
+                 mesh=None, *, device=None):
         """device: where the pipeline runs; None means the card ("cuda"),
         and raises on a machine without one. mesh: None (one device),
         "auto" (a mesh over all cards, None below two) or a
@@ -458,7 +458,8 @@ class MaD:
 
         ext = os.path.splitext(self.input_map)[-1].lower()
         if ext in (".sit", ".situs", ".mrc", ".map"):
-            g = read_map(self.input_map, self.device, isovalue=self.isovalue)
+            g = read_map(self.input_map, isovalue=self.isovalue,
+                         device=self.device)
             g = g.reduce_void()
             self.voxsp = g.voxsp
             self.processed_map = os.path.join(init_path,
@@ -472,7 +473,7 @@ class MaD:
             self.voxsp = 1.2
             struct = parse_pdb(self.input_map)
             g = simulate_density(struct, self.resolution, self.voxsp,
-                                 self.device,
+                                 device=self.device,
                                  shape_bucket=self.config.shape_bucket)
             self.processed_map = os.path.join(
                 init_path, f"{self.map_name}_simulated_map.mrc")

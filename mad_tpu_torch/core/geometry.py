@@ -1,5 +1,6 @@
 """Rotation / rigid-transform primitives on torch tensors, batched over
-leading dimensions (port of mad_tpu/core/geometry.py).
+leading dimensions (port of mad_tpu/core/geometry.py); ``kabsch_np`` is a
+numpy copy of the original.
 
 Elementwise arithmetic follows the JAX originals term for term, so the
 same float32 inputs round the same way on the CPU.
@@ -10,6 +11,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..device import resolve
 
 
 def norm3(v: torch.Tensor) -> torch.Tensor:
@@ -62,6 +65,75 @@ def rotation_about_z(angle: torch.Tensor) -> torch.Tensor:
                     device=angle.device)
     z[..., 2] = 1.0
     return axis_angle_mat(z, angle)
+
+
+def kabsch(mobile: torch.Tensor, reference: torch.Tensor):
+    """Optimal rigid transform: returns (R, T) with reference ~ mobile @ R + T.
+
+    Matches the application convention of mad/math_utils.py:29-53
+    (``T = av2 - av1 @ R``, points transform as ``x @ R + T``).
+    Batched over leading dims.
+    """
+    av1 = torch.mean(mobile, dim=-2, keepdim=True)
+    av2 = torch.mean(reference, dim=-2, keepdim=True)
+    m = mobile - av1
+    r = reference - av2
+    a = m.transpose(-1, -2) @ r
+    u, _, vt = torch.linalg.svd(a)
+    det = torch.linalg.det(vt.transpose(-1, -2) @ u.transpose(-1, -2))
+    flip = torch.stack([torch.ones_like(det), torch.ones_like(det), det],
+                       dim=-1)[..., :, None]
+    vt = vt * flip
+    R = (vt.transpose(-1, -2) @ u.transpose(-1, -2)).transpose(-1, -2)
+    T = av2[..., 0, :] - (av1 @ R)[..., 0, :]
+    return R, T
+
+
+def kabsch_np(mobile: "np.ndarray", reference: "np.ndarray"):
+    """Copied from mad_tpu/core/geometry.py (``kabsch_np``, numpy): the
+    host twin of :func:`kabsch` (same convention)."""
+    import numpy as np
+    av1 = np.mean(mobile, axis=-2, keepdims=True)
+    av2 = np.mean(reference, axis=-2, keepdims=True)
+    m = mobile - av1
+    r = reference - av2
+    a = np.swapaxes(m, -1, -2) @ r
+    u, _, vt = np.linalg.svd(a)
+    det = np.linalg.det(np.swapaxes(vt, -1, -2) @ np.swapaxes(u, -1, -2))
+    flip = np.stack(
+        [np.ones_like(det), np.ones_like(det), det], axis=-1
+    )[..., :, None]
+    vt = vt * flip
+    R = np.swapaxes(np.swapaxes(vt, -1, -2) @ np.swapaxes(u, -1, -2), -1, -2)
+    T = av2[..., 0, :] - (av1 @ R)[..., 0, :]
+    return R, T
+
+
+def rmsd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """All-atom RMSD along the last two axes (parity mad/PDB.py:115-117)."""
+    d = torch.sum(torch.square(a - b), dim=(-1, -2)) / a.shape[-2]
+    return torch.sqrt(d)
+
+
+def random_rotation(generator: torch.Generator, device=None
+                    ) -> torch.Tensor:
+    """Uniform random rotation matrix (for tests / decoy transforms), from
+    a unit quaternion of four normal draws of ``generator``, on ``device``
+    (the card unless named). mad_tpu draws from a ``jax.random`` key, so
+    the two never give the same matrix for a seed."""
+    q = torch.randn(4, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    q = q / torch.linalg.norm(q)
+    w, x, y, z = q
+    R = torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                     2 * (x * z + y * w)]),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - x * w)]),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w),
+                     1 - 2 * (x * x + y * y)]),
+    ])
+    return R.to(resolve(device))
 
 
 def apply_rigid(coords: torch.Tensor, R: torch.Tensor, T: torch.Tensor

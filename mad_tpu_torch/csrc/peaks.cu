@@ -3,7 +3,9 @@
 // Replaces mad_tpu/ops/detect.py:48-52 and 190-212 (_maxpool3 and the
 // is_peak / top_k part of detect_counts): a voxel is a peak when it
 //   * equals the maximum of its 3x3x3 neighbourhood (the neighbourhood is
-//     clipped at the volume edge, as reduce_window's -inf SAME padding),
+//     clipped at the volume edge, as reduce_window's -inf SAME padding; a
+//     NaN in it makes that maximum NaN, as in reduce_window and
+//     max_pool3d, so the voxel is no peak: fmaxf alone would skip it),
 //   * is above threshold,
 //   * lies at least `border` voxels inside the real extent (rx, ry, rz).
 // Each peak is appended as one 64-bit key: the high 32 bits order the
@@ -213,9 +215,13 @@ __global__ void __launch_bounds__(kThreads)
       }
       v = w[13];
       float m = v;
+      bool nan = false;
 #pragma unroll
-      for (int k = 0; k < 27; ++k) m = fmaxf(m, w[k]);
-      peak = v >= m;
+      for (int k = 0; k < 27; ++k) {
+        m = fmaxf(m, w[k]);
+        nan |= w[k] != w[k];
+      }
+      peak = !nan && v >= m;   // reduce_window's max is NaN there
     }
     const unsigned ballot = __ballot_sync(0xffffffffu, peak);
     if (!ballot) continue;

@@ -3,7 +3,8 @@
 Synthetic end-to-end demo session, mirroring the reference's canonical
 usage script (run_MaD.py): build a synthetic trimer map, decoy-transform the
 subunit, dock it back and build assembly models. The repo-root
-``run_mad_tpu_torch.py`` delegates here.
+``run_mad_tpu_torch.py`` delegates here, and so does the console entry
+``mad-tpu-torch-demo``.
 """
 
 import os
@@ -14,11 +15,8 @@ import numpy as np
 
 def main(workdir=None, device=None):
     """device: None runs on the card ("cuda") and raises without one."""
-    from mad_tpu_torch.api import MaD
-    from mad_tpu_torch.core.grid import write_mrc
-    from mad_tpu_torch.core.structure import write_pdb
+    from mad_tpu_torch import MaD, simulate_density, write_mrc, write_pdb
     from mad_tpu_torch.device import resolve
-    from mad_tpu_torch.ops.simulate import simulate_density
     from mad_tpu_torch.testing import make_assembly
 
     device = resolve(device)
@@ -28,7 +26,7 @@ def main(workdir=None, device=None):
     sub, copies = make_assembly(n_copies=3, n_res=80, seed=0, spread=24.0)
     coords = np.concatenate([c.coords for c in copies])
     masses = np.concatenate([c.masses for c in copies])
-    dmap = simulate_density(coords, 8.0, 2.0, device, masses=masses)
+    dmap = simulate_density(coords, 8.0, 2.0, device=device, masses=masses)
     map_path = os.path.join(workdir, "trimer_map.mrc")
     sub_path = os.path.join(workdir, "trimer_subunit.pdb")
     write_mrc(dmap, map_path)

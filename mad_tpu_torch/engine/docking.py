@@ -33,7 +33,9 @@ import torch
 from ..core.config import FilterConfig, MadConfig
 from ..core.grid import DensityGrid
 from ..core.structure import Structure
+from ..device import resolve
 from ..timing import stage
+from ..utils import sanitize
 from ..kernels.cluster import cluster_select, gate_threshold, split_selection
 from ..kernels.post import post, split_post
 from ..parallel.mesh import Mesh, run_device
@@ -208,11 +210,10 @@ def _finalize_solutions(solutions: List[Solution], sub_struct: Structure,
 def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
                    sub_struct: Structure, dmap: DensityGrid,
                    resolution: float, cfg: MadConfig, n_copies: int = 1,
-                   verbose: bool = False, device=None,
-                   timings: Optional[dict] = None,
-                   on_filtered=None,
-                   mesh: Optional[Mesh] = None) -> List[Solution]:
-    """Dock one subunit into the map on ``device`` (default: the map's);
+                   verbose: bool = True, *, on_filtered=None,
+                   mesh: Optional[Mesh] = None, device=None,
+                   timings: Optional[dict] = None) -> List[Solution]:
+    """Dock one subunit into the map on ``device`` (the card unless named);
     returns scored unique solutions, best first. ``timings``: optional
     dict that collects seconds per stage (match, cluster, refine, post,
     score).
@@ -221,7 +222,8 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
     mad/MaD.py:404-405, 891-921).
     ``mesh``: shard the dock over it (module docstring); ``device`` is
     then its home device (naming another raises)."""
-    device = run_device(mesh, device, dmap.device)
+    device = (run_device(mesh, device) if mesh is not None
+              else resolve(device))
     n_samples = cfg.filter.n_samples * n_copies
     with stage(timings, "match", device):
         # Clustering consumes the top n_samples pairs by repeatability;
@@ -266,6 +268,7 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
         with stage(timings, "match", device):
             erep = exact_rescore(table, top, cfg.match.anchor_dist, device,
                                  mesh)
+            sanitize.check_host("match.repeat", erep)
         order = np.argsort(-erep, kind="stable")
         sub_table = table.take(top[order], repeat=erep[order])
         with stage(timings, "cluster", device):

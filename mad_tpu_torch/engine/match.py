@@ -49,6 +49,7 @@ from ..kernels.repeat import exact_repeat
 from ..kernels.select_exact import select_exact
 from ..parallel.mesh import (Mesh, map_rows, replicate, run_device,
                              shard_bounds)
+from ..utils import sanitize
 from .pipeline import DescriptorSet
 
 
@@ -125,6 +126,7 @@ def match_pairs(map_set: DescriptorSet, sub_set: DescriptorSet,
                              mesh)
     ccs, rows, cols = split_pair_keys(keys.cpu().numpy(),
                                       map_set.desc_norm.shape[0])
+    sanitize.check_host("match.similarity", ccs)
     if len(rows) == 0:
         return None
     hi_cloud = np.unique(sub_set.subv_coords[rows], axis=0)
@@ -211,6 +213,7 @@ def match_descriptors(map_set: DescriptorSet, sub_set: DescriptorSet,
         rep[top] = erep
     else:
         rep = rep_d.cpu().numpy()
+    sanitize.check_host("match.repeat", rep)
     order = np.argsort(-rep, kind="stable")
     return MatchTable(
         cc=ccs[order], repeat=rep[order], hi_idx=rows[order],

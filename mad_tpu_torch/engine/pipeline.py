@@ -30,6 +30,7 @@ import torch
 from ..core.config import MadConfig
 from ..core.grid import DensityGrid
 from ..core.structure import Structure
+from ..device import resolve
 from ..kernels.gather_norm import gather_norm
 from ..ops.describe import describe_anchors
 from ..ops.detect import detect_anchors
@@ -38,6 +39,7 @@ from ..ops.scalespace import gradient, iter_octaves
 from ..ops.simulate import simulate_density
 from ..parallel.mesh import run_device
 from ..parallel.volume import sharded_gradient
+from ..utils import sanitize
 
 
 @dataclass
@@ -68,6 +70,13 @@ class DescriptorSet:
     def n(self) -> int:
         return self.desc.shape[0]
 
+    def unique_anchor_coords(self, rows: Optional[np.ndarray] = None
+                             ) -> np.ndarray:
+        """Unique subvoxel anchor coordinates (sorted, np.unique parity with
+        mad/MaD.py:427-428)."""
+        c = self.subv_coords if rows is None else self.subv_coords[rows]
+        return np.unique(c, axis=0)
+
 
 @dataclass
 class OctaveLanes:
@@ -93,17 +102,30 @@ def grad_halo(cfg: MadConfig, upsampled: bool) -> int:
                for c in (cfg.orient, cfg.describe)) * stride * 2
 
 
+def octave_index(octv) -> int:
+    """The octave's place in ``iter_octaves``' order (the upsampled one
+    first), as the stage sanitizer names it."""
+    return int(not octv.upsampled and octv.cfg.oct_mode == "both")
+
+
 def octave_lanes(octv, cfg: MadConfig, mesh=None) -> OctaveLanes:
-    """LoG -> anchors (K4 + K5) -> gradient field (K3) -> orientation."""
-    real = octv.real_shape
+    """LoG -> anchors (K4 + K5) -> gradient field (K3) -> orientation;
+    the stage sanitizer watches each stage (mad_tpu's names,
+    engine/pipeline.py:321-401)."""
+    real, oi = octv.real_shape, octave_index(octv)
     log_vol, gauss = octv.log_gauss()
+    if mesh is not None:
+        sanitize.watch(f"scalespace.log[o{oi}]", log_vol)
     anch = detect_anchors(log_vol, real, cfg.detect, mesh)
+    sanitize.watch(f"detect[o{oi}]", anch.subvox)
     del log_vol
     if mesh is None:
         grad = gradient(gauss, octv.grad_dtype())
+        sanitize.watch(f"scalespace.grad[o{oi}]", grad)
     else:
         grad = sharded_gradient(gauss, octv.grad_dtype(), mesh,
                                 grad_halo(cfg, octv.upsampled))
+        sanitize.watch("scalespace.grad[mesh]", grad)
     del gauss
     vidx = torch.nonzero(anch.valid).reshape(-1)     # slots of valid anchors
     coords_v = anch.coords[vidx]
@@ -111,6 +133,7 @@ def octave_lanes(octv, cfg: MadConfig, mesh=None) -> OctaveLanes:
         grad, coords_v, torch.ones_like(vidx, dtype=torch.bool), real,
         octv.upsampled, cfg.orient, mesh=mesh)
     M, S = cfg.orient.max_main, cfg.orient.max_sec
+    sanitize.watch(f"orient[o{oi}]", rfin)
     lanes = torch.nonzero(ok.reshape(-1)).reshape(-1)  # (anchor, main, sec)
     la, lm, ls = lanes // (M * S), (lanes // S) % M, lanes % S
     return OctaveLanes(grad=grad, coords=coords_v[la],
@@ -129,6 +152,7 @@ def _describe_octave(octv, cfg: MadConfig, mesh=None):
         torch.ones(lanes.coords.shape[0], dtype=torch.bool,
                    device=lanes.coords.device),
         octv.real_shape, octv.upsampled, cfg.describe, mesh)
+    sanitize.watch(f"describe[o{octave_index(octv)}]", descs)
     keep = torch.nonzero(dok).reshape(-1)[: cfg.describe.max_descriptors]
     host = {k: getattr(lanes, k)[keep].cpu().numpy()
             for k in ("coords", "rfinal", "slot", "subvox", "main", "sec")}
@@ -136,7 +160,7 @@ def _describe_octave(octv, cfg: MadConfig, mesh=None):
 
 
 def describe_grid(grid: DensityGrid, cfg: MadConfig, name: str = "",
-                  device=None, mesh=None) -> DescriptorSet:
+                  mesh=None, *, device=None) -> DescriptorSet:
     """Anchor / orientation / descriptor chain of a density grid, run on
     ``device`` (default: the grid's own device); with a mesh
     (``parallel.mesh.make_mesh``), in capacity mode over its shards, the
@@ -163,6 +187,7 @@ def describe_grid(grid: DensityGrid, cfg: MadConfig, name: str = "",
             main_bin=h["main"].astype(np.int32),
             sec_bin=h["sec"].astype(np.int32),
         ))
+    sanitize.flush()        # stage-mode NaN checks drain in one pull
     cat = {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
     desc, desc_norm = gather_norm(tables, keeps)
     return DescriptorSet(
@@ -174,11 +199,13 @@ def describe_grid(grid: DensityGrid, cfg: MadConfig, name: str = "",
 
 def describe_structure(struct: Structure, resolution: float, voxsp: float,
                        cfg: MadConfig, isovalue: float = 0.0, name: str = "",
-                       *, device, mesh=None) -> DescriptorSet:
+                       mesh=None, *, device=None) -> DescriptorSet:
     """PDB path of the describe pipeline: simulate the density on
-    ``device`` first (parity: MapSpace PDB_mode, mad/MapSpace.py:73-75);
-    with a mesh, described in capacity mode (``device`` its first device)."""
-    grid = simulate_density(struct, resolution, voxsp, device,
+    ``device`` first (parity: MapSpace PDB_mode, mad/MapSpace.py:73-75),
+    the card unless named; with a mesh, described in capacity mode
+    (``device`` its first device)."""
+    device = run_device(mesh, device) if mesh is not None else resolve(device)
+    grid = simulate_density(struct, resolution, voxsp, device=device,
                             isovalue=isovalue, shape_bucket=cfg.shape_bucket)
     return describe_grid(grid, cfg, name=name or struct.source, device=device,
                          mesh=mesh)

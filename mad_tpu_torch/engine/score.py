@@ -15,6 +15,7 @@ import torch
 from ..core.grid import DensityGrid
 from ..kernels import ccc as k17
 from ..ops.simulate import batched_simulate
+from ..utils import sanitize
 
 
 def batched_ccc(dmap: DensityGrid, model_grids: torch.Tensor,
@@ -24,8 +25,10 @@ def batched_ccc(dmap: DensityGrid, model_grids: torch.Tensor,
     starts = np.rint(
         (model_origins - np.asarray(dmap.origin)) / dmap.voxsp).astype(int)
     dev = model_grids.device
-    return k17.batched_ccc(dmap.data.to(dev), model_grids, torch.as_tensor(
+    out = k17.batched_ccc(dmap.data.to(dev), model_grids, torch.as_tensor(
         starts, dtype=torch.int32, device=dev)).cpu().numpy()
+    sanitize.check_host("score.ccc", out)
+    return out
 
 
 def ccc_structures(dmap: DensityGrid, coords: np.ndarray, masses: np.ndarray,

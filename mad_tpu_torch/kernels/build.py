@@ -12,7 +12,9 @@ kernel wrapper triggers the build, and a failed build raises.
 Every exported function launches on the stream it is given and returns
 ``cudaGetLastError()`` after the launch; the wrappers call it through
 :func:`launch`, which makes the inputs' card current around the call and
-raises on a non-zero code.
+raises on a non-zero code; in the sanitizer's global mode
+(``MAD_TPU_NANCHECK=global``) it also synchronizes and checks the
+launch's floating tensors (``utils/sanitize.check_launch``).
 """
 
 from __future__ import annotations
@@ -23,9 +25,12 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
+
+from ..utils import sanitize
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 SMEM_LIMIT = 232448     # bytes of shared memory a block may use (sm_90)
@@ -212,6 +217,29 @@ def launch(fn, device, *args) -> None:
         msg = _lib.mad_error_string(code).decode()
         raise RuntimeError(f"{fn.__name__}: CUDA launch failed: {msg} "
                            f"({code})")
+    if sanitize.mode() == "global":
+        sanitize.check_launch(fn.__name__, device,
+                              _given(args, sys._getframe(1).f_locals))
+
+
+def _given(args, scope) -> list:
+    """The tensors of the calling wrapper's ``scope`` whose data the
+    launch's ``args`` point at (the wrappers pass ``data_ptr()`` ints)."""
+    import torch
+    ptrs = {a for a in args if isinstance(a, int) and a}
+    seen, out = set(), []
+
+    def visit(v):
+        if isinstance(v, (list, tuple)):
+            for x in v:
+                visit(x)
+        elif (isinstance(v, torch.Tensor) and v.is_cuda
+              and v.data_ptr() in ptrs and id(v) not in seen):
+            seen.add(id(v))
+            out.append(v)
+    for v in scope.values():
+        visit(v)
+    return out
 
 
 def require_cuda(name: str, *tensors) -> None:

@@ -24,7 +24,7 @@ extended by the rows orientation and the descriptors read
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +32,7 @@ import torch
 from ..core.config import ScaleSpaceConfig
 from ..core.grid import DensityGrid
 from ..kernels.crop_pad import crop_pad
-from ..kernels.gradient import gradient  # noqa: F401  (K3, the octave field)
+from ..kernels.gradient import gradient  # K3, the octave field
 from ..parallel.mesh import Mesh, mesh_size
 from ..parallel.volume import (filter_radius, map_slabs, row_bounds,
                                split_x, up_bounds)
@@ -136,6 +136,43 @@ class ShardedOctave:
 
     def grad_dtype(self):
         return _grad_dtype(self.real_shape, mesh_size(self.mesh))
+
+
+@dataclass
+class OctaveFields:
+    """One materialized octave, mad_tpu's ``Octave`` fields
+    (mad_tpu/ops/scalespace.py:29-36) at the real size (no bucket
+    padding)."""
+
+    voxsp: float
+    log: torch.Tensor         # (X, Y, Z) clamped -sigma^2 * LoG
+    grad: torch.Tensor        # (X, Y, Z, 3) gradient of the smoothed grid
+    real_shape: Tuple[int, int, int]
+
+
+@dataclass
+class ScaleSpace:
+    octaves: List[OctaveFields]
+    origin: np.ndarray        # shared map origin (A) after padding
+    name: str = ""
+
+
+def build_scale_space(grid: DensityGrid, cfg: ScaleSpaceConfig,
+                      shape_bucket: int = 32) -> ScaleSpace:
+    """All octaves of a density grid resident at once (mad_tpu's
+    ``build_scale_space``, :376-384), over :func:`iter_octaves`: each
+    octave's LoG (K2, K1) and gradient field (K3), on the grid's device.
+    ``shape_bucket`` is accepted and ignored: the port works at the real
+    size, where mad_tpu pads each octave to a multiple of it."""
+    octaves = []
+    origin = grid.origin
+    for origin, octv in iter_octaves(grid, cfg):
+        log_vol, gauss = octv.log_gauss()
+        grad = gradient(gauss, octv.grad_dtype())
+        del gauss
+        octaves.append(OctaveFields(octv.voxsp, log_vol, grad,
+                                    octv.real_shape))
+    return ScaleSpace(octaves=octaves, origin=origin, name=grid.name)
 
 
 def prepare(grid: DensityGrid, cfg: ScaleSpaceConfig):

@@ -28,6 +28,7 @@ import torch
 from ..core.config import bucket
 from ..core.grid import DensityGrid
 from ..core.structure import Structure
+from ..device import resolve
 from ..kernels import conv1d, maxkey, scatter
 from .convolve import separable_conv3d
 
@@ -132,11 +133,12 @@ def _simulate_batch(coords: torch.Tensor, masses: torch.Tensor,
 
 
 def simulate_density(struct_or_coords, resolution: float, voxsp: float,
-                     device, isovalue: float = 0.0, pad: int = 0,
+                     isovalue: float = 0.0, pad: int = 0,
                      masses: np.ndarray = None, shape_bucket: int = 16,
-                     name: str = "") -> DensityGrid:
+                     name: str = "", *, device=None) -> DensityGrid:
     """Simulate a density map from a structure at (resolution, voxsp), on
-    ``device``."""
+    ``device`` (``device.resolve``: the card unless named)."""
+    device = resolve(device)
     if isinstance(struct_or_coords, Structure):
         coords = struct_or_coords.coords
         masses = struct_or_coords.masses

@@ -40,9 +40,9 @@ def multichip_step(n_devices: int, devices=None, n_res: int = 40,
                                 spread=14.0)
     coords = np.concatenate([c.coords for c in copies])
     masses = np.concatenate([c.masses for c in copies])
-    dmap = simulate_density(coords, resolution, voxsp, mesh.home,
+    dmap = simulate_density(coords, resolution, voxsp, device=mesh.home,
                             masses=masses, shape_bucket=cfg.shape_bucket)
-    sub_grid = simulate_density(sub, resolution, voxsp, mesh.home,
+    sub_grid = simulate_density(sub, resolution, voxsp, device=mesh.home,
                                 shape_bucket=cfg.shape_bucket)
     map_dsc = describe_grid(dmap, cfg, name="map", mesh=mesh)
     sub_dsc = describe_grid(sub_grid, cfg, name="sub", mesh=mesh)

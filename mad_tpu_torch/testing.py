@@ -10,15 +10,25 @@ synthetic match table for the pose clustering; ``post_scenario`` and
 ``post_round``, two docking rounds of refined lanes for the post-refine
 merge; and ``recording``, which collects the inputs a call site on the
 path gives a kernel.
+
+The scenario helpers (``deform_structure``, ``make_symmetric_assembly``,
+``degrade_map`` and the regime tables) are copied from
+mad_tpu/testing.py:115-426; the runners ``run_degraded``, ``run_topology``
+and ``run_knob_regime`` take mad_tpu's parameters and a keyword-only
+``device`` and run the port's pipeline there.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
+import torch
 
+from .core.config import MadConfig
 from .core.structure import ATOMIC_MASS, Structure
+from .device import resolve
 
 # Ideal helix parameters: rise 1.5 A / residue, 100 deg twist, radius 2.3 A.
 _HELIX_RISE = 1.5
@@ -134,6 +144,307 @@ def decoy_transform(struct: Structure, t=(150.0, 0.0, 0.0), a=0.375,
     coords = coords @ _np_axis_angle_mat([0.0, 0, 1], c)
     coords = coords - coords.mean(axis=0) + np.asarray(t)
     return struct.with_coords(coords)
+
+
+# -- scenario helpers (copied from mad_tpu/testing.py:115-426; the runners
+# run the port's pipeline on ``device``) -------------------------------------
+
+def deform_structure(struct, scale: float, seed: int):
+    """Smooth low-frequency deformation (bend-like), magnitude ~scale A —
+    the decoy-conformer model for ensemble tests/benches (the analog of
+    the reference's GroEL conformer ladder, mad_utils.py:297)."""
+    rng = np.random.default_rng(seed)
+    c = struct.coords - struct.center()
+    ext = np.abs(c).max()
+    phase = rng.uniform(0, 2 * np.pi, 3)
+    disp = np.stack([
+        np.sin(c[:, 1] / ext * np.pi + phase[0]),
+        np.sin(c[:, 2] / ext * np.pi + phase[1]),
+        np.sin(c[:, 0] / ext * np.pi + phase[2]),
+    ], axis=1) * scale
+    return struct.with_coords(struct.coords + disp)
+
+
+def _rot_z(angle: float) -> np.ndarray:
+    c, s = np.cos(angle), np.sin(angle)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+_ROT_X_PI = np.diag([1.0, -1.0, -1.0])
+
+
+def make_symmetric_assembly(kind: str, n: int, n_res: int = 120,
+                            seed: int = 0, radius: float = 26.0,
+                            ring_dz: float = 20.0, rise: float = 28.0,
+                            twist: float = np.deg2rad(166.0)):
+    """Assembly with TRUE symmetry-related copy orientations.
+
+    Unlike make_assembly (random per-copy rotations), every copy here is a
+    symmetry operation applied to the same placed subunit, so the local
+    density environments of symmetry-related copies are near-identical:
+    descriptor matches are degenerate across copies and pose clustering
+    must disambiguate aliased poses — the reference's flagship regime
+    (VAT C6 hexamer, the reference's run_MaD.py:24-27, GroEL D7 double ring
+    notebook cells 24-27, actin:tropomyosin helical filament x5
+    run_MaD.py:29-33).
+
+    kind: 'cn'    — n copies on a Cn ring about z (copy_i = Rz(2*pi*i/n));
+          'dn'    — 2n copies, Dn: a Cn ring at z=+ring_dz/2 plus its
+                    image under the perpendicular C2 (Rx(pi));
+          'helix' — n copies along a helical lattice
+                    (copy_i = Rz(i*twist) + [0, 0, i*rise]).
+    Returns (subunit, copies); the subunit is centered at the origin.
+    """
+    sub = make_protein(n_res=n_res, seed=seed)
+    sub = sub.with_coords(sub.coords - sub.center())
+    off = np.array([radius, 0.0, 0.0])
+    copies = []
+    if kind == "cn":
+        for i in range(n):
+            M = _rot_z(2.0 * np.pi * i / n)
+            copies.append(sub.transformed(M.T, M @ off))
+    elif kind == "dn":
+        up = np.array([0.0, 0.0, ring_dz / 2.0])
+        for i in range(n):
+            M = _rot_z(2.0 * np.pi * i / n)
+            copies.append(sub.transformed(M.T, M @ (off + up)))
+        for i in range(n):
+            # Bottom ring = perpendicular C2 image of the top ring.
+            M = _ROT_X_PI @ _rot_z(2.0 * np.pi * i / n)
+            copies.append(sub.transformed(M.T, M @ (off + up)))
+    elif kind == "helix":
+        for i in range(n):
+            M = _rot_z(i * twist)
+            copies.append(sub.transformed(M.T, M @ off
+                                          + np.array([0.0, 0.0, i * rise])))
+    else:
+        raise ValueError(f"unknown symmetry kind {kind!r}")
+    return sub, copies
+
+
+# Symmetric/helical topology matrix (round-4 verdict item 2): each row
+# mirrors one of the reference's flagship symmetric systems at its
+# documented resolution/knobs, rebuilt synthetically.
+TOPOLOGY_REGIMES = [
+    dict(name="C6_ring_7A",
+         cite="run_MaD.py:24-27 (VAT hexamer, EMD-3436, 7 A, C6)",
+         kind="cn", n=6, n_res=120, radius=27.0, resolution=7.0,
+         voxsp=1.75, seed=21, run_kwargs={}),
+    dict(name="D7_double_ring_7A",
+         cite="notebook cells 24-27 (GroEL, EMD-5338, 7 A, D7 x14)",
+         kind="dn", n=7, n_res=110, radius=30.0, ring_dz=34.0,
+         resolution=7.0, voxsp=1.75, seed=22, run_kwargs={}),
+    dict(name="helix_x5_8A",
+         cite="run_MaD.py:29-33 (actin:tropomyosin, EMD-5751, 8 A, x5)",
+         kind="helix", n=5, n_res=120, radius=14.0, rise=27.5,
+         twist=np.deg2rad(-166.7), resolution=8.0, voxsp=2.0, seed=23,
+         run_kwargs={}),
+]
+
+
+def degrade_map(grid, noise_sigma: float = 0.0, background: float = 0.0,
+                blur_vox=0.0, seed: int = 0, isovalue: float = None):
+    """Experimental-style degradation of a clean simulated map.
+
+    Mimics what real EMDB maps carry on top of the signal
+    (mad/Dmap.py:50-67 isovalue semantics; run_MaD.py:6-60 system matrix):
+      * ``blur_vox``   — extra Gaussian blur in voxels; scalar = isotropic
+                         B-factor-style resolution loss, 3-tuple =
+                         anisotropic (e.g. preferred-orientation z-smear);
+      * ``background`` — constant plateau, fraction of map max;
+      * ``noise_sigma``— additive white Gaussian noise, fraction of max;
+      * isovalue clamp at ``background + 2*noise_sigma`` by default (the
+        user-supplied contour level on a real map), then max-normalize.
+    Returns a DensityGrid on the input grid's device (same lattice).
+    """
+    from dataclasses import replace as _replace
+
+    from scipy.ndimage import gaussian_filter
+
+    data = np.asarray(grid.host(), dtype=np.float64)
+    data = data / max(data.max(), 1e-30)
+    sig = ((blur_vox,) * 3 if np.isscalar(blur_vox) else tuple(blur_vox))
+    if any(s > 0 for s in sig):
+        data = gaussian_filter(data, sigma=sig)
+        data = data / max(data.max(), 1e-30)
+    rng = np.random.default_rng(seed)
+    data = data + background + rng.normal(scale=max(noise_sigma, 1e-30),
+                                          size=data.shape)
+    if isovalue is None:
+        isovalue = background + 2.0 * noise_sigma
+    data = np.where(data < isovalue, 0.0, data)
+    data = (data / max(data.max(), 1e-30)).astype(np.float32)
+    return _replace(grid, data=torch.as_tensor(data, device=grid.device))
+
+
+# Degradation ladder (round-4 verdict item 3): each rung is one knob of
+# experimental realism swept to failure on a 3-copy assembly at 10 A.
+# scripts/degradation_ladder.py runs the full ladder (PARITY.md table);
+# tests/test_degradation.py pins the mid-ladder point as a regression.
+DEGRADATION_LADDER = (
+    [dict(name=f"noise_{int(s*100)}pct", noise_sigma=s, background=0.05)
+     for s in (0.02, 0.05, 0.10, 0.15, 0.20)]
+    + [dict(name=f"bfactor_blur_{b:g}vox", noise_sigma=0.05,
+            background=0.05, blur_vox=b) for b in (1.0, 2.0, 3.0, 4.0)]
+    + [dict(name=f"aniso_z_{b:g}vox", noise_sigma=0.05, background=0.05,
+            blur_vox=(0.0, 0.0, b)) for b in (1.5, 3.0, 4.5)]
+)
+
+
+# Reference knob matrix (mad run_MaD.py:35-60 + BASELINE.json config 5).
+# Each entry: (name, reference citation, system params, run() kwargs).
+# System params pick a synthetic assembly whose subunit size / map scale
+# matches the documented regime's resolution class; voxel spacing scales
+# with resolution (the information content per voxel is what the knobs
+# respond to, not absolute Angstroms).
+KNOB_REGIMES = [
+    dict(name="9A_cc05_ns80",
+         cite="run_MaD.py:35-41 (microtubule+kinesin, EMD-1340, 9 A)",
+         resolution=9.0, voxsp=2.25, n_copies=3, n_res=140, spread=26.0,
+         seed=11, run_kwargs=dict(cc_threshold=0.5, n_samples=80)),
+    dict(name="10A_cc05_ns100_x6",
+         cite="run_MaD.py:43-47 (MecA-ClpC, EMD-5609, 10 A, x6)",
+         resolution=10.0, voxsp=2.5, n_copies=6, n_res=150, spread=40.0,
+         seed=12, run_kwargs=dict(cc_threshold=0.5, n_samples=100)),
+    dict(name="11.6A_patch24",
+         cite="run_MaD.py:49-54 (GluK2, EMD-8290, 11.6 A, 2x2)",
+         resolution=11.6, voxsp=2.9, n_copies=4, n_res=220, spread=34.0,
+         seed=13, run_kwargs=dict(patch_size=24)),
+    dict(name="13A_ns120_patch12",
+         cite="run_MaD.py:56-60 (beta-galactosidase, EMD-2548, 13 A, x4)",
+         resolution=13.0, voxsp=3.0, n_copies=4, n_res=260, spread=36.0,
+         seed=14, run_kwargs=dict(n_samples=120, patch_size=12)),
+    dict(name="18A_dense_sweep",
+         cite="BASELINE.json config 5 (low-res 15-20 A dense sweep)",
+         # spread must exceed the subunit diameter at this blur level or
+         # neighboring copies' densities merge (tuned: 40 -> 1/3, 62 -> 3/3)
+         resolution=18.0, voxsp=3.6, n_copies=3, n_res=340, spread=62.0,
+         seed=15, run_kwargs=dict(cc_threshold=0.5, n_samples=120)),
+]
+
+
+def _fit_inputs(copies, resolution: float, voxsp: float, device):
+    """The assembly map of ``copies`` simulated on ``device``."""
+    from .ops.simulate import simulate_density
+    coords = np.concatenate([c.coords for c in copies])
+    masses = np.concatenate([c.masses for c in copies])
+    return simulate_density(coords, resolution, voxsp, masses=masses,
+                            device=device)
+
+
+def _dock(dmap, moved, resolution: float, cfg, n_copies: int, tag: str,
+          device):
+    """Describe the map and the decoy, dock ``n_copies`` (the runners'
+    common tail)."""
+    from .engine.docking import dock_structure
+    from .engine.pipeline import describe_grid, describe_structure
+    map_set = describe_grid(dmap, cfg, name=f"{tag}_map", device=device)
+    sub_set = describe_structure(moved, resolution, dmap.voxsp, cfg,
+                                 name=f"{tag}_sub", device=device)
+    return dock_structure(map_set, sub_set, moved, dmap, resolution, cfg,
+                          n_copies=n_copies, verbose=False, device=device)
+
+
+def run_degraded(point: dict, n_copies: int = 3, n_res: int = 110,
+                 seed: int = 7, spread: float = 26.0, resolution: float = 10.0,
+                 voxsp: float = 2.5, max_anchors: int = 2048, *,
+                 device=None):
+    """Dock a 3-copy self-fit system on a degraded map (one ladder rung),
+    on ``device`` (mad_tpu's ``run_degraded``).
+
+    The docking knobs are the reference's noisy-system regime
+    (run_MaD.py:43-47: cc_threshold=0.5, n_samples=100). Returns per-copy
+    best CA-RMSDs and the recovery count at the 5 A bar used by
+    tests/test_experimental_map.py."""
+    device = resolve(device)
+    cfg = MadConfig.from_run_kwargs(cc_threshold=0.5, n_samples=100)
+    cfg = cfg.replace(
+        detect=dataclasses.replace(cfg.detect, max_anchors=max_anchors))
+    sub, copies = make_assembly(n_copies=n_copies, n_res=n_res, seed=seed,
+                                spread=spread)
+    clean = _fit_inputs(copies, resolution, voxsp, device)
+    kw = {k: point[k] for k in ("noise_sigma", "background", "blur_vox",
+                                "isovalue") if k in point}
+    dmap = degrade_map(clean, seed=seed + 100, **kw).reduce_void()
+    moved = decoy_transform(sub)
+    sols = _dock(dmap, moved, resolution, cfg, n_copies,
+                 f"degr_{point['name']}", device)
+    rmsds = [min((s.structure.rmsd_ca_with(c) for s in sols),
+                 default=np.inf) for c in copies]
+    return dict(name=point["name"], map_shape=tuple(dmap.shape),
+                n_solutions=len(sols), rmsds=rmsds,
+                recovered=int(np.sum(np.asarray(rmsds) < 5.0)),
+                n_copies=n_copies)
+
+
+def run_topology(regime: dict, rescue_rounds: int = 1,
+                 max_anchors: int = 2048, *, device=None):
+    """Dock one TOPOLOGY_REGIMES entry e2e (self-fit rotation+translation
+    decoy) on ``device`` (mad_tpu's ``run_topology``). Returns per-copy
+    best CA-RMSDs, recovery count, and the number of DISTINCT solutions
+    claimed as nearest-by-RMSD by the recovered copies (aliasing
+    diagnostic: symmetry-degenerate poses must resolve to one solution per
+    copy, not all copies collapsing onto one pose)."""
+    device = resolve(device)
+    cfg = MadConfig.from_run_kwargs(**regime["run_kwargs"])
+    cfg = cfg.replace(
+        detect=dataclasses.replace(cfg.detect, max_anchors=max_anchors),
+        filter=dataclasses.replace(cfg.filter, rescue_rounds=rescue_rounds))
+    kw = {k: regime[k] for k in ("radius", "ring_dz", "rise", "twist")
+          if k in regime}
+    sub, copies = make_symmetric_assembly(
+        regime["kind"], regime["n"], n_res=regime["n_res"],
+        seed=regime["seed"], **kw)
+    dmap = _fit_inputs(copies, regime["resolution"], regime["voxsp"],
+                       device).reduce_void()
+    moved = decoy_transform(sub)
+    sols = _dock(dmap, moved, regime["resolution"], cfg, len(copies),
+                 f"topo_{regime['name']}", device)
+    rmsds, claimed = [], []
+    for c in copies:
+        per_sol = [s.structure.rmsd_ca_with(c) for s in sols]
+        best = int(np.argmin(per_sol)) if per_sol else -1
+        rmsds.append(per_sol[best] if per_sol else np.inf)
+        claimed.append(best)
+    thresh = max(4.0, regime["resolution"] / 2.0)
+    rec = np.asarray(rmsds) < thresh
+    return dict(name=regime["name"], cite=regime["cite"],
+                kind=regime["kind"], map_shape=tuple(dmap.shape),
+                n_solutions=len(sols), rmsds=rmsds, threshold=thresh,
+                recovered=int(np.sum(rec)), n_copies=len(copies),
+                distinct_claimed=len({c for c, r in zip(claimed, rec)
+                                      if r}))
+
+
+def run_knob_regime(regime: dict, rescue_rounds: int = 0, *, device=None):
+    """Dock one KNOB_REGIMES entry end-to-end (self-fit decoy protocol with
+    the full rotation+translation decoy) on ``device`` (mad_tpu's
+    ``run_knob_regime``). Returns a result dict with per-copy best
+    CA-RMSDs, recovery count and solution count."""
+    device = resolve(device)
+    cfg = MadConfig.from_run_kwargs(**regime["run_kwargs"])
+    cfg = cfg.replace(
+        detect=dataclasses.replace(cfg.detect, max_anchors=2048),
+        filter=dataclasses.replace(cfg.filter,
+                                   rescue_rounds=rescue_rounds,
+                                   n_samples=cfg.filter.n_samples))
+    sub, copies = make_assembly(n_copies=regime["n_copies"],
+                                n_res=regime["n_res"], seed=regime["seed"],
+                                spread=regime["spread"],
+                                shell=regime["n_copies"] > 4)
+    dmap = _fit_inputs(copies, regime["resolution"], regime["voxsp"],
+                       device).reduce_void()
+    moved = decoy_transform(sub)
+    sols = _dock(dmap, moved, regime["resolution"], cfg,
+                 regime["n_copies"], f"knob_{regime['name']}", device)
+    rmsds = [min((s.structure.rmsd_ca_with(c) for s in sols),
+                 default=np.inf) for c in copies]
+    thresh = max(4.0, regime["resolution"] / 2.0)
+    return dict(name=regime["name"], cite=regime["cite"],
+                map_shape=tuple(dmap.shape), n_solutions=len(sols),
+                rmsds=rmsds, threshold=thresh,
+                recovered=int(np.sum(np.asarray(rmsds) < thresh)),
+                n_copies=regime["n_copies"])
 
 
 @contextlib.contextmanager

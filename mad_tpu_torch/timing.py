@@ -2,17 +2,18 @@
 want a breakdown.
 
 ``stage(timings, name, device)`` adds the seconds of its block to
-``timings[name]``. On a CUDA device it synchronizes before and after, so
-the time is the device work of the block, not its enqueue. With
-``timings=None`` it does nothing.
+``timings[name]``. It times through the process-wide registry of
+:mod:`.utils.profiling` (``profiling.stage(name, sync=True)``), so the
+dict and ``profiling.show_timing`` read the same clock: on a CUDA device
+it synchronizes before and after, so the time is the device work of the
+block, not its enqueue. With ``timings=None`` it does nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 
-import torch
+from .utils import profiling
 
 
 @contextlib.contextmanager
@@ -20,13 +21,9 @@ def stage(timings, name: str, device):
     if timings is None:
         yield
         return
-    cuda = torch.device(device).type == "cuda"
-    if cuda:
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
+    span = {"seconds": 0.0}
     try:
-        yield
+        with profiling.stage(name, sync=True, device=device) as span:
+            yield
     finally:
-        if cuda:
-            torch.cuda.synchronize(device)
-        timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+        timings[name] = timings.get(name, 0.0) + span["seconds"]

@@ -462,7 +462,8 @@ def record(cs, path):
     args, _copies = cs.rescue_args(device, cfg)
     with recording(em, "exact_repeat") as reps, \
             recording(docking, "exact_rescore") as rescue:
-        docking.dock_structure(*args, n_copies=cs.RESCUE["n_copies"],
+        docking.dock_structure(*args, verbose=False,
+                               n_copies=cs.RESCUE["n_copies"],
                                device=device)
     cs.check(len(rescue) == 1 and len(reps) >= 2
              and reps[-1][2].shape[0] == len(rescue[0][1]),
@@ -478,7 +479,8 @@ def record(cs, path):
             recording(em, "approx_repeat") as c12, \
             recording(em, "exact_repeat") as c13:
         docking.dock_structure(fit["map_set"], fit["sub_set"], fit["moved"],
-                               fit["dmap"], cs.RES, cfg, n_copies=cs.N_COPIES,
+                               fit["dmap"], cs.RES, cfg, verbose=False,
+                               n_copies=cs.N_COPIES,
                                mesh=make_mesh(4, devices=[device] * 4))
     merge = [(f"mesh merge {r}", a) for r, a in enumerate(merges)]
     for label, a in merge:

@@ -66,7 +66,7 @@ def k9_runs(device):
     _sub, copies = make_assembly(n_copies=cs.N_COPIES, n_res=cs.N_RES,
                                  seed=cs.SEED, spread=cs.SPREAD, shell=True)
     moved = decoy_transform(copies[0])
-    grids = [simulate_density(moved, cs.RES, cs.VOXSP, device,
+    grids = [simulate_density(moved, cs.RES, cs.VOXSP, device=device,
                               shape_bucket=cfg.shape_bucket)
              for _ in range(8)]
     diff = max(float((grids[0].data - g.data).abs().max())

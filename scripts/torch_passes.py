@@ -192,7 +192,8 @@ def _breakdown(device, cfg, fit, label):
         try:
             return docking.dock_structure(
                 fit["map_set"], fit["sub_set"], fit["moved"], fit["dmap"],
-                cs.RES, cfg, n_copies=cs.N_COPIES, device=device,
+                cs.RES, cfg, verbose=False,
+                n_copies=cs.N_COPIES, device=device,
                 timings=timings)
         finally:
             docking.match_descriptors = saved

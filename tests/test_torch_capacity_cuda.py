@@ -66,7 +66,7 @@ def system(cuda):
     _sub, copies = make_assembly(n_copies=2, n_res=40, seed=3, spread=14.0)
     coords = np.concatenate([c.coords for c in copies])
     masses = np.concatenate([c.masses for c in copies])
-    dmap = simulate_density(coords, 8.0, 2.0, cuda,
+    dmap = simulate_density(coords, 8.0, 2.0, device=cuda,
                             masses=masses).reduce_void()
     return cfg, dmap, pipeline.describe_grid(dmap, cfg, name="m")
 

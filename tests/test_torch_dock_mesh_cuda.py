@@ -161,13 +161,14 @@ def dimer(cuda):
     sub, copies = make_assembly(n_copies=2, n_res=40, seed=3, spread=14.0)
     coords = np.concatenate([x.coords for x in copies])
     masses = np.concatenate([x.masses for x in copies])
-    dmap = simulate_density(coords, 8.0, 2.0, cuda,
+    dmap = simulate_density(coords, 8.0, 2.0, device=cuda,
                             masses=masses).reduce_void()
     moved = decoy_transform(sub)
     m = describe_grid(dmap, cfg, name="map", device=cuda)
     s = describe_structure(moved, 8.0, 2.0, cfg, name="sub", device=cuda)
     args = (m, s, moved, dmap, 8.0, cfg)
-    return args, docking.dock_structure(*args, n_copies=1, device=cuda)
+    return args, docking.dock_structure(*args, verbose=False,
+                                        n_copies=1, device=cuda)
 
 
 def _bit_equal(got, want):
@@ -183,7 +184,7 @@ def test_dock_on_shards_of_one_card(cuda, dimer, n):
     args, want = dimer
     reset_launches()
     with recording(docking, "exact_rescore") as rescue:
-        got = docking.dock_structure(*args, n_copies=1,
+        got = docking.dock_structure(*args, verbose=False, n_copies=1,
                                      mesh=make_mesh(n, devices=[cuda] * n))
     counts = launch_counts()
     assert all(counts[k] > 0 for k in MESH_KERNELS), counts
@@ -221,7 +222,8 @@ def test_dock_on_two_cards(dimer):
     args, want = dimer
     with recording(match, "approx_repeat") as pairs, \
             recording(k16, "post_rows") as rows:
-        got = docking.dock_structure(*args, n_copies=1, mesh=make_mesh(2))
+        got = docking.dock_structure(*args, verbose=False,
+                                     n_copies=1, mesh=make_mesh(2))
     cards = {torch.device("cuda", 0), torch.device("cuda", 1)}
     assert {a[6].device for a in pairs} == cards
     assert {a[0].device for a in rows} == cards

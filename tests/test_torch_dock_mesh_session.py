@@ -67,7 +67,7 @@ def dimer():
     sub, copies = make_assembly(n_copies=2, n_res=40, seed=3, spread=14.0)
     coords = np.concatenate([c.coords for c in copies])
     masses = np.concatenate([c.masses for c in copies])
-    dmap = simulate_density(coords, RES, VOXSP, "cpu",
+    dmap = simulate_density(coords, RES, VOXSP, device="cpu",
                             masses=masses).reduce_void()
     moved = decoy_transform(sub)
     m = describe_grid(dmap, cfg, name="map", device="cpu")
@@ -86,11 +86,13 @@ def _same_solutions(got, want):
 @pytest.mark.parametrize("n", [3, 8])
 def test_dock_on_shards_with_a_rescue_round(dimer, n):
     cfg, dmap, moved, m, s, copies = dimer
-    one = tdock.dock_structure(m, s, moved, dmap, RES, cfg, n_copies=1,
+    one = tdock.dock_structure(m, s, moved, dmap, RES, cfg, verbose=False,
+                               n_copies=1,
                                device="cpu")
     with recording(tdock, "cluster_select") as cs, \
             recording(tdock, "exact_rescore") as er:
-        got = tdock.dock_structure(m, s, moved, dmap, RES, cfg, n_copies=1,
+        got = tdock.dock_structure(m, s, moved, dmap, RES, cfg, verbose=False,
+                                   n_copies=1,
                                    mesh=cpu_mesh(n))
     assert len(cs) == 2 and len(er) == 1 and er[0][4] is not None
     _same_solutions(got, one)
@@ -127,7 +129,8 @@ def test_auto_mesh_and_the_home_device(dimer):
         MaD(workdir=".", device="cpu", mesh=make_mesh(2, devices=["meta"]
                                                       * 2))
     with pytest.raises(ValueError):
-        tdock.dock_structure(m, s, moved, dmap, RES, cfg, device="meta",
+        tdock.dock_structure(m, s, moved, dmap, RES, cfg, verbose=False,
+                             device="meta",
                              mesh=mesh)
 
 
@@ -160,14 +163,14 @@ def test_dock_on_shards_equals_mad_tpu_mesh(monkeypatch):
         jpipe.describe_grid(jsub, jcfg, name="sub"), sub, jmap, RES, jcfg,
         n_copies=2, verbose=False, mesh=jmake_mesh(8))
     tsub, _ = make_assembly(n_copies=2, n_res=40, seed=3, spread=14.0)
-    tmap = simulate_density(coords, RES, VOXSP, "cpu", masses=masses,
+    tmap = simulate_density(coords, RES, VOXSP, device="cpu", masses=masses,
                             shape_bucket=tcfg.shape_bucket)
-    tgrid = simulate_density(tsub, RES, VOXSP, "cpu",
+    tgrid = simulate_density(tsub, RES, VOXSP, device="cpu",
                              shape_bucket=tcfg.shape_bucket)
     ts = tdock.dock_structure(
         describe_grid(tmap, tcfg, name="map", device="cpu"),
         describe_grid(tgrid, tcfg, name="sub", device="cpu"), tsub, tmap,
-        RES, tcfg, n_copies=2, mesh=cpu_mesh(8))
+        RES, tcfg, verbose=False, n_copies=2, mesh=cpu_mesh(8))
     assert len(ts) == len(js) >= 2
     for a, b in zip(ts, js):
         assert a.weight == b.weight

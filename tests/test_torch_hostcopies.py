@@ -116,7 +116,8 @@ def test_mrc_reader_is_the_same(tmp_path):
                     origin=np.array([3.0, -4.2, 10.5]), voxsp=1.4)
     path = str(tmp_path / "m.mrc")
     jwrite_mrc(g, path)
-    a, b = read_map(path, "cpu", isovalue=0.2), jread_map(path, isovalue=0.2)
+    a = read_map(path, isovalue=0.2, device="cpu")
+    b = jread_map(path, isovalue=0.2)
     np.testing.assert_array_equal(a.origin, b.origin)
     assert a.voxsp == b.voxsp and a.name == b.name
     np.testing.assert_array_equal(a.host(), np.asarray(b.data))

@@ -64,7 +64,7 @@ def octaves(cuda):
     _sub, copies = make_assembly(n_copies=2, n_res=40, seed=3, spread=14.0)
     coords = np.concatenate([c.coords for c in copies])
     masses = np.concatenate([c.masses for c in copies])
-    dmap = simulate_density(coords, 8.0, 2.0, cuda,
+    dmap = simulate_density(coords, 8.0, 2.0, device=cuda,
                             masses=masses).reduce_void()
     out = {}
     for _org, o in iter_octaves(dmap, cfg.scalespace):
@@ -134,7 +134,7 @@ def test_k6_matches_plain(octaves, octave, patch, gw_sig):
 @pytest.fixture(scope="module")
 def refine_system(cuda):
     p = make_protein(n_res=30, seed=2, n_segments=2)
-    dmap = simulate_density(p, 8.0, 2.0, cuda).reduce_void(8)
+    dmap = simulate_density(p, 8.0, 2.0, device=cuda).reduce_void(8)
     rng = np.random.default_rng(3)
     center = p.coords.mean(axis=0)
     starts = []

@@ -8,7 +8,8 @@ one; the file imports neither JAX nor mad_tpu:
 
 K4 at ragged shapes: volumes of V mod 4 != 0 voxels and smaller than one
 16-byte load, own rows starting off a 16-byte boundary, plateaus of equal
-values (signed zeros among them), more survivors than the first key
+values (signed zeros among them), NaN neighbours (no peak, as
+max_pool3d's NaN maximum says), more survivors than the first key
 buffer, and the offset form (row0, rows, x0); its raw keys equal the plain
 version's peaks' ``peak_keys_plain`` as a set. K18 at m = 2 (frame z 32),
 16, 64, 80, 1,200 and 4,000 (the tile shrinks in depth, then in columns,
@@ -69,6 +70,25 @@ def test_k4_ragged_whole_volume(cuda):
             args = (shape, thr, border, cap)
             assert _same(_launched(k4.peak_topk, dev, *args),
                          k4.peak_topk_plain(vol, *args)), (shape, thr)
+
+
+def test_k4_nan_neighbours(cuda):
+    """A NaN in a voxel's neighbourhood makes the plain version's max NaN
+    (max_pool3d, as mad_tpu's reduce_window), so the voxel is no peak;
+    the kernel agrees, whole volume and offset form."""
+    vol = _plateaus((37, 29, 31), 11)
+    flat = vol.view(-1)
+    flat[torch.randperm(flat.numel(), generator=torch.Generator()
+                        .manual_seed(3))[:60]] = float("nan")
+    dev = vol.to(cuda)
+    for args in (((37, 29, 31), 0.1, 1, 10 ** 6),
+                 ((57, 29, 31), -0.6, 0, 500, 3, 20, 17)):
+        got = _launched(k4.peak_topk, dev, *args)
+        want = k4.peak_topk_plain(vol, *args)
+        assert _same(got, want), args
+    plain_all = k4.peak_topk_plain(torch.nan_to_num(vol, nan=-9.0),
+                                   (37, 29, 31), 0.1, 1, 10 ** 6)
+    assert len(want[1]) < len(plain_all[1])     # NaN removed peaks
 
 
 def test_k4_offset_form_off_a_16_byte_boundary(cuda):

@@ -111,7 +111,8 @@ def test_scatter_is_the_cpu_plain_version_every_launch(cuda):
 
 def test_a_subunit_describes_the_same_every_time(cuda, dimer):
     cfg, _c, _m, copies = dimer
-    grids = [simulate_density(copies[0], 8.0, 2.0, cuda) for _ in range(3)]
+    grids = [simulate_density(copies[0], 8.0, 2.0,
+                              device=cuda) for _ in range(3)]
     assert all(bits(g.data, grids[0].data) for g in grids[1:])
     sets = [pipeline.describe_structure(copies[0], 8.0, 2.0, cfg,
                                         device=cuda) for _ in range(2)]
@@ -123,7 +124,7 @@ def test_a_subunit_describes_the_same_every_time(cuda, dimer):
 
 def test_describe_grid_with_the_plain_log(cuda, dimer, monkeypatch):
     cfg, coords, masses, _copies = dimer
-    dmap = simulate_density(coords, 8.0, 2.0, cuda,
+    dmap = simulate_density(coords, 8.0, 2.0, device=cuda,
                             masses=masses).reduce_void()
     a = pipeline.describe_grid(dmap, cfg, name="m", device=cuda)
     monkeypatch.setattr(convolve, "log_gauss", conv1d.log_gauss_plain)
@@ -139,7 +140,7 @@ def test_orient_clusters_equal_the_plain_version(cuda, dimer):
     cfg, coords, masses, _copies = dimer
     cfg = cfg.replace(detect=dataclasses.replace(cfg.detect,
                                                  max_anchors=1024))
-    dmap = simulate_density(coords, 8.0, 2.0, cuda,
+    dmap = simulate_density(coords, 8.0, 2.0, device=cuda,
                             masses=masses).reduce_void()
     oc = cfg.orient
     radius = (oc.patch_size - oc.patch_size % 2) // 2

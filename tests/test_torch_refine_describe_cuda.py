@@ -64,7 +64,7 @@ def _system(cuda, n_res, C, seed=2):
     """A protein's simulated map and C start poses near the deposited one
     (small rotations and shifts)."""
     p = make_protein(n_res=n_res, seed=seed, n_segments=2)
-    dmap = simulate_density(p, 8.0, 2.0, cuda).reduce_void(8)
+    dmap = simulate_density(p, 8.0, 2.0, device=cuda).reduce_void(8)
     rng = np.random.default_rng(seed + 1)
     center = p.coords.mean(axis=0)
     starts = []

@@ -126,7 +126,7 @@ def dimer():
 def test_simulate_density_stays_close_to_mad_tpu(dimer):
     coords, masses, _sub = dimer
     j = jsim.simulate_density(coords, 8.0, 2.0, masses=masses)
-    t = tsim.simulate_density(coords, 8.0, 2.0, "cpu", masses=masses)
+    t = tsim.simulate_density(coords, 8.0, 2.0, device="cpu", masses=masses)
     np.testing.assert_array_equal(t.origin, j.origin)
     _close(t.data, j.data)
 

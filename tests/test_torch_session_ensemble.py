@@ -23,7 +23,7 @@ def test_ensemble_frames_dock_and_rank(tmp_path):
     coords = np.concatenate([c.coords for c in copies])
     masses = np.concatenate([c.masses for c in copies])
     map_path = str(tmp_path / "dimer_map.mrc")
-    write_mrc(simulate_density(coords, 8.0, 2.0, "cpu", masses=masses),
+    write_mrc(simulate_density(coords, 8.0, 2.0, device="cpu", masses=masses),
               map_path)
     ens = tmp_path / "ensemble"
     ens.mkdir()

@@ -51,7 +51,8 @@ def test_simulate_density(system, pad, isovalue):
     _sub, coords, masses = system
     j = jsim.simulate_density(coords, 8.0, 2.0, isovalue=isovalue, pad=pad,
                               masses=masses, shape_bucket=32)
-    t = tsim.simulate_density(coords, 8.0, 2.0, "cpu", isovalue=isovalue,
+    t = tsim.simulate_density(coords, 8.0, 2.0,
+                              device="cpu", isovalue=isovalue,
                               pad=pad, masses=masses, shape_bucket=32)
     np.testing.assert_array_equal(t.origin, j.origin)
     _close(t.data, j.data)

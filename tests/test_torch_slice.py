@@ -83,13 +83,14 @@ def both():
                                   spread=14.0)
     tcoords = np.concatenate([c.coords for c in tcopies])
     tmasses = np.concatenate([c.masses for c in tcopies])
-    tmap = tsim.simulate_density(tcoords, RES, VOXSP, "cpu",
+    tmap = tsim.simulate_density(tcoords, RES, VOXSP, device="cpu",
                                  masses=tmasses).reduce_void()
     tmoved = decoy_transform(tsub)
     tm = tpipe.describe_grid(tmap, tcfg, name="map", device="cpu")
     ts = tpipe.describe_structure(tmoved, RES, VOXSP, tcfg, name="sub",
                                   device="cpu")
     tsols = tdock.dock_structure(tm, ts, tmoved, tmap, RES, tcfg,
+                                 verbose=False,
                                  n_copies=N_COPIES, device="cpu")
     return dict(jcfg=jcfg, tcfg=tcfg, copies=copies, jmap=jmap, jm=jm,
                 js=js, jmoved=jmoved, jsols=jsols, tmap=tmap, tm=tm, ts=ts,
@@ -149,7 +150,7 @@ def test_docking_fed_mad_tpu_descriptors(both):
     tm = descriptor_set_from_numpy(device="cpu", **_fields(both["jm"]))
     ts = descriptor_set_from_numpy(device="cpu", **_fields(both["js"]))
     sols = tdock.dock_structure(tm, ts, both["jmoved"], tmap, RES,
-                                both["tcfg"], n_copies=N_COPIES,
+                                both["tcfg"], verbose=False, n_copies=N_COPIES,
                                 device="cpu")
     _compare_solutions(sols, both["jsols"])
 
@@ -158,7 +159,8 @@ def test_stage_timings_are_collected(both):
     timings = {}
     tdock.dock_structure(both["tm"], both["ts"], decoy_transform(
         make_assembly(n_copies=N_COPIES, n_res=40, seed=3, spread=14.0)[0]),
-        both["tmap"], RES, both["tcfg"], n_copies=N_COPIES, device="cpu",
+        both["tmap"], RES, both["tcfg"], verbose=False,
+        n_copies=N_COPIES, device="cpu",
         timings=timings)
     assert {"match", "cluster", "refine", "post", "score"} <= set(timings)
     assert all(v >= 0 for v in timings.values())

@@ -116,7 +116,7 @@ def test_describe_grid_launches_k2_once_an_upsampled_octave(cuda):
     _sub, copies = make_assembly(n_copies=2, n_res=40, seed=3, spread=14.0)
     coords = np.concatenate([c.coords for c in copies])
     masses = np.concatenate([c.masses for c in copies])
-    dmap = simulate_density(coords, 8.0, 2.0, cuda,
+    dmap = simulate_density(coords, 8.0, 2.0, device=cuda,
                             masses=masses).reduce_void()
     k2.launches = k3.launches = 0
     ds = pipeline.describe_grid(dmap, cfg, device=cuda)
