@@ -136,7 +136,13 @@ Phases, each of which raises (non-zero exit) when it fails:
      and K17 must launch in its first run, >= 9/10 copies come back in the
      written sol_*.pdb files, one Solutions_refined CSV row per solution,
      model artifacts; a second run() must load the
-     dsc_db and pose_db caches and give the same solutions;
+     dsc_db and pose_db caches and give the same solutions; the C parsers
+     (mad_tpu_torch/native) must build, and every parse_pdb call of the
+     two runs go through them; then the host I/O, each a median of
+     HOST_IO_REPS: parse_pdb of the bench subunit and of the sol_*.pdb
+     files, native beside the Python parser (equal Structures),
+     write_complex of the solutions, write_pdb of the subunit, the bench
+     map's MRC write and read (bit for bit);
   8. a heteromer ranking (16^5 tuples over 80 solutions, seeded random
      overlap) with the counters reset first: K20 must launch (it stages
      the overlap itself), and the plain versions on the card must give
@@ -178,7 +184,9 @@ Phases, each of which raises (non-zero exit) when it fails:
      mad_tpu's list (MAD_TPU_ALL) and every entry point's device
      keyword-only; the bench map written by write_mrc and by write_sit
      and read back by read_map(path, 0.0) must land on the card and equal
-     the map (bit for bit from MRC, within SIT_TOL from Situs); ccc_with,
+     the map (bit for bit from MRC, within SIT_TOL from Situs), the Situs
+     read through the native parse_floats, whose values must equal
+     np.fromiter's bit for bit (each parse's seconds); ccc_with,
      ccc_maps_scaled and overlap_fraction against a shifted copy must be
      finite; build_scale_space of the map must equal iter_octaves' fields
      bit for bit; build_forward on the prepared base volume must launch
@@ -200,7 +208,35 @@ Phases, each of which raises (non-zero exit) when it fails:
      below half its threshold; every knob regime at least half the copies
      in solutions, all recovered, median below half its threshold;
      noise_10pct 3/3 with a median below 2.5 A; the other rungs printed
-     beside PARITY.md section 10's recovery (LADDER_PARITY), not asserted.
+     beside PARITY.md section 10's recovery (LADDER_PARITY), not asserted;
+ 13. the scale stress, mad_tpu's scripts/stress_large.py (STRESS: 16
+     subunits of 260 residues, spread 165, seed 1, one rescue round, 10 A
+     at 1.4 A; testing.build_system and timed_pass, bench.py's chain),
+     after match_pairs' times on the bench fit's sets (unique_times;
+     the sets are then freed): the map's shape beside mad_tpu's
+     (STRESS_MAD_TPU); a warm pass that records the inputs of K3, K6, K7,
+     K19 and match_pairs: its map's upsampled octave passes the 250 M
+     voxel gate, so its gradient field must be bfloat16; at those inputs
+     each K3 field (the one K6 and K7 read) bit for bit with the plain
+     version, K6 agreeing on every anchor (frames within K6_RFINAL_TOL),
+     K7 as in phase 4 (k7_checks, with times) and each K19 head equal to
+     the plain version's; match_pairs and its two host np.unique calls
+     timed on the stress's pairs; then, after a second warm pass, a
+     timed pass with the launch counters reset first, which must give
+     the first warm pass's solutions bit for bit, launch every kernel of
+     the main path but STRESS_SKIP, and K3, K6 and K7 on a bfloat16
+     field, describe the map's upsampled octave with a bfloat16 field,
+     give finite solutions, recover at least STRESS_MIN of 16 copies and
+     build a model with a finite CCC (the count and median printed
+     beside mad_tpu's 16/16 and 0.11 A); then a pass with the gate
+     raised above the octave, whose float32 field must recover the same
+     copies; each pass's seconds and peak memory;
+ 14. the ensemble at bench scale, mad_tpu's scripts/ensemble_bench.py
+     (testing.run_ensemble_bench): the bench map and seven conformers
+     (conf_0 and six deform_structure decoys at 3-15 A) through the MaD
+     session, 10 copies, on the card, the launch counters reset first;
+     the session's kernels must launch and conf_0 be first by RWmCC, the
+     other three scores printed beside PARITY.md (c)'s (ENSEMBLE_PARITY).
 The last three lines are the kernel report (JSON), the nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
@@ -218,9 +254,9 @@ RES, VOXSP, N_COPIES, N_RES, SPREAD, SEED = 10.0, 1.4, 10, 260, 115.0, 0
 BENCH_MAP_SHAPE = (273, 276, 262)
 T_START = time.perf_counter()   # reset by main()
 RECOVER_RMSD, MIN_RECOVERED = 10.0, 9
+HOST_IO_REPS = 3                # host I/O timings: median of this many calls
 SMALL = dict(n_copies=2, n_res=40, seed=3, spread=14.0, res=8.0, voxsp=2.0)
 SMALL_POSE_TOL = 0.5            # A, best CA-RMSD per copy, card vs CPU
-MAX_MODELS, MAX_OVERLAP = 10, 0.1   # bench.py's score_models arguments
 CCC_TOL = 1e-5                  # model CCC, kernels vs plain / card vs CPU
 K9_REPEATS = 5                  # K9 launches on the same inputs, all equal
 # the fit's simulate calls, in order (ops/simulate._simulate_batch)
@@ -407,57 +443,16 @@ def bench_config():
 
 def run_fit(device, timings, cfg, n_copies=N_COPIES, n_res=N_RES,
             seed=SEED, spread=SPREAD, res=RES, voxsp=VOXSP, shell=True):
-    """bench.py's run_fit through the port: describe, dock, and the
-    assembly step when there are two solutions or more."""
-    from mad_tpu_torch.engine.docking import dock_structure
-    from mad_tpu_torch.engine.pipeline import (describe_grid,
-                                               describe_structure)
-    from mad_tpu_torch.ops.simulate import simulate_density
-    from mad_tpu_torch.testing import decoy_transform, make_assembly
-    from mad_tpu_torch.timing import stage
-
-    sub, copies = make_assembly(n_copies=n_copies, n_res=n_res, seed=seed,
-                                spread=spread, shell=shell)
-    coords = np.concatenate([c.coords for c in copies])
-    masses = np.concatenate([c.masses for c in copies])
-    with stage(timings, "simulate", device):
-        dmap = simulate_density(coords, res, voxsp, device=device,
-                                masses=masses).reduce_void()
-    moved = decoy_transform(sub)
-    with stage(timings, "describe_map", device):
-        map_set = describe_grid(dmap, cfg, name="bench_map", device=device)
-    with stage(timings, "describe_subunit", device):
-        sub_set = describe_structure(moved, res, dmap.voxsp, cfg,
-                                     name="bench_sub", device=device)
-    sols = dock_structure(map_set, sub_set, moved, dmap, res, cfg,
-                          verbose=False,
-                          n_copies=n_copies, device=device, timings=timings)
-    assembly = None
-    if len(sols) >= 2:
-        assembly = run_assembly(device, timings, cfg,
-                                [s.structure for s in sols], dmap, n_copies)
-    return dict(copies=copies, dmap=dmap, moved=moved, map_set=map_set,
-                sub_set=sub_set, sols=sols, assembly=assembly)
-
-
-def run_assembly(device, timings, cfg, structures, dmap, n_copies):
-    """bench.py:69-83: overlap, homomultimer ranking, model scores."""
-    from mad_tpu_torch.engine import assemble as asm
-    from mad_tpu_torch.timing import stage
-    with stage(timings, "overlap", device):
-        ov_dev = asm.device_overlap(structures, cfg.assembly, device)
-        overlap = asm.host_overlap(ov_dev)
-    with stage(timings, "enumerate", device):
-        tuples, sums, stds, maxs = asm.enumerate_homomultimer(
-            len(structures), min(n_copies, len(structures)), overlap,
-            device=device, overlap_dev=ov_dev)
-    with stage(timings, "score_models", device):
-        models = asm.score_models(tuples, sums, stds, maxs, structures,
-                                  dmap, cfg.assembly, MAX_MODELS,
-                                  MAX_OVERLAP)
-    asm.pop_enum_notes()
-    return dict(structures=structures, overlap=overlap, tuples=tuples,
-                models=models)
+    """bench.py's run_fit through the port (testing.build_system and
+    fit_pass): the map simulated, described, docked, and the assembly
+    step (testing.assemble_solutions) when there are two solutions or
+    more; fit_pass's dict with the copies and the map."""
+    from mad_tpu_torch.testing import build_system, fit_pass
+    sub, copies, dmap = build_system(n_copies, n_res, voxsp, res, spread,
+                                     seed, shell, device=device,
+                                     timings=timings)
+    return dict(fit_pass(sub, copies, dmap, res, cfg, device=device,
+                         timings=timings), copies=copies, dmap=dmap)
 
 
 def assembly_swaps():
@@ -1397,22 +1392,23 @@ def k4_checks(calls):
     return out
 
 
-def k7_checks(calls):
-    """K7 at the fit's four octaves (``calls``: the recorded arguments of
-    ops/describe.descriptor_hist in one describe_grid of the bench map and
-    one describe_structure of the subunit, in K4_SHAPES' order) against
-    its plain version: the same in-bounds flags, rows equal in >= 99 %,
-    the rest within an L1 of 8 counts (zone-bound ulps of atan2f /
-    acosf); the lanes its bounds test puts out of bounds; the kernel
-    alone (kernel_ms) beside the wrapper's time. Work per lattice sample
-    of a valid lane in bounds (this run's data: the kernel gathers for no
-    other lane): the field's 3 components read, 15 flops to place it, 8
-    to normalize, 15 to rotate, ~40 for atan2 / acos, 6 compares a zone;
-    the frames, coords and flags read, the rows and flags written."""
+def k7_checks(calls, tag=""):
+    """K7 at a fit's four octaves (``calls``: the recorded arguments of
+    ops/describe.descriptor_hist in one describe_grid of the map and one
+    describe_structure of the subunit, in K4_SHAPES' order; ``tag``
+    prefixes the printed lines) against its plain version: the same
+    in-bounds flags, rows equal in >= 99 %, the rest within an L1 of 8
+    counts (zone-bound ulps of atan2f / acosf); the lanes its bounds test
+    puts out of bounds; the kernel alone (kernel_ms) beside the wrapper's
+    time. Work per lattice sample of a valid lane in bounds (this run's
+    data: the kernel gathers for no other lane): the field's 3 components
+    read, 15 flops to place it, 8 to normalize, 15 to rotate, ~40 for
+    atan2 / acos, 6 compares a zone; the frames, coords and flags read,
+    the rows and flags written."""
     import torch
     from mad_tpu_torch.kernels import describe
     check(len(calls) == len(K4_SHAPES),
-          f"K7 ran {len(calls)} times in the describe calls, not "
+          f"{tag}K7 ran {len(calls)} times in the describe calls, not "
           f"{len(K4_SHAPES)}")
     out = {}
     for label, args in zip(K4_SHAPES, calls):
@@ -1421,9 +1417,10 @@ def k7_checks(calls):
         diff = (d1.long() - d2.long()).abs()
         row_l1 = diff.sum(dim=1)
         same = float((row_l1 == 0).float().mean())
-        check(torch.equal(ok1, ok2), f"K7 {label}: in-bounds flags differ")
+        check(torch.equal(ok1, ok2),
+              f"{tag}K7 {label}: in-bounds flags differ")
         check(same >= 0.99 and int(row_l1.max()) <= 8,
-              f"K7 {label}: rows equal {same:.4f}, max row L1 "
+              f"{tag}K7 {label}: rows equal {same:.4f}, max row L1 "
               f"{int(row_l1.max())}")
         grad, valid, lattice, bounds = args[0], args[3], args[5], args[7]
         L, P, nz, n_ok = len(ok1), len(lattice), len(bounds), int(ok1.sum())
@@ -1434,8 +1431,8 @@ def k7_checks(calls):
                     + d1.numel() * 2 + L,
                     n_ok * P * (15 + 8 + 15 + 40 + 6 * nz))
         r["kernel_ms"] = alone_ms(lambda: describe.descriptor_hist(*args))
-        say(f"  K7 {label}: field {tuple(grad.shape)} {grad.dtype}, {L} "
-            f"lanes, {int(valid.sum())} valid, {oob} out of bounds, rows "
+        say(f"  {tag}K7 {label}: field {tuple(grad.shape)} {grad.dtype}, "
+            f"{L} lanes, {int(valid.sum())} valid, {oob} out of bounds, rows "
             f"equal {same:.5f}; kernel alone {r['kernel_ms']:.4f} ms, "
             f"wrapper {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
@@ -2411,9 +2408,14 @@ def session_phase(device, cfg, fit, root):
     import os
     import torch
     from mad_tpu_torch.api import MaD
+    from mad_tpu_torch import api
     from mad_tpu_torch.core.grid import write_mrc
+    from mad_tpu_torch.core import structure
     from mad_tpu_torch.core.structure import parse_pdb, write_pdb
     from mad_tpu_torch.kernels import launch_counts, reset_launches
+    from mad_tpu_torch.native import get_fastio
+    from mad_tpu_torch.testing import recording
+    check(get_fastio() is not None, "native: the C parsers did not build")
     work = os.path.join(root, "session")
     os.makedirs(work)
     map_path = os.path.join(work, "bench_map.mrc")
@@ -2421,23 +2423,31 @@ def session_phase(device, cfg, fit, root):
     write_mrc(fit["dmap"], map_path)
     write_pdb(fit["copies"][0], sub_path)
     secs, logs = [], []
-    for attempt in range(2):
-        log = io.StringIO()
-        reset_launches()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(log):
-            mad = MaD(workdir=work, config=cfg, device=device)
-            mad.add_map(map_path, resolution=RES)
-            mad.add_subunit(sub_path, n_copies=N_COPIES)
-            mad.run(transform_subunits=True)
+    with recording(api, "parse_pdb") as parses, \
+            recording(structure, "_parse_pdb_native") as natives:
+        for attempt in range(2):
+            log = io.StringIO()
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                mad = MaD(workdir=work, config=cfg, device=device)
+                mad.add_map(map_path, resolution=RES)
+                mad.add_subunit(sub_path, n_copies=N_COPIES)
+                mad.run(transform_subunits=True)
+                if attempt == 0:
+                    t_run = time.perf_counter() - t0
+                    mad.build_assembly()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            logs.append(log.getvalue())
             if attempt == 0:
-                t_run = time.perf_counter() - t0
-                mad.build_assembly()
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        logs.append(log.getvalue())
-        if attempt == 0:
-            first, counts = mad, launch_counts()
+                first, counts = mad, launch_counts()
+    native_parses = len(natives)
+    check(parses and native_parses == len(parses),
+          f"session: {len(parses)} parse_pdb calls, {native_parses} through "
+          "the native parser")
+    say(f"session: {len(parses)} parse_pdb calls in the two runs, all "
+        f"{native_parses} through the native parser")
     out = first.out_folder
     files = sorted(glob.glob(os.path.join(
         out, "individual_solutions", "sol_bench_sub_*.pdb")))
@@ -2472,9 +2482,70 @@ def session_phase(device, cfg, fit, root):
         np.array_equal(a.structure.coords, b.structure.coords)
         for a, b in zip(again, first.solutions["bench_sub"])),
         "session: the cached run gave other solutions")
+    host_io_checks(device, fit, work, sub_path, files, sols)
     return dict(root=root, map_path=map_path, sub_path=sub_path,
                 sols=first.solutions["bench_sub"], map_dsc=first.map_dsc,
                 sub_dsc=first.dsc_dict["bench_sub"])
+
+
+def median_run(fn, reps=HOST_IO_REPS):
+    """(median seconds of ``reps`` calls of ``fn``, its last result)."""
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        secs.append(time.perf_counter() - t0)
+    return float(np.median(secs)), out
+
+
+def same_structure(a, b):
+    return (np.array_equal(a.coords, b.coords)
+            and np.array_equal(a.masses, b.masses)
+            and np.array_equal(a.ca_idx, b.ca_idx)
+            and np.array_equal(a.bb_idx, b.bb_idx) and a.info == b.info)
+
+
+def host_io_checks(device, fit, work, sub_path, files, sols):
+    """Phase 7's host I/O, each a median of HOST_IO_REPS: parse_pdb of the
+    bench subunit and of the session's sol_*.pdb files through the native
+    parser beside the Python one (equal Structures), write_complex of the
+    solutions and write_pdb of the subunit, and the bench map's MRC write
+    and read."""
+    import os
+    import torch
+    from mad_tpu_torch.core import structure as S
+    from mad_tpu_torch.core.grid import read_map, write_mrc
+    from mad_tpu_torch.native import get_fastio
+    native = get_fastio()
+    for what, paths in (("the bench subunit", [sub_path]),
+                        (f"{len(files)} sol_*.pdb", files)):
+        t_nat, a = median_run(
+            lambda: [S._parse_pdb_native(p, native) for p in paths])
+        t_py, b = median_run(lambda: [S._parse_pdb_python(p) for p in paths])
+        check(all(same_structure(x, y) for x, y in zip(a, b)),
+              f"parse_pdb of {what}: native and Python Structures differ")
+        say(f"parse_pdb of {what} ({sum(x.n_atoms for x in a)} atoms): "
+            f"native {t_nat * 1e3:.3f} ms, Python {t_py * 1e3:.3f} ms, "
+            "equal Structures")
+    cpath = os.path.join(work, "complex.pdb")
+    t_cx, _ = median_run(lambda: S.write_complex(sols, cpath))
+    t_pdb, _ = median_run(lambda: S.write_pdb(fit["copies"][0], os.path.join(
+        work, "sub_again.pdb")))
+    say(f"write_complex of {len(sols)} solutions "
+        f"({sum(x.n_atoms for x in sols)} atoms): {t_cx * 1e3:.3f} ms; "
+        f"write_pdb of the subunit: {t_pdb * 1e3:.3f} ms")
+    mrc = os.path.join(work, "map_again.mrc")
+    t_w, _ = median_run(lambda: write_mrc(fit["dmap"], mrc))
+
+    def read():
+        g = read_map(mrc, 0.0, device=device)
+        torch.cuda.synchronize()
+        return g
+    t_r, g = median_run(read)
+    check(same_bits(g.data, fit["dmap"].data),
+          "MRC: the map read back differs")
+    say(f"MRC of the bench map {fit['dmap'].shape}: write {t_w:.4f} s, "
+        f"read_map(path, 0.0) {t_r:.4f} s, bit for bit")
 
 
 # -- phase 8: heteromer ranking ---------------------------------------------
@@ -2514,7 +2585,7 @@ def hetero_phase(device):
 
 def small_reference(device, cfg):
     import dataclasses
-    from mad_tpu_torch.testing import overlap_tolerance
+    from mad_tpu_torch.testing import assemble_solutions, overlap_tolerance
     small_cfg = cfg.replace(detect=dataclasses.replace(cfg.detect,
                                                        max_anchors=1024))
     kw = dict(n_copies=SMALL["n_copies"], n_res=SMALL["n_res"],
@@ -2535,8 +2606,8 @@ def small_reference(device, cfg):
     a = card["assembly"]
     check(a is not None and a["models"],
           "small reference: the card built no model")
-    h = run_assembly("cpu", None, small_cfg, a["structures"],
-                     card["dmap"].to("cpu"), SMALL["n_copies"])
+    h = assemble_solutions(a["structures"], card["dmap"].to("cpu"),
+                           small_cfg, SMALL["n_copies"], device="cpu")
     tol = np.maximum(
         overlap_tolerance(a["structures"], cfg.assembly, device),
         overlap_tolerance(a["structures"], cfg.assembly, "cpu"))
@@ -3404,6 +3475,8 @@ def surface_checks(device, cfg, bench, work):
     from mad_tpu_torch.ops.scalespace import (build_scale_space,
                                               iter_octaves, prepare)
     from mad_tpu_torch.kernels.gradient import gradient
+    from mad_tpu_torch.native import FastIO
+    from mad_tpu_torch.testing import recording
 
     check(M.__all__ == MAD_TPU_ALL, f"__all__ is {M.__all__}")
     for fn in (M.read_map, M.simulate_density, M.describe_grid,
@@ -3441,9 +3514,12 @@ def surface_checks(device, cfg, bench, work):
     write_sit(dmap, paths[".sit"])
     t_sit = time.perf_counter() - t0
     for ext, path in paths.items():
-        t0 = time.perf_counter()
-        g = M.read_map(path, 0.0)
-        t_read = time.perf_counter() - t0
+        with recording(FastIO, "parse_floats") as floats:
+            t0 = time.perf_counter()
+            g = M.read_map(path, 0.0)
+            t_read = time.perf_counter() - t0
+        check(len(floats) == (ext == ".sit"),
+              f"read_map({ext}): {len(floats)} native float parses")
         check(g.device.type == "cuda", f"read_map({ext}) on {g.device}")
         check(g.shape == dmap.shape and np.allclose(g.origin, dmap.origin,
                                                     atol=1e-6),
@@ -3454,6 +3530,7 @@ def surface_checks(device, cfg, bench, work):
         say(f"read_map({ext}, 0.0): {g.shape} on {g.device}, max diff "
             f"{err:g}; written in {t_mrc if ext == '.mrc' else t_sit:.2f} "
             f"s, read in {t_read:.2f} s")
+    situs_check(paths[".sit"])
 
     shifted = dataclasses.replace(dmap, origin=dmap.origin
                                   + np.array([3.0, -2.0, 1.0]) * dmap.voxsp)
@@ -3536,6 +3613,28 @@ def surface_checks(device, cfg, bench, work):
         f"{len(sols)} solutions, {found}/{N_COPIES} recovered, median best "
         f"CA-RMSD {np.median(best):.3f} A, {t_fn:.2f} s; repeatability of "
         f"its map anchors against the fit's: {rep}")
+
+
+def situs_check(path):
+    """The Situs file's voxel text through the native parse_floats and
+    through np.fromiter (read_map's Python path): the same float64 values
+    bit for bit, each parse's seconds."""
+    from mad_tpu_torch.native import get_fastio
+    with open(path, "rb") as fh:
+        fh.readline()
+        fh.readline()
+        body = fh.read()
+    t0 = time.perf_counter()
+    nat = get_fastio().parse_floats(body)
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = np.fromiter((float(t) for t in body.split()), dtype=np.float64)
+    t_py = time.perf_counter() - t0
+    check(nat.tobytes() == py.tobytes(),
+          "Situs: parse_floats differs from np.fromiter")
+    say(f"Situs voxel text ({len(body) / 1e6:.1f} MB, {nat.size} values): "
+        f"native parse_floats {t_nat:.3f} s, np.fromiter {t_py:.3f} s, "
+        "the same float64 values bit for bit")
 
 
 def nan_map(device):
@@ -3661,6 +3760,259 @@ def regime_checks(device):
         f"PARITY.md's recovery: {misses or 'none'}")
 
 
+# -- phase 13: the scale stress -------------------------------------------
+
+# mad_tpu's scripts/stress_large.py and its documented result (README.md:
+# 16 subunits in a 370x353x336 map, 16/16 recovered, 0.11 A median best
+# CA-RMSD); the port must recover at least STRESS_MIN of 16, the main
+# path's 90 % gate (MIN_RECOVERED of N_COPIES)
+STRESS = dict(n_copies=16, n_res=260, spread=165.0, seed=1)
+STRESS_MAD_TPU = dict(shape=(370, 353, 336), recovered=16, median=0.11)
+STRESS_MIN = 15
+# the main path's kernels the stress's timed pass need not launch: K22
+# (reduce_void runs in the map's build, before the passes)
+STRESS_SKIP = ("axis_flags",)
+
+
+@contextlib.contextmanager
+def octave_spy():
+    """Record (upsampled, real shape, gradient field dtype) of every
+    octave the describes in the block take through
+    engine.pipeline.octave_lanes."""
+    from mad_tpu_torch.engine import pipeline
+    seen, fn = [], pipeline.octave_lanes
+
+    def spy(octv, *a, **k):
+        lanes = fn(octv, *a, **k)
+        seen.append((octv.upsampled, tuple(octv.real_shape),
+                     lanes.grad.dtype))
+        return lanes
+
+    pipeline.octave_lanes = spy
+    try:
+        yield seen
+    finally:
+        pipeline.octave_lanes = fn
+
+
+@contextlib.contextmanager
+def stress_inputs():
+    """Record the arguments of K3 (engine.pipeline's gradient: volume and
+    dtype), K6, K7 (ops.describe's descriptor_hist), K19 and
+    match_pairs in the block, by name."""
+    from mad_tpu_torch.engine import match, pipeline
+    from mad_tpu_torch.kernels import enumerate as k_enum, orient as k6
+    from mad_tpu_torch.ops import describe
+    from mad_tpu_torch.testing import recording
+    with recording(pipeline, "gradient") as k3, \
+            recording(k6, "orient") as k6_calls, \
+            recording(describe, "descriptor_hist") as k7, \
+            recording(k_enum, "enumerate_head") as k19, \
+            recording(match, "match_pairs") as pairs:
+        yield dict(gradient=k3, orient=k6_calls, descriptor_hist=k7,
+                   enumerate_head=k19, match_pairs=pairs)
+
+
+def stress_kernel_checks(rec):
+    """K3, K6, K7 and K19 against their plain versions on the card at the
+    inputs a stress pass gave them (``rec``, stress_inputs'; one K3, K6
+    and K7 call an octave, the map's two octaves then the subunit's, in
+    K4_SHAPES' order): the field each K3 launch wrote, the one K6 and K7
+    then read, bit for bit with gradient_plain of the recorded volume;
+    K6 agreeing on every anchor with frames within K6_RFINAL_TOL, as
+    orient_check holds it at the bench; K7 by k7_checks (flags, rows,
+    times); each K19 head equal to enumerate_head_plain's."""
+    import torch
+    from mad_tpu_torch.kernels import (enumerate as k_enum, gradient as k3,
+                                       orient as k6)
+    from mad_tpu_torch.testing import orient_agreement
+    grads, orients = rec["gradient"], rec["orient"]
+    check(len(grads) == len(orients) == len(K4_SHAPES),
+          f"stress: {len(grads)} K3 and {len(orients)} K6 calls in a pass, "
+          f"not {len(K4_SHAPES)}")
+    for label, (vol, dtype), args in zip(K4_SHAPES, grads, orients):
+        field = args[0]
+        check(field.dtype == dtype and same_bits(
+            field, k3.gradient_plain(vol, dtype)),
+            f"stress K3 {label}: the {dtype} field on {tuple(vol.shape)} "
+            f"differs from the plain version")
+        got, ref = k6.orient(*args), k6.orient_plain(*args)
+        share, dmax, close = orient_agreement(got, ref, K6_RFINAL_TOL)
+        K = got[3].shape[0]
+        check(share == 1.0 and close,
+              f"stress K6 {label}: agrees on {round(share * K)} of {K} "
+              f"anchors, frames within {dmax:g}")
+        say(f"  stress K3 {label}: field {tuple(field.shape)} {field.dtype}"
+            f" bit for bit with the plain version; K6: {K} anchors, "
+            f"{int(got[3].sum())} lanes, all agreeing, frames max diff "
+            f"{dmax:g}")
+    k7_checks(rec["descriptor_hist"], "stress ")
+    heads = rec["enumerate_head"]
+    check(heads, "stress: the assembly ranked no tuple with K19")
+    for ov, tab, head in heads:
+        n, k = tab.shape
+        check(torch.equal(k_enum.enumerate_head(ov, tab, head),
+                          k_enum.enumerate_head_plain(ov, tab, head)),
+              f"stress K19: C({n}, {k}) head {head} differs from the plain "
+              f"version")
+        say(f"  stress K19: C({n}, {k}) = {math.comb(n, k):,} ranks, head "
+            f"{head}, equal to the plain version")
+
+
+def unique_times(label, args):
+    """match_pairs at ``args`` (its arguments) and, on its pairs, its two
+    host np.unique(..., axis=0) calls alone: the median seconds of
+    HOST_IO_REPS calls of each, printed."""
+    from mad_tpu_torch.engine import match
+    map_set, sub_set = args[0], args[1]
+    t_all, pairs = median_run(lambda: match.match_pairs(*args))
+    check(pairs is not None, f"match_pairs {label}: no pair")
+    hi = sub_set.subv_coords[pairs["rows"]]
+    lo = map_set.subv_coords[pairs["cols"]]
+    t_hi, hi_cloud = median_run(lambda: np.unique(hi, axis=0))
+    t_lo, lo_cloud = median_run(lambda: np.unique(lo, axis=0))
+    say(f"  match_pairs {label}: {len(hi)} pairs, {t_all * 1e3:.1f} ms; "
+        f"np.unique of the subunit anchors ({len(hi)} rows -> "
+        f"{len(hi_cloud)}) {t_hi * 1e3:.1f} ms, of the map anchors "
+        f"({len(lo)} rows -> {len(lo_cloud)}) {t_lo * 1e3:.1f} ms")
+
+
+def stress_line(what, r):
+    say(f"stress {what}: {r['seconds']:.3f} s, peak "
+        f"{r['peak'] / 2 ** 30:.3f} GiB, {len(r['sols'])} solutions, "
+        f"{len(r['models'])} models, {r['recovered']}/{STRESS['n_copies']} "
+        f"recovered, median best CA-RMSD {np.median(r['rmsds']):.3f} A "
+        f"(mad_tpu: {STRESS_MAD_TPU['recovered']}/{STRESS['n_copies']}, "
+        f"{STRESS_MAD_TPU['median']} A)")
+
+
+def stress_phase(device):
+    """Phase 13 (the module docstring) after the bench's match_pairs
+    times; returns its seconds."""
+    import torch
+    from mad_tpu_torch import testing as T
+    from mad_tpu_torch.kernels import (KERNELS, bf16_counts, launch_counts,
+                                       reset_launches)
+    from mad_tpu_torch.ops import scalespace
+    t_phase = time.perf_counter()
+    cfg = bench_config()
+    t0 = time.perf_counter()
+    sub, copies, dmap = T.build_system(**STRESS, resolution=RES, voxsp=VOXSP,
+                                       device=device)
+    torch.cuda.synchronize()
+    say(f"stress map {dmap.shape} ({int(np.prod(dmap.shape))} voxels; "
+        f"mad_tpu's {STRESS_MAD_TPU['shape']}) built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    with octave_spy() as seen, stress_inputs() as rec:
+        warm = T.timed_pass(sub, copies, dmap, RES, cfg, device=device)
+    stress_line("warm pass (the kernels' inputs recorded)", warm)
+    (up, up_shape, up_dtype), base = seen[:2]
+    say(f"stress map octaves: {up_shape} ({int(np.prod(up_shape))} voxels) "
+        f"{up_dtype}, {base[1]} ({int(np.prod(base[1]))} voxels) {base[2]}")
+    check(up and up_dtype == torch.bfloat16,
+          f"stress: the upsampled octave {up_shape} keeps a {up_dtype} field")
+    stress_kernel_checks(rec)
+    for i, args in enumerate(rec["match_pairs"]):
+        unique_times(f"stress call {i}", args)
+    del rec
+    torch.cuda.empty_cache()
+    # Warm again: the plain versions leave the allocator holding other
+    # block sizes than the pass's.
+    T.timed_pass(sub, copies, dmap, RES, cfg, device=device)
+    reset_launches()
+    with octave_spy() as seen:
+        timed = T.timed_pass(sub, copies, dmap, RES, cfg, device=device)
+    counts, bf16 = launch_counts(), bf16_counts()
+    stress_line("timed pass (bfloat16 field)", timed)
+    say(f"stress launches: {counts}; with a bfloat16 field: {bf16}; "
+        f"octaves described: {seen}")
+    diff = solution_diff(warm["sols"], timed["sols"])
+    check(not diff, f"stress: the timed pass differs from the warm pass, "
+          f"whose inputs the kernels were held at: {diff}")
+    need = [n for n in KERNELS
+            if n not in MESH_ONLY + ("hetero_head",) + STRESS_SKIP]
+    check(all(counts[n] > 0 for n in need),
+          f"stress: a kernel of the path never launched: {counts}")
+    check(all(v > 0 for v in bf16.values()),
+          f"stress: K3, K6 or K7 made no launch on a bfloat16 field: {bf16}")
+    check((True, up_shape, torch.bfloat16) in seen,
+          f"stress: the map's upsampled octave's field was not bfloat16: "
+          f"{seen}")
+    sols = timed["sols"]
+    check(sols and all(np.isfinite(s.structure.coords).all()
+                       and np.isfinite(s.ccc) for s in sols),
+          "stress: no solution, or a non-finite one")
+    check(timed["recovered"] >= STRESS_MIN,
+          f"stress: {timed['recovered']}/{STRESS['n_copies']} recovered")
+    check(timed["models"] and all(np.isfinite(m.ccc)
+                                  for m in timed["models"]),
+          "stress: no model, or a non-finite model CCC")
+    old = scalespace.BF16_VOXELS
+    scalespace.BF16_VOXELS = int(np.prod(up_shape)) + 1
+    try:
+        reset_launches()
+        with octave_spy() as seen32:
+            f32 = T.timed_pass(sub, copies, dmap, RES, cfg, device=device)
+        bf16_32 = bf16_counts()
+    finally:
+        scalespace.BF16_VOXELS = old
+    stress_line("pass with a float32 field", f32)
+    check((True, up_shape, torch.float32) in seen32
+          and not any(bf16_32.values()),
+          f"stress: the float32 pass read a bfloat16 field: {seen32}")
+    same = [np.asarray(r["rmsds"]) < RECOVER_RMSD for r in (timed, f32)]
+    check(np.array_equal(*same),
+          f"stress: the float32 field recovered other copies: "
+          f"{np.flatnonzero(same[0])} / {np.flatnonzero(same[1])}")
+    say(f"stress: bfloat16 field {timed['seconds']:.3f} s, peak "
+        f"{timed['peak'] / 2 ** 30:.3f} GiB; float32 field "
+        f"{f32['seconds']:.3f} s, peak {f32['peak'] / 2 ** 30:.3f} GiB; the "
+        f"same {int(same[0].sum())} copies recovered")
+    del sub, copies, dmap, warm, timed, f32
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t_phase
+
+
+# -- phase 14: the ensemble at bench scale ----------------------------------
+
+# PARITY.md (c): mad_tpu ranks conf_0 first by RWmCC (its pass condition),
+# mCC and Repeatability; Weight narrowly prefers the 5 A decoy
+ENSEMBLE_PARITY = dict(RWmCC="conf_0", mCC="conf_0", Repeatability="conf_0",
+                       Weight="conf_2")
+
+
+def ensemble_phase(device, root):
+    """Phase 14 (the module docstring); returns its seconds."""
+    import contextlib
+    import io
+    import os
+    import torch
+    from mad_tpu_torch import testing as T
+    from mad_tpu_torch.kernels import launch_counts, reset_launches
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "ensemble")
+    os.makedirs(work)
+    lines = []
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        r = T.run_ensemble_bench(work, device=device, log=lines.append)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for line in lines:
+        say(line)
+    say("ensemble: top by each score " + ", ".join(
+        f"{k} {r['top'][k]} (mad_tpu, PARITY.md (c): {ENSEMBLE_PARITY[k]})"
+        for k in T.ENSEMBLE_SCORES) + "; launches " + ", ".join(
+            f"{k} {counts[k]}" for k in SESSION_KERNELS))
+    check(all(counts[k] > 0 for k in SESSION_KERNELS),
+          f"ensemble: a kernel of {SESSION_KERNELS} never launched: {counts}")
+    check(len(r["rows"]) == 1 + len(T.DECOY_SCALES),
+          f"ensemble: {len(r['rows'])} conformers ranked")
+    check(r["ok"], f"ensemble: {r['top']['RWmCC']} first by RWmCC, not "
+          f"conf_0: {r['rows']}")
+    return time.perf_counter() - t_phase
+
+
 def main():
     global T_START
     import tempfile
@@ -3670,14 +4022,14 @@ def main():
 
 
 def phases(work):
-    """Phases 1-12 (the module docstring); ``work`` is a scratch directory
+    """Phases 1-14 (the module docstring); ``work`` is a scratch directory
     for the sessions' workdirs."""
     import torch
     import mad_tpu_torch  # noqa: F401  (the port must be beside the script)
     device, smi = device_phase()
     build_phase()
     from mad_tpu_torch.kernels import KERNELS, launch_counts, reset_launches
-    from mad_tpu_torch.testing import overlap_tolerance
+    from mad_tpu_torch.testing import assemble_solutions, overlap_tolerance
 
     cfg = bench_config()
     t0 = time.perf_counter()
@@ -3788,8 +4140,8 @@ def phases(work):
     plain_t = {}
     before = launch_counts()
     with plain_versions(assembly_swaps()):
-        p = run_assembly(device, plain_t, cfg, a["structures"], fit["dmap"],
-                         N_COPIES)
+        p = assemble_solutions(a["structures"], fit["dmap"], cfg, N_COPIES,
+                               device=device, timings=plain_t)
     check(launch_counts() == before,
           "a kernel launched with the plain versions swapped in")
     tol = overlap_tolerance(a["structures"], cfg.assembly, device)
@@ -3817,6 +4169,19 @@ def phases(work):
     t12 = surface_phase(device, cfg, bench, work)
     say(f"phases 1-11: {before:.2f} s; phase 12 (public surface and "
         f"regimes): {t12:.2f} s; the script so far "
+        f"{time.perf_counter() - T_START:.2f} s")
+    del session, dmap
+    # phase 13 starts with match_pairs' times on the bench fit's sets,
+    # which are then freed so that the stress's peaks are its own
+    t13 = time.perf_counter()
+    unique_times("bench", (bench["map_set"], bench["sub_set"], cfg.match,
+                           None))
+    del bench
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter() - t13 + stress_phase(device)
+    t14 = ensemble_phase(device, work)
+    say(f"phase 13 (the stress): {t13:.2f} s; phase 14 (the ensemble): "
+        f"{t14:.2f} s; the script so far "
         f"{time.perf_counter() - T_START:.2f} s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -21,6 +21,7 @@ import torch
 
 from ..device import resolve
 from ..kernels.crop_pad import axis_flags, crop_pad
+from ..native import get_fastio
 from .mrc_io import read_mrc as _read_mrc_file
 from .mrc_io import write_mrc as _write_mrc_file
 
@@ -254,7 +255,12 @@ def _read_sit(path: str):
         header = fh.readline().decode().split()
         fh.readline()
         body = fh.read()
-    grid1d = np.fromiter((float(t) for t in body.split()), dtype=np.float64)
+    native = get_fastio()
+    if native is not None:
+        grid1d = native.parse_floats(body)
+    else:
+        grid1d = np.fromiter((float(t) for t in body.split()),
+                             dtype=np.float64)
     voxsp, xi, yi, zi = [float(x) for x in header[:4]]
     xb, yb, zb = [int(x) for x in header[4:7]]
     data = np.reshape(grid1d.astype(np.float32), (xb, yb, zb), order="F")

@@ -1,6 +1,7 @@
 """Copied from mad_tpu/core/structure.py: the ``Structure`` container,
-the pure-Python PDB reader (not the native C parser,
-mad_tpu/native/fastio.c) and the PDB writers.
+the PDB reader (the native C parser of ``mad_tpu_torch/native`` where it
+builds, the pure-Python one otherwise, as in mad_tpu) and the PDB
+writers.
 
 Atomic structure container + PDB reader / writers (host side, numpy).
 """
@@ -12,6 +13,8 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
+
+from ..native import get_fastio
 
 # Atomic masses (reference: mad/PDB.py:220-221).
 ATOMIC_MASS = {
@@ -77,9 +80,40 @@ class Structure:
 
 
 def parse_pdb(path: str) -> Structure:
-    """Fixed-column PDB parser (columns per PDB v3.30, mad/PDB.py:41-69)."""
+    """Fixed-column PDB parser (columns per PDB v3.30, mad/PDB.py:41-69).
+
+    Uses the native C parser (mad_tpu_torch/native/fastio.c) when it
+    builds; otherwise falls back to the pure-Python path below.
+    """
     if not os.path.exists(path):
         raise FileNotFoundError(f"PDB file not found: {path}")
+    native = get_fastio()
+    if native is not None:
+        return _parse_pdb_native(path, native)
+    return _parse_pdb_python(path)
+
+
+def _parse_pdb_native(path: str, native) -> Structure:
+    with open(path, "rb") as fh:
+        raw = fh.read()
+    (coords, serials, resnums, names, res_names, chains, elements,
+     records) = native.parse_pdb_bytes(raw)
+    n = coords.shape[0]
+    if n == 0:
+        raise ValueError(f"No atoms parsed from {path}")
+    masses = np.asarray(
+        [ATOMIC_MASS.get(e.upper(), DEFAULT_MASS) for e in elements],
+        dtype=np.float32)
+    names_arr = np.asarray(names)
+    ca_idx = np.nonzero(names_arr == "CA")[0]
+    bb_idx = np.nonzero(np.isin(names_arr, ("C", "CA", "N", "O")))[0]
+    info = [[int(serials[i]), names[i], res_names[i], chains[i],
+             int(resnums[i]), elements[i], records[i]] for i in range(n)]
+    return Structure(coords=coords, masses=masses, ca_idx=ca_idx,
+                     bb_idx=bb_idx, info=info, source=path)
+
+
+def _parse_pdb_python(path: str) -> Structure:
     coords, info, masses, ca_idx, bb_idx = [], [], [], [], []
     c = 0
     with open(path, "r") as fh:

@@ -100,9 +100,21 @@ COUNTERS = {"log_gauss": "log_launches", "blur_divide": "divide_launches",
             "post_compact": "compact_launches", "crop_pad": "pad_launches"}
 
 
+# the entries that write (K3) or read (K6, K7) a bfloat16 gradient field,
+# the octaves above scalespace.BF16_VOXELS: their ``bf16_launches`` count
+# those launches beside ``launches``
+BF16_ENTRIES = ("gradient", "orient", "descriptor_hist")
+
+
 def reset_launches() -> None:
     for name, (mod, _src, _rep) in KERNELS.items():
         setattr(mod, COUNTERS.get(name, "launches"), 0)
+    for name in BF16_ENTRIES:
+        KERNELS[name][0].bf16_launches = 0
+
+
+def bf16_counts() -> dict:
+    return {name: KERNELS[name][0].bf16_launches for name in BF16_ENTRIES}
 
 
 def launch_counts() -> dict:

@@ -32,6 +32,7 @@ from . import build
 from .orient import zone_table
 
 launches = 0            # kernel launches since the last reset
+bf16_launches = 0       # of those, launches reading a bfloat16 field
 
 
 def descriptor_hist_plain(grad, coords, rfinal, valid, real_shape, lattice,
@@ -180,7 +181,7 @@ def descriptor_hist(grad: torch.Tensor, coords: torch.Tensor,
         return descriptor_hist_plain(grad, coords, rfinal, valid, real_shape,
                                      lattice, regions, bounds, nregions,
                                      cutoff, zero_magn, goff)
-    global launches
+    global launches, bf16_launches
     if grad.dim() != 4 or grad.shape[3] != 3 or grad.dtype not in (
             torch.float32, torch.bfloat16):
         raise ValueError(f"descriptor_hist: need an (X, Y, Z, 3) float32 or "
@@ -214,4 +215,5 @@ def descriptor_hist(grad: torch.Tensor, coords: torch.Tensor,
         slot_zone.data_ptr(), slot_zone.shape[0], float(cutoff),
         float(zero_magn), out.data_ptr(), ok.data_ptr())
     launches += 1
+    bf16_launches += grad.dtype == torch.bfloat16
     return out, ok

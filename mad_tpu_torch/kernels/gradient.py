@@ -22,6 +22,7 @@ import torch
 from . import build
 
 launches = 0            # kernel launches since the last reset
+bf16_launches = 0       # of those, launches writing a bfloat16 field
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # A block's (y, z) columns, the planes it marches along x, the planes it
@@ -55,7 +56,7 @@ def gradient(vol: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     every axis needs at least two samples."""
     if vol.device.type == "cpu":
         return gradient_plain(vol, dtype)
-    global launches
+    global launches, bf16_launches
     if vol.dim() != 3 or vol.dtype != torch.float32 or dtype not in _DTYPES:
         raise ValueError(f"gradient: need a 3D float32 volume and a float32 "
                          f"or bfloat16 output, got {tuple(vol.shape)} "
@@ -72,4 +73,5 @@ def gradient(vol: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
         lib.mad_gradient, vol.device, vol.data_ptr(), X, Y, Z, _DTYPES[dtype],
         out.data_ptr(), WIDE_FROM)
     launches += 1
+    bf16_launches += dtype == torch.bfloat16
     return out

@@ -35,6 +35,7 @@ from ..core.geometry import (matmul3, norm3, rotation_about_z, rows_times,
 from . import build
 
 launches = 0            # kernel launches since the last reset
+bf16_launches = 0       # of those, launches reading a bfloat16 field
 
 # What csrc/orient.cu holds per block: main and secondary slots, zones,
 # and patch samples (the sum of that many weights of 2^40 fits 64 bits).
@@ -163,7 +164,7 @@ def orient(grad, coords, valid, real_shape, tab, radius: int, stride: int,
         return orient_plain(grad, coords, valid, real_shape, tab, radius,
                             stride, max_main, max_sec, cutoff_magn, chunk,
                             goff)
-    global launches
+    global launches, bf16_launches
     if grad.dim() != 4 or grad.shape[3] != 3 or grad.dtype not in (
             torch.float32, torch.bfloat16):
         raise ValueError(f"orient: need an (X, Y, Z, 3) float32 or bfloat16 "
@@ -207,4 +208,5 @@ def orient(grad, coords, valid, real_shape, tab, radius: int, stride: int,
         float(cutoff_magn), mains.data_ptr(),
         secs.data_ptr(), rfin.data_ptr(), ok.data_ptr())
     launches += 1
+    bf16_launches += grad.dtype == torch.bfloat16
     return mains, secs, rfin, ok.bool()

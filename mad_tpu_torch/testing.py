@@ -15,13 +15,18 @@ The scenario helpers (``deform_structure``, ``make_symmetric_assembly``,
 ``degrade_map`` and the regime tables) are copied from
 mad_tpu/testing.py:115-426; the runners ``run_degraded``, ``run_topology``
 and ``run_knob_regime`` take mad_tpu's parameters and a keyword-only
-``device`` and run the port's pipeline there.
+``device`` and run the port's pipeline there. ``run_stress`` and
+``run_ensemble_bench`` run mad_tpu's two large documented workloads
+(scripts/stress_large.py, scripts/ensemble_bench.py) through the port,
+over ``build_system`` (bench.py's) and ``fit_pass`` (its ``run_fit``,
+whose assembly step is ``assemble_solutions``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -333,16 +338,21 @@ def _fit_inputs(copies, resolution: float, voxsp: float, device):
 
 
 def _dock(dmap, moved, resolution: float, cfg, n_copies: int, tag: str,
-          device):
-    """Describe the map and the decoy, dock ``n_copies`` (the runners'
-    common tail)."""
+          device, timings=None):
+    """Describe the map and the decoy (stages ``describe_map`` and
+    ``describe_subunit`` of ``timings``), dock ``n_copies`` (the runners'
+    common tail); returns (map set, decoy set, solutions)."""
     from .engine.docking import dock_structure
     from .engine.pipeline import describe_grid, describe_structure
-    map_set = describe_grid(dmap, cfg, name=f"{tag}_map", device=device)
-    sub_set = describe_structure(moved, resolution, dmap.voxsp, cfg,
-                                 name=f"{tag}_sub", device=device)
-    return dock_structure(map_set, sub_set, moved, dmap, resolution, cfg,
-                          n_copies=n_copies, verbose=False, device=device)
+    from .timing import stage
+    with stage(timings, "describe_map", device):
+        map_set = describe_grid(dmap, cfg, name=f"{tag}_map", device=device)
+    with stage(timings, "describe_subunit", device):
+        sub_set = describe_structure(moved, resolution, dmap.voxsp, cfg,
+                                     name=f"{tag}_sub", device=device)
+    return map_set, sub_set, dock_structure(
+        map_set, sub_set, moved, dmap, resolution, cfg, n_copies=n_copies,
+        verbose=False, device=device, timings=timings)
 
 
 def run_degraded(point: dict, n_copies: int = 3, n_res: int = 110,
@@ -368,7 +378,7 @@ def run_degraded(point: dict, n_copies: int = 3, n_res: int = 110,
     dmap = degrade_map(clean, seed=seed + 100, **kw).reduce_void()
     moved = decoy_transform(sub)
     sols = _dock(dmap, moved, resolution, cfg, n_copies,
-                 f"degr_{point['name']}", device)
+                 f"degr_{point['name']}", device)[2]
     rmsds = [min((s.structure.rmsd_ca_with(c) for s in sols),
                  default=np.inf) for c in copies]
     return dict(name=point["name"], map_shape=tuple(dmap.shape),
@@ -399,7 +409,7 @@ def run_topology(regime: dict, rescue_rounds: int = 1,
                        device).reduce_void()
     moved = decoy_transform(sub)
     sols = _dock(dmap, moved, regime["resolution"], cfg, len(copies),
-                 f"topo_{regime['name']}", device)
+                 f"topo_{regime['name']}", device)[2]
     rmsds, claimed = [], []
     for c in copies:
         per_sol = [s.structure.rmsd_ca_with(c) for s in sols]
@@ -436,7 +446,7 @@ def run_knob_regime(regime: dict, rescue_rounds: int = 0, *, device=None):
                        device).reduce_void()
     moved = decoy_transform(sub)
     sols = _dock(dmap, moved, regime["resolution"], cfg,
-                 regime["n_copies"], f"knob_{regime['name']}", device)
+                 regime["n_copies"], f"knob_{regime['name']}", device)[2]
     rmsds = [min((s.structure.rmsd_ca_with(c) for s in sols),
                  default=np.inf) for c in copies]
     thresh = max(4.0, regime["resolution"] / 2.0)
@@ -445,6 +455,213 @@ def run_knob_regime(regime: dict, rescue_rounds: int = 0, *, device=None):
                 rmsds=rmsds, threshold=thresh,
                 recovered=int(np.sum(np.asarray(rmsds) < thresh)),
                 n_copies=regime["n_copies"])
+
+
+# -- mad_tpu's two large documented workloads (scripts/stress_large.py,
+# scripts/ensemble_bench.py) through the port ---------------------------------
+
+# the ensemble bench's decoy conformers: deform_structure magnitudes (A)
+# (mad_tpu/scripts/ensemble_bench.py:36)
+DECOY_SCALES = (3.0, 5.0, 7.0, 9.0, 12.0, 15.0)
+ENSEMBLE_SCORES = ("Repeatability", "Weight", "mCC", "RWmCC")
+
+
+def _say(line: str) -> None:
+    print(line, flush=True)
+
+
+def build_system(n_copies: int = 10, n_res: int = 260, voxsp: float = 1.4,
+                 resolution: float = 10.0, spread: float = 115.0,
+                 seed: int = 0, shell: bool = True, *, device=None,
+                 timings=None):
+    """bench.py's ``build_system`` on ``device``: ``n_copies`` subunits
+    (a shell, or a ring) simulated at ``resolution`` and
+    ``reduce_void``-ed (stage ``simulate`` of ``timings``); returns
+    (subunit, copies, map)."""
+    from .timing import stage
+    device = resolve(device)
+    sub, copies = make_assembly(n_copies=n_copies, n_res=n_res, seed=seed,
+                                spread=spread, shell=shell)
+    with stage(timings, "simulate", device):
+        dmap = _fit_inputs(copies, resolution, voxsp, device).reduce_void()
+    return sub, copies, dmap
+
+
+def assemble_solutions(structures, dmap, cfg, n_copies: int, *,
+                       device=None, timings=None, max_models: int = 10,
+                       max_overlap: float = 0.1):
+    """bench.py:69-83 on ``device``: the solutions' overlap, the
+    homomultimer ranking of min(``n_copies``, solutions) of them, up to
+    ``max_models`` models CC-scored (bench.py's arguments), each a stage
+    of ``timings`` (``overlap``, ``enumerate``, ``score_models``).
+    Returns a dict of the structures, overlap, tuples and models."""
+    from .engine import assemble as asm
+    from .timing import stage
+    device = resolve(device)
+    with stage(timings, "overlap", device):
+        ov_dev = asm.device_overlap(structures, cfg.assembly, device)
+        overlap = asm.host_overlap(ov_dev)
+    with stage(timings, "enumerate", device):
+        tuples, sums, stds, maxs = asm.enumerate_homomultimer(
+            len(structures), min(n_copies, len(structures)), overlap,
+            device=device, overlap_dev=ov_dev)
+    with stage(timings, "score_models", device):
+        models = asm.score_models(tuples, sums, stds, maxs, structures, dmap,
+                                  cfg.assembly, max_models, max_overlap)
+    asm.pop_enum_notes()
+    return dict(structures=structures, overlap=overlap, tuples=tuples,
+                models=models)
+
+
+def fit_pass(sub, copies, dmap, resolution: float, cfg, *, device=None,
+             timings=None):
+    """bench.py's ``run_fit`` on ``device``: the map and the decoy
+    described (stages ``describe_map``, ``describe_subunit``),
+    ``len(copies)`` copies docked (the dock's stages), then, with two
+    solutions or more, :func:`assemble_solutions`. Returns a dict of the
+    decoy (``moved``), both DescriptorSets, the solutions (``sols``), the
+    assembly (None under two solutions) and its models."""
+    device = resolve(device)
+    moved = decoy_transform(sub)
+    map_set, sub_set, sols = _dock(dmap, moved, resolution, cfg, len(copies),
+                                   "bench", device, timings)
+    assembly = None
+    if len(sols) >= 2:
+        assembly = assemble_solutions([s.structure for s in sols], dmap, cfg,
+                                      len(copies), device=device,
+                                      timings=timings)
+    return dict(moved=moved, map_set=map_set, sub_set=sub_set, sols=sols,
+                assembly=assembly,
+                models=assembly["models"] if assembly else [])
+
+
+def timed_pass(sub, copies, dmap, resolution: float, cfg, *, device=None):
+    """:func:`fit_pass` timed (synchronized on the card). Returns its
+    host results only, so that a caller holding them leaves the next
+    pass's peak as it was: the solutions (``sols``), the models, the
+    seconds, the peak device memory (bytes, None off the card), each
+    copy's best CA-RMSD and the copies recovered (best CA-RMSD < 10 A)."""
+    device = resolve(device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    r = fit_pass(sub, copies, dmap, resolution, cfg, device=device)
+    if cuda:
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    sols = r["sols"]
+    rmsds = [min((s.structure.rmsd_ca_with(c) for s in sols),
+                 default=np.inf) for c in copies]
+    return dict(sols=sols, models=r["models"], seconds=seconds, peak=peak,
+                rmsds=rmsds, recovered=int(np.sum(np.asarray(rmsds) < 10.0)))
+
+
+def run_stress(n_copies: int = 16, n_res: int = 260, spread: float = 165.0,
+               seed: int = 1, rescue_rounds: int = 1,
+               resolution: float = 10.0, voxsp: float = 1.4,
+               passes: int = 2, *, device=None, log=_say):
+    """mad_tpu's scale stress (scripts/stress_large.py) through the port
+    on ``device``: ``n_copies`` subunits in one map (mad_tpu's is
+    370x353x336, 44 M voxels; its upsampled octave passes the bfloat16
+    gate of the gradient field), one rescue round, ``passes`` fits of
+    bench.py's chain (:func:`timed_pass`), each printed as mad_tpu prints
+    it (``log``) with its peak device memory. Returns the map, its
+    octaves' (real shape, gradient field dtype) as ``iter_octaves`` makes
+    them, and the passes' results."""
+    from .core.config import MadConfig
+    from .ops.scalespace import iter_octaves
+    device = resolve(device)
+    cfg = MadConfig()
+    cfg = cfg.replace(filter=dataclasses.replace(
+        cfg.filter, rescue_rounds=rescue_rounds))
+    t0 = time.perf_counter()
+    sub, copies, dmap = build_system(n_copies, n_res, voxsp, resolution,
+                                     spread, seed, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    fields = [(o.real_shape, o.grad_dtype())
+              for _org, o in iter_octaves(dmap, cfg.scalespace)]
+    log(f"stress> map {dmap.shape} ({np.prod(dmap.shape) / 1e6:.0f} M vox) "
+        f"built in {time.perf_counter() - t0:.1f}s; octaves "
+        + ", ".join(f"{s} {str(d).split('.')[-1]} field"
+                    for s, d in fields))
+    out = []
+    for i in range(passes):
+        r = timed_pass(sub, copies, dmap, resolution, cfg, device=device)
+        peak = ("" if r["peak"] is None
+                else f", peak {r['peak'] / 2 ** 30:.2f} GiB")
+        log(f"stress> pass {i}: {r['seconds']:.1f}s, "
+            f"{len(r['sols'])} solutions, {len(r['models'])} models, "
+            f"{r['recovered']}/{n_copies} recovered, median best CA-RMSD "
+            f"{np.median(r['rmsds']):.2f} A{peak}")
+        out.append(r)
+    return dict(map_shape=tuple(dmap.shape), fields=fields, copies=copies,
+                sub=sub, dmap=dmap, cfg=cfg, passes=out)
+
+
+def run_ensemble_bench(workdir: str, n_copies: int = 10, n_res: int = 260,
+                       spread: float = 115.0, seed: int = 0,
+                       resolution: float = 10.0, voxsp: float = 1.4,
+                       scales=DECOY_SCALES, *, device=None, log=_say):
+    """mad_tpu's ensemble bench (scripts/ensemble_bench.py:38-90) through
+    the port's ``MaD`` session on ``device``: the bench system's map and
+    conformers conf_0 (the true subunit) and conf_i = deform_structure(
+    sub, scales[i - 1], seed=i), docked as one ensemble of ``n_copies``
+    copies under ``workdir``; ``score_ensembles`` ranks them. Prints the
+    conformer ladder, the seconds of ``run`` and ``score_ensembles`` and
+    the top conformer by each score (``log``). Passes when conf_0 is
+    first by RWmCC, the MaD score (mad_tpu's condition); the other three
+    columns are printed."""
+    import os
+    from .api import MaD
+    from .core.grid import write_mrc
+    from .core.structure import write_pdb
+    device = resolve(device)
+    t0 = time.perf_counter()
+    sub, _copies, dmap = build_system(n_copies, n_res, voxsp, resolution,
+                                      spread, seed, device=device)
+    map_path = os.path.join(workdir, "bench_map.mrc")
+    write_mrc(dmap, map_path)
+    ens = os.path.join(workdir, "conformers")
+    os.makedirs(ens)
+    write_pdb(sub, os.path.join(ens, "conf_0.pdb"))
+    ladder = [0.0]
+    for i, scale in enumerate(scales, start=1):
+        d = deform_structure(sub, scale, seed=i)
+        ladder.append(float(np.sqrt(((d.coords[d.ca_idx]
+                                      - sub.coords[sub.ca_idx]) ** 2)
+                                    .sum(-1).mean())))
+        write_pdb(d, os.path.join(ens, f"conf_{i}.pdb"))
+    log(f"ens-bench> system built in {time.perf_counter() - t0:.1f}s; "
+        f"conformer CA-RMSD ladder: {', '.join(f'{r:.2f}' for r in ladder)}"
+        " A")
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    mad = MaD(workdir=workdir, device=device)
+    mad.add_map(map_path, resolution=resolution)
+    mad.add_subunit(ens, n_copies=n_copies, identifier="conformers")
+    mad.run(transform_subunits=True)
+    if cuda:
+        torch.cuda.synchronize(device)
+    t_run = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = mad.score_ensembles()["conformers"]
+    t_score = time.perf_counter() - t0
+    log(f"ens-bench> run {t_run:.1f}s, score_ensembles {t_score:.1f}s")
+    top = {}
+    for col, name in enumerate(ENSEMBLE_SCORES, start=1):
+        by = sorted(rows, key=lambda r: r[col], reverse=True)
+        top[name] = by[0][0]
+        log(f"ens-bench> top by {name}: {top[name]} "
+            f"({', '.join(f'{r[0]}={r[col]:.2f}' for r in by[:3])})")
+    ok = top["RWmCC"] == "conf_0"
+    log(f"ens-bench> true conformer first by MaD score: {ok} (first on "
+        f"{sum(t == 'conf_0' for t in top.values())}/4 printed rankings)")
+    return dict(ladder=ladder, rows=rows, top=top, ok=ok, t_run=t_run,
+                t_score=t_score, mad=mad, map_shape=tuple(dmap.shape))
 
 
 @contextlib.contextmanager

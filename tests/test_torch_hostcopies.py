@@ -4,9 +4,9 @@ neither JAX nor mad_tpu.
 
 The copies (core/config.py, core/eqsp.py, core/structure.py,
 core/mrc_io.py, testing.py, engine/cluster.py, the writers of
-core/grid.py) are numpy code carried over without their JAX imports (and,
-for core/structure.py, without the native parser), so they are held to
-exact equality. The filter_pairs copy, the geometry port, the convert
+core/grid.py) are numpy code carried over without their JAX imports, so
+they are held to exact equality (core/structure.py's parse_pdb takes the
+port's native parser where it builds: tests/test_torch_native.py). The filter_pairs copy, the geometry port, the convert
 constructors and the writers (byte-identical files) are held in
 tests/test_torch_hostcopies_writers.py: no port test file holds more than
 8 tests (ROADMAP, "Known race").
