@@ -142,7 +142,16 @@ Phases, each of which raises (non-zero exit) when it fails:
      HOST_IO_REPS: parse_pdb of the bench subunit and of the sol_*.pdb
      files, native beside the Python parser (equal Structures),
      write_complex of the solutions, write_pdb of the subunit, the bench
-     map's MRC write and read (bit for bit);
+     map's MRC write and read (bit for bit); then the matching cache: the
+     timed fit's sets docked twice with dock_structure(match_cache=) in
+     a fresh directory, the miss equal to the timed fit's solutions and
+     the hit to the miss, bit for bit, the hit launching none of K10-K13
+     or K21 (both docks' seconds printed); and the card's witness
+     (mad_tpu_torch/witness.py, tests/torch_witness/bench_h100.json,
+     written by scripts/torch_witness.py): the timed fit's map, both
+     DescriptorSets, the cached match table (K12 over every pair), the
+     solutions and the models recorded and held to the committed file
+     under the bench's tolerances, every stage;
   8. a heteromer ranking (16^5 tuples over 80 solutions, seeded random
      overlap) with the counters reset first: K20 must launch (it stages
      the overlap itself), and the plain versions on the card must give
@@ -236,7 +245,9 @@ Phases, each of which raises (non-zero exit) when it fails:
      (conf_0 and six deform_structure decoys at 3-15 A) through the MaD
      session, 10 copies, on the card, the launch counters reset first;
      the session's kernels must launch and conf_0 be first by RWmCC, the
-     other three scores printed beside PARITY.md (c)'s (ENSEMBLE_PARITY).
+     other three scores printed beside mad_tpu's on the same inputs on
+     the CPU (ENSEMBLE_PARITY); the seven score_ensembles rows and each
+     conformer's solutions held to the witness.
 The last three lines are the kernel report (JSON), the nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
@@ -2548,6 +2559,76 @@ def host_io_checks(device, fit, work, sub_path, files, sols):
         f"read_map(path, 0.0) {t_r:.4f} s, bit for bit")
 
 
+# -- phase 7, second part: the matching cache and the card's witness --------
+
+# K10's head, K11, K12, K13 and K21: the match stage, which a cache hit skips
+MATCH_KERNELS = ("pair_head", "anchor_field", "approx_repeat", "exact_repeat",
+                 "select_exact")
+
+
+def cache_witness_phase(device, cfg, fit, root, smi):
+    """The timed fit's sets docked twice with a matching cache in a fresh
+    directory under ``root``: the first dock (a miss) writes the match
+    table and gives the timed fit's solutions bit for bit; the second (a
+    hit) launches none of MATCH_KERNELS and gives the first's solutions bit
+    for bit. Then the fit's record (``mad_tpu_torch.witness``: the map,
+    both DescriptorSets, that table with K12 over every pair, the
+    solutions and the models) is held to the committed witness under the
+    bench's tolerances (every stage must hold)."""
+    import os
+    import torch
+    from mad_tpu_torch import cache
+    from mad_tpu_torch import witness as W
+    from mad_tpu_torch.engine.docking import dock_structure
+    from mad_tpu_torch.kernels import launch_counts, reset_launches
+    work = os.path.join(root, "match_cache")
+    os.makedirs(work)
+    n_rows = cfg.filter.n_samples * N_COPIES
+    path = cache.matching_filename(work, "bench_sub",
+                                   cfg.match.cc_threshold,
+                                   cfg.filter.weight_threshold, n_rows)
+    secs, sols, counts = [], [], []
+    for _ in range(2):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sols.append(dock_structure(
+            fit["map_set"], fit["sub_set"], fit["moved"], fit["dmap"], RES,
+            cfg, N_COPIES, False, path, device=device))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts.append({k: launch_counts()[k] for k in MATCH_KERNELS})
+    say(f"matching cache ({smi}): miss {secs[0]:.4f} s (writes "
+        f"{os.path.basename(path)}, {os.path.getsize(path)} bytes), hit "
+        f"{secs[1]:.4f} s; launches miss {counts[0]}, hit {counts[1]}")
+    check(all(counts[0].values()),
+          f"matching cache: the miss skipped a match kernel: {counts[0]}")
+    check(not any(counts[1].values()),
+          f"matching cache: the hit launched a match kernel: {counts[1]}")
+    diff = solution_diff(fit["sols"], sols[0])
+    check(not diff, f"matching cache: the miss differs from the fit: {diff}")
+    diff = solution_diff(sols[0], sols[1])
+    check(not diff, f"matching cache: the hit differs from the miss: {diff}")
+    say(f"matching cache: miss = the timed fit's {len(sols[0])} solutions "
+        "and hit = miss, bit for bit")
+    table = cache.load_matching(path)
+    approx = W.approx_all(table, fit["dmap"], cfg.match, device)
+    rec = W.fit_record(fit["dmap"], fit["map_set"], fit["sub_set"], table,
+                       n_rows, fit["sols"], fit["moved"], fit["copies"],
+                       fit["models"], approx)
+    w = W.load()
+    moved = fit["moved"]
+    stages = W.hold_fit(w["fit"], rec,
+                        np.asarray(moved.coords, np.float64)[moved.ca_idx])
+    for st in stages:
+        say(f"witness ({w['card']}, {w['commit']}): {st}")
+    first = W.first_difference(stages)
+    check(first is None, f"witness: this run differs from the committed "
+          f"witness first at {first}")
+    say("witness: every stage holds (map, both DescriptorSets, the match "
+        "table, the decoy, solutions, models, 10/10)")
+
+
 # -- phase 8: heteromer ranking ---------------------------------------------
 
 def hetero_phase(device):
@@ -3975,10 +4056,12 @@ def stress_phase(device):
 
 # -- phase 14: the ensemble at bench scale ----------------------------------
 
-# PARITY.md (c): mad_tpu ranks conf_0 first by RWmCC (its pass condition),
-# mCC and Repeatability; Weight narrowly prefers the 5 A decoy
+# mad_tpu's ranking on these inputs, its MaD session on the CPU
+# (tests/test_torch_bench_parity_slow.py::test_ensemble): conf_0 first by
+# all four scores, Weight 35.56 against conf_2's 21.42 (the pass condition
+# is RWmCC's)
 ENSEMBLE_PARITY = dict(RWmCC="conf_0", mCC="conf_0", Repeatability="conf_0",
-                       Weight="conf_2")
+                       Weight="conf_0")
 
 
 def ensemble_phase(device, root):
@@ -4001,7 +4084,7 @@ def ensemble_phase(device, root):
     for line in lines:
         say(line)
     say("ensemble: top by each score " + ", ".join(
-        f"{k} {r['top'][k]} (mad_tpu, PARITY.md (c): {ENSEMBLE_PARITY[k]})"
+        f"{k} {r['top'][k]} (mad_tpu on the CPU: {ENSEMBLE_PARITY[k]})"
         for k in T.ENSEMBLE_SCORES) + "; launches " + ", ".join(
             f"{k} {counts[k]}" for k in SESSION_KERNELS))
     check(all(counts[k] > 0 for k in SESSION_KERNELS),
@@ -4010,6 +4093,12 @@ def ensemble_phase(device, root):
           f"ensemble: {len(r['rows'])} conformers ranked")
     check(r["ok"], f"ensemble: {r['top']['RWmCC']} first by RWmCC, not "
           f"conf_0: {r['rows']}")
+    from mad_tpu_torch import witness as W
+    e = W.hold_ensemble(W.load()["ensemble"],
+                        W.ensemble_record(r["rows"], r["mad"].solutions))
+    say(f"ensemble against the witness: {e}")
+    check(e["ok"], f"ensemble: this run differs from the committed "
+          f"witness: {e}")
     return time.perf_counter() - t_phase
 
 
@@ -4153,6 +4242,7 @@ def phases(work):
         f"max diff {e_ccc:g})")
     del a, p
     session = session_phase(device, cfg, fit, work)
+    cache_witness_phase(device, cfg, fit, work, smi)
     bench = {k: fit[k] for k in ("map_set", "sub_set", "moved", "dmap",
                                  "copies")}
     dmap = fit["dmap"]

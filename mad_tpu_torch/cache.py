@@ -1,12 +1,12 @@
 """Copied from mad_tpu/cache.py: the content-addressed descriptor cache
-(``dsc_db/``) and the pose-search checkpoint (``pose_db/``). Where
-``h5py`` imports, both are written as mad_tpu's HDF5 files, the same
-names, datasets, types and attribute, so the port and mad_tpu (or MaD)
-reuse each other's caches. Where it does not (it is not a dependency of
-the port), they are numpy ``.npz`` files with the same names but the
-suffix and the same keys. A file is read by its suffix: an ``.h5`` file
-needs ``h5py``, and a failed read raises. The matching cache is not
-copied.
+(``dsc_db/``), the matching cache (``dock_structure(match_cache=)``) and
+the pose-search checkpoint (``pose_db/``). Where ``h5py`` imports, all
+three are written as mad_tpu's HDF5 files, the same names, datasets,
+types and attribute, so the port and mad_tpu (or MaD) reuse each other's
+caches. Where it does not (it is not a dependency of the port), they are
+numpy ``.npz`` files with the same names but the suffix and the same
+keys. A file is read by its suffix: an ``.h5`` file needs ``h5py``, and a
+failed read raises.
 
 Parity with the reference's dsc_db/ store (mad/MaD.py:116-162, 848-875,
 mad/Descriptor.py:226-254): same dataset names ('dsc', 'info', 'coords',
@@ -104,6 +104,37 @@ def load_descriptors(path: str, name: str = "", device="cuda"
         subeqsp_size=int(info[0, 5]) if n else 16,
         name=name or os.path.splitext(os.path.basename(path))[0],
         device=device)
+
+
+def matching_filename(out_folder: str, key: str, cc_threshold: float,
+                      weight_threshold: int, n_samples: int) -> str:
+    """Reference-compatible matching-cache key (mad/MaD.py:387)."""
+    return os.path.join(
+        out_folder,
+        f"matching_{key}_cc{cc_threshold:.2f}_w{weight_threshold}"
+        f"_samples{n_samples}{suffix()}")
+
+
+def save_matching(table, path: str) -> None:
+    """Persist a MatchTable (working version of the reference's
+    commented-out matching cache, mad/MaD.py:386-399, 877-889)."""
+    _write(path, {}, dict(
+        cc=table.cc, repeat=table.repeat, hi_idx=table.hi_idx,
+        lo_idx=table.lo_idx, rot=table.rot, hi_coord=table.hi_coord,
+        lo_coord=table.lo_coord, map_anchors=table.lo_cloud,
+        comp_anchors=table.hi_cloud))
+
+
+def load_matching(path: str):
+    """The cached table as the port's MatchTable (host arrays), whichever
+    package wrote it."""
+    from .engine.match import MatchTable
+    with _read(path) as (_attrs, f):
+        return MatchTable(
+            cc=f["cc"], repeat=f["repeat"], hi_idx=f["hi_idx"],
+            lo_idx=f["lo_idx"], rot=f["rot"], hi_coord=f["hi_coord"],
+            lo_coord=f["lo_coord"], hi_cloud=f["comp_anchors"],
+            lo_cloud=f["map_anchors"])
 
 
 # ---------------------------------------------------------------------------

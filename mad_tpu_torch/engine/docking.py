@@ -24,12 +24,14 @@ either. The solutions are the single-device ones.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from .. import cache
 from ..core.config import FilterConfig, MadConfig
 from ..core.grid import DensityGrid
 from ..core.structure import Structure
@@ -210,13 +212,19 @@ def _finalize_solutions(solutions: List[Solution], sub_struct: Structure,
 def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
                    sub_struct: Structure, dmap: DensityGrid,
                    resolution: float, cfg: MadConfig, n_copies: int = 1,
-                   verbose: bool = True, *, on_filtered=None,
-                   mesh: Optional[Mesh] = None, device=None,
-                   timings: Optional[dict] = None) -> List[Solution]:
+                   verbose: bool = True, match_cache: str = None, *,
+                   on_filtered=None, mesh: Optional[Mesh] = None,
+                   device=None, timings: Optional[dict] = None
+                   ) -> List[Solution]:
     """Dock one subunit into the map on ``device`` (the card unless named);
     returns scored unique solutions, best first. ``timings``: optional
     dict that collects seconds per stage (match, cluster, refine, post,
     score).
+    ``match_cache``: optional path (mad_tpu's): when the file exists the
+    match table is loaded from it (``cache.load_matching``, a file that
+    mad_tpu or the port wrote) and the first round's match stage is
+    skipped; otherwise the table that ``match_descriptors`` returns is
+    saved to it. The rescue rounds re-score from the table as usual.
     ``on_filtered``: optional callback receiving the first round's filtered
     pre-refinement Candidate list (the reference's pre_solutions hook,
     mad/MaD.py:404-405, 891-921).
@@ -225,13 +233,20 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
     device = (run_device(mesh, device) if mesh is not None
               else resolve(device))
     n_samples = cfg.filter.n_samples * n_copies
-    with stage(timings, "match", device):
-        # Clustering consumes the top n_samples pairs by repeatability;
-        # their ordering must be exact, not approximate (min_exact).
-        table = match_descriptors(map_set, sub_set, dmap.shape, dmap.origin,
-                                  dmap.voxsp, cfg.match,
-                                  min_exact=n_samples, device=device,
-                                  mesh=mesh)
+    if match_cache and os.path.exists(match_cache):
+        table = cache.load_matching(match_cache)
+        if verbose:
+            print(f"MaD> Loaded matched descriptor pairs from {match_cache}")
+    else:
+        with stage(timings, "match", device):
+            # Clustering consumes the top n_samples pairs by repeatability;
+            # their ordering must be exact, not approximate (min_exact).
+            table = match_descriptors(map_set, sub_set, dmap.shape,
+                                      dmap.origin, dmap.voxsp, cfg.match,
+                                      min_exact=n_samples, device=device,
+                                      mesh=mesh)
+        if match_cache:
+            cache.save_matching(table, match_cache)
     if verbose:
         print(f"MaD> {table.n} descriptor pairs above "
               f"cc={cfg.match.cc_threshold:.2f}")

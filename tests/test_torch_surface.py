@@ -26,10 +26,10 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # Parameters of mad_tpu that the port leaves behind (TPU-host workarounds,
-# ROADMAP ground rules): the matching cache, the frame group of the
-# describe thread pool, the static frame rungs and the exact-peak switch of
-# the approximate-peak guard.
-LEFT_BEHIND = {"dock_structure": {"match_cache", "frame_group"},
+# ROADMAP ground rules): the frame group of the describe thread pool, the
+# static frame rungs and the exact-peak switch of the approximate-peak
+# guard.
+LEFT_BEHIND = {"dock_structure": {"frame_group"},
                "describe_grid": {"_caps", "_exact"}}
 # The port's own parameters: where to run and the per-stage seconds.
 PORT_ONLY = {"device", "timings"}
