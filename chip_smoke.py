@@ -28,8 +28,10 @@ Phases, each of which raises (non-zero exit) when it fails:
      asserted); K6 on every anchor of both octaves, equal
      on every anchor, and on the base octave also at patch sizes 12 and
      24 and with a Gaussian window (>= 99 % of the anchors), each
-     launched twice; K15 on the first-round candidates (its steps, and
-     the kernel alone beside the wrapper); the matching
+     launched twice; K15 on the first-round candidates, on the float32
+     gradient field and on the bfloat16 one of RefineConfig.field_dtype
+     "bfloat16" (its steps, the kernel alone beside the wrapper, the
+     plain version and the bound, each field's bytes); the matching
      front on the bench's pairs: K10's head, K11 and K14 equal, K12 equal
      on every pair (those with a moved anchor within 1e-4 voxel of a .5
      rounding edge counted, and among them those whose edge is on the
@@ -151,7 +153,14 @@ Phases, each of which raises (non-zero exit) when it fails:
      written by scripts/torch_witness.py): the timed fit's map, both
      DescriptorSets, the cached match table (K12 over every pair), the
      solutions and the models recorded and held to the committed file
-     under the bench's tolerances, every stage;
+     under the bench's tolerances, every stage; then the refinement's
+     bfloat16 field: the timed fit's sets docked with field_dtype float32,
+     "bfloat16", "bfloat16", float32, the launch counters reset before
+     each dock; the float32 docks must give the timed fit's solutions bit
+     for bit and no K15 launch on a bfloat16 field, the bfloat16 docks
+     every K15 launch on one (report row refine_bf16) and >= 9/10 copies
+     (each dock's refine seconds and peak memory printed, and the CA-RMSD
+     between the two fields' best poses of each copy);
   8. a heteromer ranking (16^5 tuples over 80 solutions, seeded random
      overlap) with the counters reset first: K20 must launch (it stages
      the overlap itself), and the plain versions on the card must give
@@ -247,7 +256,15 @@ Phases, each of which raises (non-zero exit) when it fails:
      the session's kernels must launch and conf_0 be first by RWmCC, the
      other three scores printed beside mad_tpu's on the same inputs on
      the CPU (ENSEMBLE_PARITY); the seven score_ensembles rows and each
-     conformer's solutions held to the witness.
+     conformer's solutions held to the witness;
+ 15. the port's notebooks (docs/WALKTHROUGH_torch.ipynb,
+     docs/TEMPLATE_torch.ipynb, NOTEBOOKS): every code cell executed in
+     order on the card in a fresh directory (testing.run_notebook), the
+     launch counters reset before each notebook; the notebooks' own
+     asserts must hold (the homomer's best CA-RMSD below 4 A), the
+     session's kernels launch, the first session (``mad``) write its
+     assembly models and the ensemble ranking be non-empty; each
+     notebook's seconds.
 The last three lines are the kernel report (JSON), the nvidia-smi line and
 {"ok": true, "device": {...}}.
 """
@@ -868,7 +885,7 @@ def kernel_checks(fit, cfg, device):
     out.update(match_kernel_checks(fit, cfg, device))
     out.update(assembly_kernel_checks(fit, cfg, device))
     out["orient"] = orient_check(fit, cfg, device)
-    out["refine"] = refine_check(fit, cfg, device)
+    out.update(refine_check(fit, cfg, device))
     out.update(describe_checks(fit, cfg, device))
     out.update(post_ccc_checks(fit, cfg, device))
     out.update(select_pad_checks(fit, cfg, device))
@@ -2078,9 +2095,14 @@ def orient_work(args, out, chunk=32):
 
 def refine_check(fit, cfg, device):
     """K15 against refine_loop_plain on the bench's first-round candidates
-    (the start poses that docking's first refinement takes): the same
-    failed flags, final CA-RMSD to the plain version <= SMALL_POSE_TOL for
-    every candidate and <= K15_MEDIAN in the median."""
+    (the start poses that docking's first refinement takes), on the
+    float32 gradient field and on the bfloat16 one that
+    RefineConfig.field_dtype "bfloat16" gives the bench map (below
+    mad_tpu's 67 M voxel gate): the same failed flags, final CA-RMSD to the
+    plain version <= SMALL_POSE_TOL for every candidate and <= K15_MEDIAN
+    in the median. Returns the two report entries, "refine" and
+    "refine_bf16"."""
+    import torch
     from mad_tpu_torch.engine.cluster import filter_pairs
     from mad_tpu_torch.engine.docking import start_poses
     from mad_tpu_torch.engine.match import match_descriptors
@@ -2094,40 +2116,60 @@ def refine_check(fit, cfg, device):
                               cfg.match, min_exact=n_samples, device=device)
     cands = filter_pairs(table, s.main_bin[table.hi_idx],
                          m.main_bin[table.lo_idx], cfg.filter, n_samples)
-    args = refine_inputs(dmap, start_poses(cands, moved), device)
+    starts = start_poses(cands, moved)
     rc = cfg.refine
-    got = k15.refine_loop(*args, rc)
-    ref = k15.refine_loop_plain(*args, rc)
-    failed = ref[5].cpu().numpy()
-    check(np.array_equal(got[5].cpu().numpy(), failed),
-          "K15 failed flags differ")
-    d = ca_rmsds(got[2].cpu().numpy(), ref[2].cpu().numpy(),
-                 moved.ca_idx)[~failed]
-    check(len(d) and d.max() <= SMALL_POSE_TOL
-          and np.median(d) <= K15_MEDIAN,
-          f"K15 final CA-RMSD to plain: max {d.max():g}, median "
-          f"{np.median(d):g}")
-    steps = got[4].cpu().numpy()
-    C, N = args[1].shape[:2]
-    touched = field_voxels(args[1], got[2], args[4], dmap.shape)
-    nbytes = (touched * 12 + C * N * 12 * 2 + C * (12 + 4 + 36 + 12 + 6)
-              + 28)
-    r = measure(float((got[2] - ref[2]).abs().max()),
-                lambda: k15.refine_loop(*args, rc),
-                lambda: k15.refine_loop_plain(*args, rc), nbytes,
-                int(steps.sum()) * N * REFINE_FLOPS)
-    r["kernel_ms"] = alone_ms(lambda: k15.refine_loop(*args, rc))
-    q = np.quantile(d, [0.0, 0.5, 0.9, 1.0])
-    say(f"  K15: C {C} candidates x N {N} atoms, {int(failed.sum())} "
-        f"failed, steps {int(steps.min())}-{int(steps.max())} "
-        f"(sum {int(steps.sum())}); CA-RMSD to plain min/median/p90/max "
-        f"{q[0]:.4f}/{q[1]:.4f}/{q[2]:.4f}/{q[3]:.4f} A, "
-        f"{int((d > K15_MEDIAN).sum())} above {K15_MEDIAN}; kernel alone "
-        f"{r['kernel_ms']:.4f} ms ({r['kernel_ms'] / steps.max() * 1e3:.3f}"
-        f" us a step of the longest candidate; kCluster "
-        f"{build.constants('refine.cu')['kCluster']}), wrapper "
-        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms")
-    return r
+    out = {}
+    for name, dtype in (("refine", "float32"), ("refine_bf16", "bfloat16")):
+        args = refine_inputs(dmap, starts, device, dtype)
+        field = args[0]
+        check(field.dtype == getattr(torch, dtype),
+              f"K15: the bench map's {dtype} field is {field.dtype}")
+        got = k15.refine_loop(*args, rc)
+        ref = k15.refine_loop_plain(*args, rc)
+        failed = ref[5].cpu().numpy()
+        check(np.array_equal(got[5].cpu().numpy(), failed),
+              f"K15 ({dtype} field) failed flags differ")
+        d = ca_rmsds(got[2].cpu().numpy(), ref[2].cpu().numpy(),
+                     moved.ca_idx)[~failed]
+        check(len(d) and d.max() <= SMALL_POSE_TOL
+              and np.median(d) <= K15_MEDIAN,
+              f"K15 ({dtype} field) final CA-RMSD to plain: max "
+              f"{d.max():g}, median {np.median(d):g}")
+        steps = got[4].cpu().numpy()
+        C, N = args[1].shape[:2]
+        # the field's bytes under every interpolation corner touched, once
+        touched = field_voxels(args[1], got[2], args[4], dmap.shape)
+        nbytes = (touched * 3 * field.element_size() + C * N * 12 * 2
+                  + C * (12 + 4 + 36 + 12 + 6) + 28)
+        r = measure(float((got[2] - ref[2]).abs().max()),
+                    lambda: k15.refine_loop(*args, rc),
+                    lambda: k15.refine_loop_plain(*args, rc), nbytes,
+                    int(steps.sum()) * N * REFINE_FLOPS)
+        r["kernel_ms"] = alone_ms(lambda: k15.refine_loop(*args, rc))
+        r["field_bytes"] = field.numel() * field.element_size()
+        out[name] = r
+        q = np.quantile(d, [0.0, 0.5, 0.9, 1.0])
+        say(f"  K15 ({dtype} field, {r['field_bytes'] / 1e6:.1f} MB, "
+            f"{touched} voxels touched): C {C} candidates x N {N} atoms, "
+            f"{int(failed.sum())} failed, steps "
+            f"{int(steps.min())}-{int(steps.max())} (sum "
+            f"{int(steps.sum())}); CA-RMSD to plain min/median/p90/max "
+            f"{q[0]:.4f}/{q[1]:.4f}/{q[2]:.4f}/{q[3]:.4f} A, "
+            f"{int((d > K15_MEDIAN).sum())} above {K15_MEDIAN}; kernel "
+            f"alone {r['kernel_ms']:.4f} ms "
+            f"({r['kernel_ms'] / steps.max() * 1e3:.3f} us a step of the "
+            f"longest candidate; kCluster "
+            f"{build.constants('refine.cu')['kCluster']}), wrapper "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+        del args, field, got, ref
+    a, b = out["refine"], out["refine_bf16"]
+    say(f"  K15 bfloat16 / float32 field: alone {b['kernel_ms']:.4f} / "
+        f"{a['kernel_ms']:.4f} ms, wrapper {b['ms']:.4f} / {a['ms']:.4f} ms,"
+        f" plain {b['plain_ms']:.3f} / {a['plain_ms']:.3f} ms, bound "
+        f"{b['bound_ms']:.6f} / {a['bound_ms']:.6f} ms, field "
+        f"{b['field_bytes']:,} / {a['field_bytes']:,} bytes")
+    return out
 
 
 def field_voxels(y0, coords, bounds, shape):
@@ -2627,6 +2669,84 @@ def cache_witness_phase(device, cfg, fit, root, smi):
           f"witness first at {first}")
     say("witness: every stage holds (map, both DescriptorSets, the match "
         "table, the decoy, solutions, models, 10/10)")
+
+
+# -- phase 7, third part: the refinement's bfloat16 field -------------------
+
+# K15 on a bfloat16 field: no launch in the default (float32) fit
+BF16_REFINE = ("refine_bf16",)
+
+
+def bf16_fit_phase(device, cfg, fit):
+    """The timed fit's DescriptorSets docked with RefineConfig.field_dtype
+    float32 and "bfloat16" in turn (float32, bfloat16, bfloat16, float32),
+    counters reset before each dock: the bfloat16 docks must launch K15
+    only on a bfloat16 field and recover MIN_RECOVERED copies; the float32
+    docks must give the timed fit's solutions bit for bit. Prints each
+    dock's refine seconds and peak device memory and the CA-RMSD between
+    the two fields' best poses of each copy (no gate on those). Returns
+    the first bfloat16 dock's bfloat16 launches of K15."""
+    import dataclasses
+    import torch
+    from mad_tpu_torch.engine.docking import dock_structure
+    from mad_tpu_torch.kernels import launch_counts, reset_launches
+    configs = {d: cfg.replace(refine=dataclasses.replace(
+        cfg.refine, field_dtype=d)) for d in ("float32", "bfloat16")}
+    runs = {"float32": [], "bfloat16": []}
+    for d in ("float32", "bfloat16", "bfloat16", "float32"):
+        timings = {}
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sols = dock_structure(fit["map_set"], fit["sub_set"], fit["moved"],
+                              fit["dmap"], RES, configs[d], N_COPIES, False,
+                              device=device, timings=timings)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        runs[d].append(dict(sols=sols, secs=secs, timings=timings,
+                            peak=torch.cuda.max_memory_allocated(),
+                            k15=counts["refine"],
+                            k15_bf16=counts["refine_bf16"]))
+    for d, rs in runs.items():
+        for r in rs:
+            rmsds = best_rmsds([x.structure for x in r["sols"]],
+                               fit["copies"])
+            r["found"] = int(np.sum(np.asarray(rmsds) < RECOVER_RMSD))
+            say(f"dock with a {d} refinement field: {r['secs']:.4f} s, "
+                f"refine {r['timings']['refine']:.4f} s, peak "
+                f"{r['peak'] / 2**30:.3f} GiB, {len(r['sols'])} solutions, "
+                f"{r['found']}/{N_COPIES} recovered; K15 launches "
+                f"{r['k15']} ({r['k15_bf16']} on a bfloat16 field)")
+    for r in runs["float32"]:
+        check(r["k15"] > 0 and r["k15_bf16"] == 0,
+              f"bfloat16 fit: the float32 dock's K15 launches {r['k15']}, "
+              f"{r['k15_bf16']} on a bfloat16 field")
+        diff = solution_diff(fit["sols"], r["sols"])
+        check(not diff, f"bfloat16 fit: the float32 dock differs from the "
+              f"timed fit: {diff}")
+    for r in runs["bfloat16"]:
+        check(r["k15_bf16"] > 0 and r["k15_bf16"] == r["k15"],
+              f"bfloat16 fit: K15 launches {r['k15']}, {r['k15_bf16']} on "
+              "a bfloat16 field")
+        check(r["found"] >= MIN_RECOVERED, f"bfloat16 fit: only "
+              f"{r['found']}/{N_COPIES} copies recovered")
+    b16, f32 = runs["bfloat16"][0]["sols"], fit["sols"]
+    moved = fit["moved"]
+    apart = []
+    for c in fit["copies"]:
+        best = [min(sols, key=lambda x: x.structure.rmsd_ca_with(c))
+                for sols in (f32, b16)]
+        apart.append(best[0].structure.rmsd_ca_with(best[1].structure))
+    q = np.quantile(apart, [0.0, 0.5, 1.0])
+    diff = solution_diff(runs["bfloat16"][0]["sols"],
+                         runs["bfloat16"][1]["sols"])
+    say(f"bfloat16 fit: best poses of the {N_COPIES} copies, CA-RMSD "
+        f"between the float32 and bfloat16 fields min/median/max "
+        f"{q[0]:.4f}/{q[1]:.4f}/{q[2]:.4f} A ({len(moved.ca_idx)} CA); the "
+        f"two bfloat16 docks {'the same bits' if not diff else diff}")
+    return runs["bfloat16"][0]["k15_bf16"]
 
 
 # -- phase 8: heteromer ranking ---------------------------------------------
@@ -4010,8 +4130,8 @@ def stress_phase(device):
     diff = solution_diff(warm["sols"], timed["sols"])
     check(not diff, f"stress: the timed pass differs from the warm pass, "
           f"whose inputs the kernels were held at: {diff}")
-    need = [n for n in KERNELS
-            if n not in MESH_ONLY + ("hetero_head",) + STRESS_SKIP]
+    need = [n for n in KERNELS if n not in MESH_ONLY + BF16_REFINE
+            + ("hetero_head",) + STRESS_SKIP]
     check(all(counts[n] > 0 for n in need),
           f"stress: a kernel of the path never launched: {counts}")
     check(all(v > 0 for v in bf16.values()),
@@ -4102,6 +4222,58 @@ def ensemble_phase(device, root):
     return time.perf_counter() - t_phase
 
 
+# -- phase 15: the port's notebooks ------------------------------------------
+
+# each notebook and the prefix of its variables (_DIR: its working
+# directory; _DEVICE: unset, so that it runs on the card)
+NOTEBOOKS = (("docs/WALKTHROUGH_torch.ipynb", "MAD_WALKTHROUGH"),
+             ("docs/TEMPLATE_torch.ipynb", "MAD_TEMPLATE"))
+
+
+def notebook_phase(root):
+    """Phase 15 (the module docstring); returns its seconds."""
+    import contextlib
+    import io
+    import os
+    import torch
+    from mad_tpu_torch.kernels import launch_counts, reset_launches
+    from mad_tpu_torch.testing import run_notebook
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    for rel, var in NOTEBOOKS:
+        name = os.path.splitext(os.path.basename(rel))[0]
+        work = os.path.join(root, name)
+        os.makedirs(work)
+        out = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with env(var + "_DIR", work), env(var + "_DEVICE", None), \
+                contextlib.chdir(work), contextlib.redirect_stdout(out):
+            ns = run_notebook(os.path.join(here, rel), name)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        mads = [v for v in ns.values()
+                if type(v).__name__ == "MaD" and v.out_folder]
+        say(f"notebook {rel}: every code cell on the card in {secs:.2f} s "
+            f"({len(mads)} MaD sessions, {len(out.getvalue())} bytes "
+            "printed); launches " + ", ".join(
+                f"{k} {counts[k]}" for k in SESSION_KERNELS))
+        check(ns["device"] == torch.device("cuda"),
+              f"notebook {rel} ran on {ns['device']}")
+        check(all(counts[k] > 0 for k in SESSION_KERNELS),
+              f"notebook {rel}: a kernel of {SESSION_KERNELS} never "
+              f"launched: {counts}")
+        check(os.path.isdir(os.path.join(ns["mad"].out_folder,
+                                         "assembly_models")),
+              f"notebook {rel}: its session wrote no assembly models")
+        if "rankings" in ns:
+            check(ns["rankings"] and all(ns["rankings"].values()),
+                  f"notebook {rel}: empty ensemble ranking "
+                  f"{ns['rankings']}")
+    return time.perf_counter() - t_phase
+
+
 def main():
     global T_START
     import tempfile
@@ -4111,7 +4283,7 @@ def main():
 
 
 def phases(work):
-    """Phases 1-14 (the module docstring); ``work`` is a scratch directory
+    """Phases 1-15 (the module docstring); ``work`` is a scratch directory
     for the sessions' workdirs."""
     import torch
     import mad_tpu_torch  # noqa: F401  (the port must be beside the script)
@@ -4159,9 +4331,12 @@ def phases(work):
     say(f"launches: {counts}")
     say(f"{len(sols)} solutions, {found}/{N_COPIES} subunits recovered, "
         f"median best CA-RMSD {np.median(rmsds):.3f} A")
-    main_path = [n for n in KERNELS if n not in MESH_ONLY + ("hetero_head",)]
+    main_path = [n for n in KERNELS
+                 if n not in MESH_ONLY + BF16_REFINE + ("hetero_head",)]
     check(all(counts[n] > 0 for n in main_path),
           f"a kernel of the main path never launched: {counts}")
+    check(all(counts[n] == 0 for n in BF16_REFINE),
+          f"the default fit read a bfloat16 refinement field: {counts}")
     check(all(counts[n] == 0 for n in MESH_ONLY),
           f"a mesh entry launched on one device: {counts}")
     check(not pads, f"F.pad called on a CUDA tensor in the fit: {pads}")
@@ -4243,6 +4418,7 @@ def phases(work):
     del a, p
     session = session_phase(device, cfg, fit, work)
     cache_witness_phase(device, cfg, fit, work, smi)
+    counts["refine_bf16"] = bf16_fit_phase(device, cfg, fit)
     bench = {k: fit[k] for k in ("map_set", "sub_set", "moved", "dmap",
                                  "copies")}
     dmap = fit["dmap"]
@@ -4270,9 +4446,10 @@ def phases(work):
     torch.cuda.empty_cache()
     t13 = time.perf_counter() - t13 + stress_phase(device)
     t14 = ensemble_phase(device, work)
+    t15 = notebook_phase(work)
     say(f"phase 13 (the stress): {t13:.2f} s; phase 14 (the ensemble): "
-        f"{t14:.2f} s; the script so far "
-        f"{time.perf_counter() - T_START:.2f} s")
+        f"{t14:.2f} s; phase 15 (the notebooks): {t15:.2f} s; the script "
+        f"so far {time.perf_counter() - T_START:.2f} s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

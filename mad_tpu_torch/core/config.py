@@ -3,14 +3,20 @@
 The original also sets JAX's global matmul precision and its compilation
 cache at import time; none of that applies here. The port states its
 float32 precision where it matters instead (``torch.backends`` flags in
-``chip_smoke.py`` and the tests). TPU-only knobs (static frames, cascade
-refinement, bucketing) are kept so a config built for either package
-round-trips field for field; the port ignores them.
+``chip_smoke.py`` and the tests). TPU-only knobs (a static lane frame,
+segmented and cascade refinement, compile warm-up) are kept so a config
+built for either package round-trips field for field; ``UNREAD_FIELDS``
+names them, the fields the port does not read. ``RefineConfig.field_dtype``
+is read: ``refine_field_dtype`` states mad_tpu's rule for the
+refinement's gradient field.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +103,9 @@ class RefineConfig:
     dedup_rmsd: float = 6.0        # CA-RMSD merging threshold post-refine
     segment_steps: int = 128       # TPU lane compaction (unused by the port)
     cascade: bool = True           # TPU lane compaction (unused by the port)
-    field_dtype: str = "float32"   # TPU packed-field storage (unused)
+    field_dtype: str = "float32"   # the refinement's gradient field:
+                                   # "bfloat16" rounds it, below the gate of
+                                   # refine_field_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,6 +179,37 @@ class MadConfig:
                 n_samples=n_samples,
             ),
         )
+
+
+# mad_tpu's config fields that the port does not read ("section.field", or
+# "field" of MadConfig); none of them changes a result:
+UNREAD_FIELDS = (
+    "describe.static_lanes",   # a TPU lane frame; rows past it redo wider
+    "refine.segment_steps",    # lane compaction, the same trajectories bit
+    "refine.cascade",          # for bit (mad_tpu/engine/refine.py:203-213)
+    "warm_start",              # compiles ahead of a TPU session
+)
+
+# mad_tpu packs the refinement's field into corner rows of 64 bytes (at
+# bfloat16) when they take less than this (mad_tpu/engine/refine.py:86-92)
+PACKED_FIELD_BYTES = 4 << 30
+FIELD_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def refine_field_dtype(shape, field_dtype: str = "float32") -> torch.dtype:
+    """The dtype of the refinement's gradient field over a map of ``shape``
+    (mad_tpu's rule): bfloat16 when ``field_dtype`` asks for it and the
+    map's X * Y * Z corner rows of 64 bytes take less than 4 GiB
+    (67,108,864 voxels), where mad_tpu rounds the field into its packed
+    rows; float32 otherwise, as mad_tpu's unpacked path is. mad_tpu takes
+    any dtype name; the port only these two."""
+    if field_dtype not in FIELD_DTYPES:
+        raise ValueError(f"RefineConfig.field_dtype {field_dtype!r}: the "
+                         f"port takes {' or '.join(FIELD_DTYPES)}")
+    if (field_dtype != "float32"
+            and math.prod(int(n) for n in shape) * 64 < PACKED_FIELD_BYTES):
+        return torch.bfloat16
+    return torch.float32
 
 
 def bucket(n: int, b: int) -> int:

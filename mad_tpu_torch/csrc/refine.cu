@@ -2,8 +2,12 @@
 // in one launch.
 //
 // Replaces mad_tpu/engine/refine.py:63-162 (_compiled_refine's while_loop
-// body) with the trilinear gather of mad_tpu/ops/interp.py:37-82. Per
-// candidate (start coords y0, centroid c), per step while not frozen:
+// body) with the trilinear gather of mad_tpu/ops/interp.py:37-82. The field
+// is float32 or bfloat16 (RefineConfig.field_dtype, mad_tpu's packed rows
+// of :86-92): a bfloat16 corner value is widened to float32 (exact) as it
+// is loaded and everything after is the float32 path's arithmetic, as
+// trilinear_packed does with its rows. Per candidate (start coords y0,
+// centroid c), per step while not frozen:
 //   1. x = (y0 - c) @ rot + c + trans, each product and sum rounded on its
 //      own, in the order of the plain version (kernels/refine.py);
 //   2. atoms outside the strict map interior origin < x < hi contribute 0;
@@ -25,7 +29,8 @@
 // square root, no contraction).
 //
 // Bound: the work is small (C candidates x N atoms x up to 500 steps x 8
-// corner gathers of 12 B, mostly L1 and L2 hits since a candidate's atoms
+// corner gathers of 12 B, 6 B in bfloat16, each corner's 3 values a 2-byte
+// load then, mostly L1 and L2 hits since a candidate's atoms
 // stay in a small box); what bounds it is each step's chain: gather ->
 // reduction over the candidate -> pose update. Measured on the H100
 // (scripts/torch_refine_describe_probe.py): with one CTA a candidate a
@@ -81,6 +86,13 @@ static_assert(kCluster == 1 || kCluster == 2 || kCluster == 4 ||
 
 __device__ __forceinline__ float sub_rn(float a, float b) {
   return __fsub_rn(a, b);
+}
+
+// A field value as float32: bfloat16 widens exactly.
+__device__ __forceinline__ float load_field(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_field(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p))));
 }
 
 // NaN-propagating max (PyTorch's amax).
@@ -177,9 +189,9 @@ __device__ __forceinline__ void axis_angle(const float ax[3], float angle,
 // the thread's atom first + k; live below n): the moved coordinates, their
 // finiteness and (ck) displacement from the checkpoint, and (gather) the
 // force or torque, each atom's terms added in turn.
-template <int kTile>
+template <typename T, int kTile>
 __device__ __forceinline__ void tile_pass(
-    const float* __restrict__ field, const int dims[3], const int cofs[8],
+    const T* __restrict__ field, const int dims[3], const int cofs[8],
     const float* __restrict__ y, int t, int first, int n,
     const float (&arm)[kTile][3], const float* rot, const float* trans,
     const float* ck_rot, const float* ck_trans, const float cen[3],
@@ -207,13 +219,13 @@ __device__ __forceinline__ void tile_pass(
   for (int k = 0; k < kTile; ++k) {
     const bool live = k < n;
     const long long i = (long long)t + (long long)kThreads * (first + k);
-    const float* b = field + base[k];
+    const T* b = field + base[k];
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      const float* v = b + cofs[c];
+      const T* v = b + cofs[c];
 #pragma unroll
       for (int j = 0; j < 3; ++j)
-        val[k][c][j] = (live && gather) ? __ldg(v + j) : 0.0f;
+        val[k][c][j] = (live && gather) ? load_field(v + j) : 0.0f;
     }
 #pragma unroll
     for (int j = 0; j < 3; ++j)
@@ -281,9 +293,9 @@ __device__ __forceinline__ void load_arms(const float* __restrict__ y, int t,
 
 // kTile atoms a thread in registers; kLooped: more than that, walked in
 // tiles of kTile with the arms reloaded.
-template <int kTile, bool kLooped>
+template <typename T, int kTile, bool kLooped>
 __global__ void __launch_bounds__(kCtaThreads) refine_kernel(
-    const float* __restrict__ field, int X, int Y, int Z,
+    const T* __restrict__ field, int X, int Y, int Z,
     const float* __restrict__ y0, int N, const float* __restrict__ center,
     const float* __restrict__ angle_den, const float* __restrict__ bounds,
     int n_steps, int batch_size, float max_step, float min_step,
@@ -333,17 +345,16 @@ __global__ void __launch_bounds__(kCtaThreads) refine_kernel(
     float dmax = 0.0f;
     bool bad = false;
     if (!kLooped) {
-      tile_pass<kTile>(field, dims, cofs, y, t, 0, nper, arm, rot, trans,
-                       ck_rot,
-                       ck_trans, cen, bnd, check, ck, ck_is_y0, gather,
-                       rot_step, acc, bad, dmax);
+      tile_pass<T, kTile>(field, dims, cofs, y, t, 0, nper, arm, rot, trans,
+                          ck_rot, ck_trans, cen, bnd, check, ck, ck_is_y0,
+                          gather, rot_step, acc, bad, dmax);
     } else {
       for (int first = 0; first < nper; first += kTile) {
         load_arms<kTile>(y, t, first, nper - first, cen, arm);
-        tile_pass<kTile>(field, dims, cofs, y, t, first, nper - first, arm,
-                         rot,
-                         trans, ck_rot, ck_trans, cen, bnd, check, ck,
-                         ck_is_y0, gather, rot_step, acc, bad, dmax);
+        tile_pass<T, kTile>(field, dims, cofs, y, t, first, nper - first,
+                            arm, rot, trans, ck_rot, ck_trans, cen, bnd,
+                            check, ck, ck_is_y0, gather, rot_step, acc, bad,
+                            dmax);
       }
     }
 #pragma unroll
@@ -451,36 +462,29 @@ __global__ void __launch_bounds__(kCtaThreads) refine_kernel(
   }
 }
 
-using Kernel = void (*)(const float*, int, int, int, const float*, int,
+template <typename T>
+using Kernel = void (*)(const T*, int, int, int, const float*, int,
                         const float*, const float*, const float*, int, int,
                         float, float, float*, float*, float*, unsigned char*,
                         int*, unsigned char*);
 
-// refine_kernel<tile, false> at index tile - 1; the looped form last
-constexpr Kernel kKernels[] = {
-    refine_kernel<1, false>, refine_kernel<2, false>,
-    refine_kernel<3, false>, refine_kernel<4, false>,
-    refine_kernel<5, false>, refine_kernel<6, false>,
-    refine_kernel<kLoopTile, true>};
-static_assert(sizeof(kKernels) / sizeof(Kernel) == kAtomsPerThread + 1,
-              "one kernel a tile size, and the looped form");
-
-}  // namespace
-
-// bounds: float32 [origin (3), origin + (shape - 1) * voxsp (3), voxsp].
-MAD_EXPORT int mad_refine(const float* field, int X, int Y, int Z,
-                          const float* y0, int C, int N, const float* center,
-                          const float* angle_den, const float* bounds,
-                          int n_steps, int batch_size, float max_step,
-                          float min_step, float* rot, float* trans,
-                          float* coords, unsigned char* frozen, int* steps,
-                          unsigned char* failed, cudaStream_t stream) {
-  if (C == 0) return 0;
-  if (batch_size < 1 || X < 2 || Y < 2 || Z < 2 || N < 0 ||
-      ((long long)Y * Z + Z + 1) * 3 > 0x7fffffffLL)      // corner offsets
-    return static_cast<int>(cudaErrorInvalidValue);
+template <typename T>
+int launch(const T* field, int X, int Y, int Z, const float* y0, int C,
+           int N, const float* center, const float* angle_den,
+           const float* bounds, int n_steps, int batch_size, float max_step,
+           float min_step, float* rot, float* trans, float* coords,
+           unsigned char* frozen, int* steps, unsigned char* failed,
+           cudaStream_t stream) {
+  // refine_kernel<T, tile, false> at index tile - 1; the looped form last
+  constexpr Kernel<T> kKernels[] = {
+      refine_kernel<T, 1, false>, refine_kernel<T, 2, false>,
+      refine_kernel<T, 3, false>, refine_kernel<T, 4, false>,
+      refine_kernel<T, 5, false>, refine_kernel<T, 6, false>,
+      refine_kernel<T, kLoopTile, true>};
+  static_assert(sizeof(kKernels) / sizeof(Kernel<T>) == kAtomsPerThread + 1,
+                "one kernel a tile size, and the looped form");
   const int per = (N + kThreads - 1) / kThreads;
-  const Kernel kernel =
+  const Kernel<T> kernel =
       kKernels[per > kAtomsPerThread ? kAtomsPerThread
                                      : (per < 1 ? 0 : per - 1)];
   cudaLaunchConfig_t cfg = {};
@@ -500,4 +504,30 @@ MAD_EXPORT int mad_refine(const float* field, int X, int Y, int Z,
       steps, failed);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// field_dtype: 0 = float32, 1 = bfloat16 (the (X, Y, Z, 3) field);
+// bounds: float32 [origin (3), origin + (shape - 1) * voxsp (3), voxsp].
+MAD_EXPORT int mad_refine(const void* field, int field_dtype, int X, int Y,
+                          int Z, const float* y0, int C, int N,
+                          const float* center, const float* angle_den,
+                          const float* bounds, int n_steps, int batch_size,
+                          float max_step, float min_step, float* rot,
+                          float* trans, float* coords, unsigned char* frozen,
+                          int* steps, unsigned char* failed,
+                          cudaStream_t stream) {
+  if (C == 0) return 0;
+  if (batch_size < 1 || X < 2 || Y < 2 || Z < 2 || N < 0 ||
+      (field_dtype != 0 && field_dtype != 1) ||
+      ((long long)Y * Z + Z + 1) * 3 > 0x7fffffffLL)      // corner offsets
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (field_dtype == 0)
+    return launch(static_cast<const float*>(field), X, Y, Z, y0, C, N, center,
+                  angle_den, bounds, n_steps, batch_size, max_step, min_step,
+                  rot, trans, coords, frozen, steps, failed, stream);
+  return launch(static_cast<const __nv_bfloat16*>(field), X, Y, Z, y0, C, N,
+                center, angle_den, bounds, n_steps, batch_size, max_step,
+                min_step, rot, trans, coords, frozen, steps, failed, stream);
 }

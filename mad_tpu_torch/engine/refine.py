@@ -17,6 +17,13 @@ density gradient, all candidates advancing together. Per step:
 The loop itself is kernel K15 (:mod:`mad_tpu_torch.kernels.refine`): one
 CUDA launch per call on the card, the plain PyTorch loop on the CPU.
 
+``RefineConfig.field_dtype`` "bfloat16" stores the gradient field in
+bfloat16 below mad_tpu's gate (``core.config.refine_field_dtype``): K3
+writes the float32 differences rounded to nearest even, mad_tpu's
+``pack_corners(field, "bfloat16")``, and K15 interpolates the rounded
+values in float32, as ``trilinear_packed`` does (mad_tpu/engine/
+refine.py:86-92, mad_tpu/ops/interp.py:37-82).
+
 With a mesh (mad_tpu's ``_compiled_refine(mesh)``, the candidates sharded,
 the map replicated) the gradient field is built once per distinct device,
 the starts and their centroids once on the home device, and K15 runs on
@@ -33,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.config import RefineConfig
+from ..core.config import RefineConfig, refine_field_dtype
 from ..core.geometry import norm3
 from ..core.grid import DensityGrid
 from ..kernels import refine as k15
@@ -53,11 +60,13 @@ class RefineResult:
     device_out: Optional[tuple] = None
 
 
-def map_inputs(dmap: DensityGrid, device):
+def map_inputs(dmap: DensityGrid, device, field_dtype: str = "float32"):
     """The map's part of the loop's inputs on ``device``: its gradient
-    field and the float32 [origin, hi bound, voxsp] bounds."""
+    field, in the dtype ``refine_field_dtype`` gives for the map and
+    ``field_dtype``, and the float32 [origin, hi bound, voxsp] bounds."""
     map_data = dmap.data.to(device=device, dtype=torch.float32)
-    field = gradient(map_data)                   # np.gradient parity
+    field = gradient(map_data,                   # np.gradient parity
+                     refine_field_dtype(map_data.shape, field_dtype))
     origin = torch.as_tensor(np.asarray(dmap.origin, dtype=np.float32),
                              device=device)
     voxsp = torch.tensor(np.float32(dmap.voxsp), device=device)
@@ -78,11 +87,12 @@ def start_inputs(start_coords: np.ndarray, device):
     return y0, center, angle_den
 
 
-def refine_inputs(dmap: DensityGrid, start_coords: np.ndarray, device):
+def refine_inputs(dmap: DensityGrid, start_coords: np.ndarray, device,
+                  field_dtype: str = "float32"):
     """The loop's inputs on ``device``: the map's gradient field, the
     (C, N, 3) start coords, their centroids, the rotation-angle
     denominators and the float32 [origin, hi bound, voxsp] bounds."""
-    field, bounds = map_inputs(dmap, device)
+    field, bounds = map_inputs(dmap, device, field_dtype)
     return (field, *start_inputs(start_coords, device), bounds)
 
 
@@ -95,7 +105,7 @@ def refine_candidates(dmap: DensityGrid, start_coords: np.ndarray,
     home = run_device(mesh, device, dmap.device)
     mesh = mesh or Mesh((home,))
     y0, center, angle_den = start_inputs(start_coords, home)
-    maps = replicate(mesh, lambda d: map_inputs(dmap, d))
+    maps = replicate(mesh, lambda d: map_inputs(dmap, d, cfg.field_dtype))
     rot, trans, coords, frozen, counts, failed = map_rows(
         mesh, y0.shape[0], lambda d, a, e: k15.refine_loop(
             maps[d][0], y0[a:e].to(d), center[a:e].to(d),

@@ -56,6 +56,8 @@ KERNELS = {
                        "mad_tpu/engine/dock_fused.py:50"),
     "refine": (refine, "mad_tpu_torch/csrc/refine.cu",
                "mad_tpu/engine/refine.py:63"),
+    "refine_bf16": (refine, "mad_tpu_torch/csrc/refine.cu",
+                    "mad_tpu/engine/refine.py:86"),
     "post": (post, "mad_tpu_torch/csrc/post.cu",
              "mad_tpu/engine/dock_fused.py:344"),
     "post_lanes": (post, "mad_tpu_torch/csrc/post.cu",
@@ -90,14 +92,16 @@ KERNELS = {
 # entry, which "conv1d" counts as well), K9's scale-and-clamp pass, K10's
 # merge of the shards' heads, K16's lane, eligibility and compaction stages
 # ("post" counts its dedup) and the lanes and dedup in one launch, K23 (K22
-# shares its module)
+# shares its module), K15's launches on a bfloat16 field (RefineConfig.
+# field_dtype; "refine" counts them as well)
 COUNTERS = {"log_gauss": "log_launches", "blur_divide": "divide_launches",
             "blur_max": "max_launches", "simulate_scale": "scale_launches",
             "pair_merge": "merge_launches",
             "post_lanes": "lane_launches",
             "post_lanes_dedup": "fold_launches",
             "post_points": "point_launches", "post_rows": "row_launches",
-            "post_compact": "compact_launches", "crop_pad": "pad_launches"}
+            "post_compact": "compact_launches", "crop_pad": "pad_launches",
+            "refine_bf16": "bf16_launches"}
 
 
 # the entries that write (K3) or read (K6, K7) a bfloat16 gradient field,

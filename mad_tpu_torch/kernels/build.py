@@ -66,8 +66,8 @@ SIGNATURES = {
     "mad_orient": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I,
                    _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _F,
                    _P, _P, _P, _P, _P],
-    "mad_refine": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F, _F,
-                   _P, _P, _P, _P, _P, _P, _P],
+    "mad_refine": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _F,
+                   _F, _P, _P, _P, _P, _P, _P, _P],
     "mad_pair_head": [_P, _I, _I, _I, _F, _I, _L, _P, _P, _P, _P, _P],
     "mad_pair_merge": [_P, _L, _L, _P, _P, _P, _P],
     "mad_anchor_field": [_P, _I, _I, _I, _I, _I, _P, _P],

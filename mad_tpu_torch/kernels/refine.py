@@ -9,7 +9,10 @@ the pose in every thread's registers, and exits when the candidate freezes
 PyTorch version, a Python loop of batched tensor ops with one host sync
 every ``batch_size`` steps.
 
-Inputs of both: the (X, Y, Z, 3) float32 gradient field, the (C, N, 3)
+Inputs of both: the (X, Y, Z, 3) float32 or bfloat16 gradient field
+(bfloat16: ``RefineConfig.field_dtype``; each corner is widened to float32,
+exactly, before the float32 interpolation, as mad_tpu's
+``trilinear_packed`` does with its bfloat16 rows), the (C, N, 3)
 float32 start coordinates ``y0``, their (C, 1, 3) centroids, the (C,)
 rotation-angle denominators max(max_dist, 1e-6), and ``bounds``: float32
 [origin (3), origin + (shape - 1) * voxsp (3), voxsp]. Outputs: rot
@@ -27,6 +30,9 @@ from ..ops.interp import trilinear
 from . import build
 
 launches = 0            # kernel launches since the last reset
+bf16_launches = 0       # of those, launches on a bfloat16 field
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def refine_loop_plain(field: torch.Tensor, y0: torch.Tensor,
@@ -34,6 +40,7 @@ def refine_loop_plain(field: torch.Tensor, y0: torch.Tensor,
                       bounds: torch.Tensor, cfg: RefineConfig):
     device = y0.device
     C = y0.shape[0]
+    field = field.float()                # bfloat16 widens exactly
     origin, hi_bound, voxsp = bounds[0:3], bounds[3:6], bounds[6]
     arm = y0 - center
 
@@ -86,10 +93,12 @@ def refine_loop(field: torch.Tensor, y0: torch.Tensor, center: torch.Tensor,
     """Refine C candidates; CPU tensors take the plain version."""
     if field.device.type == "cpu":
         return refine_loop_plain(field, y0, center, angle_den, bounds, cfg)
-    global launches
-    if field.dim() != 4 or field.shape[3] != 3 or field.dtype != torch.float32:
-        raise ValueError(f"refine_loop: need an (X, Y, Z, 3) float32 field, "
-                         f"got {tuple(field.shape)} {field.dtype}")
+    global launches, bf16_launches
+    if (field.dim() != 4 or field.shape[3] != 3
+            or field.dtype not in _DTYPES or not field.is_contiguous()):
+        raise ValueError(f"refine_loop: need a contiguous (X, Y, Z, 3) "
+                         f"float32 or bfloat16 field, got "
+                         f"{tuple(field.shape)} {field.dtype}")
     C, N = y0.shape[:2]
     if (y0.shape != (C, N, 3) or center.shape != (C, 1, 3)
             or angle_den.shape != (C,) or bounds.shape != (7,)):
@@ -111,11 +120,13 @@ def refine_loop(field: torch.Tensor, y0: torch.Tensor, center: torch.Tensor,
         return rot, trans, coords, frozen.bool(), steps, failed.bool()
     X, Y, Z = field.shape[:3]
     build.launch(
-        build.library().mad_refine, dev, field.data_ptr(), X, Y, Z,
+        build.library().mad_refine, dev, field.data_ptr(),
+        _DTYPES[field.dtype], X, Y, Z,
         y0.data_ptr(), C, N, center.data_ptr(), angle_den.data_ptr(),
         bounds.data_ptr(), int(cfg.n_steps), int(cfg.batch_size),
         float(cfg.max_step), float(cfg.min_step), rot.data_ptr(),
         trans.data_ptr(), coords.data_ptr(), frozen.data_ptr(),
         steps.data_ptr(), failed.data_ptr())
     launches += 1
+    bf16_launches += field.dtype == torch.bfloat16
     return rot, trans, coords, frozen.bool(), steps, failed.bool()

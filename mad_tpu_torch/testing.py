@@ -8,8 +8,10 @@ the self-fit decoy transform. ``near_isovalue``, ``overlap_slack`` and
 of one solution set's overlap matrix are held to; so is ``pose_table``, a
 synthetic match table for the pose clustering; ``post_scenario`` and
 ``post_round``, two docking rounds of refined lanes for the post-refine
-merge; and ``recording``, which collects the inputs a call site on the
-path gives a kernel.
+merge; ``recording``, which collects the inputs a call site on the
+path gives a kernel; and ``run_notebook``, which executes the code cells
+of the port's notebooks (docs/WALKTHROUGH_torch.ipynb,
+docs/TEMPLATE_torch.ipynb).
 
 The scenario helpers (``deform_structure``, ``make_symmetric_assembly``,
 ``degrade_map`` and the regime tables) are copied from
@@ -679,6 +681,24 @@ def recording(module, name: str):
         yield calls
     finally:
         setattr(module, name, fn)
+
+
+def run_notebook(path: str, name: str = "__notebook__") -> dict:
+    """Execute the code cells of the notebook at ``path`` in order, in one
+    namespace, as tests/test_walkthrough.py runs mad_tpu's; returns the
+    namespace. A failing cell raises naming its index and its source."""
+    import json
+    with open(path, encoding="utf-8") as fh:
+        cells = json.load(fh)["cells"]
+    ns = {"__name__": name}
+    code = ["".join(c["source"]) for c in cells if c["cell_type"] == "code"]
+    for i, src in enumerate(code):
+        try:
+            exec(compile(src, f"{name}-cell-{i}", "exec"), ns)
+        except Exception as e:
+            raise AssertionError(f"{path}: code cell {i} failed: {e}\n"
+                                 f"--- cell ---\n{src}") from e
+    return ns
 
 
 def near_isovalue(structures, cfg, device, eps: float = 1e-5):

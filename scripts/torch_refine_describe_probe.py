@@ -136,7 +136,7 @@ PARENT = (
 # ... and the redesigned K15 and K7:
 REFINE = (
     ("without field loads", "refine.cu", "mad_refine",
-     [(r"\(live && gather\) \? __ldg\(v \+ j\) : 0\.0f",
+     [(r"\(live && gather\) \? load_field\(v \+ j\) : 0\.0f",
        "(live && gather) ? 0.25f : 0.0f")]),
     ("CTA barrier for the cluster's", "refine.cu", "mad_refine",
      [(r"cg::this_cluster\(\)\.sync\(\);", "__syncthreads();"),

@@ -60,3 +60,29 @@ def test_refine_outcomes(refine_system, n_steps):
         # and both land on the deposited pose
         assert _ca_rmsd(tr.coords[i], p.coords, p.ca_idx) < 1.0
     np.testing.assert_array_equal(tr.converged[:5], jr.converged[:5])
+
+
+def test_unread_fields_are_the_four_tpu_knobs():
+    """core/config.UNREAD_FIELDS names exactly mad_tpu's four config fields
+    that change no result, each a field of both packages' MadConfig, and no
+    port module outside core/config.py mentions them."""
+    import dataclasses
+    import pathlib
+
+    from mad_tpu.core.config import MadConfig as JMad
+    from mad_tpu_torch.core.config import UNREAD_FIELDS, MadConfig as TMad
+    assert UNREAD_FIELDS == ("describe.static_lanes", "refine.segment_steps",
+                             "refine.cascade", "warm_start")
+    for cfg in (JMad(), TMad()):
+        for name in UNREAD_FIELDS:
+            obj = cfg
+            for part in name.split("."):
+                assert part in {f.name for f in dataclasses.fields(obj)}
+                obj = getattr(obj, part)
+    root = pathlib.Path(__file__).resolve().parent.parent / "mad_tpu_torch"
+    for path in root.rglob("*.py"):
+        if path.name == "config.py" and path.parent.name == "core":
+            continue
+        text = path.read_text()
+        for name in UNREAD_FIELDS:
+            assert name.split(".")[-1] not in text, (path, name)
