@@ -40,6 +40,7 @@ from ..kernels import enumerate as k_enum
 from ..kernels import hetero as k_hetero
 from ..kernels import overlap as k_overlap
 from ..ops.simulate import batched_simulate
+from ..utils import profiling
 from .score import ccc_structures
 
 
@@ -116,6 +117,7 @@ def overlap_inputs(structures: Sequence[Structure], cfg: AssemblyConfig,
     return dens, torch.as_tensor(off, device=device), frame
 
 
+@profiling.spanned("assembly.overlap")
 def device_overlap(structures: Sequence[Structure], cfg: AssemblyConfig,
                    device) -> torch.Tensor:
     """K18's float32 upper-triangular (n, n) overlap matrix of a solution
@@ -124,12 +126,14 @@ def device_overlap(structures: Sequence[Structure], cfg: AssemblyConfig,
     n = len(structures)
     if n < 2:
         return torch.zeros((n, n), dtype=torch.float32, device=device)
+    profiling.tag(solutions=n)
     return k_overlap.pack_overlap(*overlap_inputs(structures, cfg, device))
 
 
+@profiling.spanned("assembly.host_overlap")
 def host_overlap(ov: torch.Tensor) -> np.ndarray:
     """The float64 host copy of a device overlap (one pull)."""
-    return ov.cpu().numpy().astype(np.float64)
+    return profiling.pull(ov).numpy().astype(np.float64)
 
 
 def solution_overlap(structures: Sequence[Structure], cfg: AssemblyConfig,
@@ -219,6 +223,7 @@ def _device_overlap(overlap: np.ndarray, overlap_dev, device):
     return overlap_dev
 
 
+@profiling.spanned("assembly.enumerate")
 def enumerate_homomultimer(n_solutions: int, n_copies: int,
                            overlap: np.ndarray,
                            max_combinations: int = 5_000_000,
@@ -357,6 +362,7 @@ def enumerate_heteromer(groups: Dict[str, List[int]], overlap: np.ndarray,
     return gather[order], s[order], sd[order], mx[order]
 
 
+@profiling.spanned("assembly.score_models")
 def score_models(tuples: np.ndarray, sums, stds, maxs,
                  structures: Sequence[Structure], dmap: DensityGrid,
                  cfg: AssemblyConfig, max_models: int, max_overlap: float
@@ -383,4 +389,5 @@ def score_models(tuples: np.ndarray, sums, stds, maxs,
             components=[int(i) for i in tuples[cnt]], ccc=float(cccs[k]),
             sum_overlap=float(sums[cnt]), std_overlap=float(stds[cnt]),
             max_overlap=float(maxs[cnt])))
+    profiling.tag(models=len(out))
     return out

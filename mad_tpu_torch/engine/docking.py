@@ -37,7 +37,7 @@ from ..core.grid import DensityGrid
 from ..core.structure import Structure
 from ..device import resolve
 from ..timing import stage
-from ..utils import sanitize
+from ..utils import profiling, sanitize
 from ..kernels.cluster import cluster_select, gate_threshold, split_selection
 from ..kernels.post import post, split_post
 from ..parallel.mesh import Mesh, run_device
@@ -105,20 +105,24 @@ def cluster_candidates(table: MatchTable, hi_bins: np.ndarray,
     if table.n == 0:
         return []
     n = min(n_samples, table.n)
-    sel = cluster_select(*selection_args(table, cfg, n, device, best_repeat))
-    assign, found, weights, cands, _n = split_selection(sel.cpu().numpy(), n)
-    # each member row: [hi_coord(3), lo_coord(3), hi_bin, lo_bin]
-    rows = np.concatenate([table.hi_coord[:n], table.lo_coord[:n],
-                           hi_bins[:n, None], lo_bins[:n, None]], axis=1)
-    out = []
-    for c in cands:
-        row, w = int(found[c]), int(weights[c])
-        rep = table.repeat[row]
-        out.append(Candidate(
-            hi_coord=table.hi_coord[row], lo_coord=table.lo_coord[row],
-            rot=table.rot[row], cc=float(table.cc[row]), weight=w,
-            repeat=float(rep), score=float(rep * w),
-            members=list(rows[assign == c])))
+    with profiling.span("cluster.select"):
+        profiling.tag(rows=n)
+        sel = profiling.pull(cluster_select(
+            *selection_args(table, cfg, n, device, best_repeat)))
+    with profiling.span("cluster.candidates"):
+        assign, found, weights, cands, _n = split_selection(sel.numpy(), n)
+        # each member row: [hi_coord(3), lo_coord(3), hi_bin, lo_bin]
+        rows = np.concatenate([table.hi_coord[:n], table.lo_coord[:n],
+                               hi_bins[:n, None], lo_bins[:n, None]], axis=1)
+        out = []
+        for c in cands:
+            row, w = int(found[c]), int(weights[c])
+            rep = table.repeat[row]
+            out.append(Candidate(
+                hi_coord=table.hi_coord[row], lo_coord=table.lo_coord[row],
+                rot=table.rot[row], cc=float(table.cc[row]), weight=w,
+                repeat=float(rep), score=float(rep * w),
+                members=list(rows[assign == c])))
     return out
 
 
@@ -131,7 +135,9 @@ def _refine_and_merge(candidates: List[Candidate], solutions: List[Solution],
     dedup with weight merging, mad/MaD.py:592-620). Returns the number of
     genuinely new solutions appended and the first ``n_top`` table rows
     that the next rescue round may take (none when n_top is 0)."""
-    starts = start_poses(candidates, sub_struct)
+    with profiling.span("refine.starts"):
+        profiling.tag(candidates=len(candidates))
+        starts = start_poses(candidates, sub_struct)
     with stage(timings, "refine", device):
         res = refine_candidates(dmap, starts, cfg.refine, device=device,
                                 mesh=mesh)
@@ -173,20 +179,23 @@ def _merge_refined(res, candidates: List[Candidate],
                put(table.lo_coord if n_top else np.zeros((0, 3))),
                cfg.match.anchor_dist, n_top, mesh)
     a_hi = table.hi_cloud.shape[0]
-    s_a, hits, counts, accepted, slot, top = split_post(
-        vec.cpu().numpy(), len(candidates), a_hi, n_top)
-    n_new = 0
-    for i, cand in enumerate(candidates):
-        if accepted[i]:
-            solutions.append(Solution(
-                structure=sub_struct.with_coords(res.coords[i]),
-                corresp_anchors=s_a[i][hits[i]],
-                repeat=100.0 * counts[i] / a_hi, weight=cand.weight,
-                ccc=0.0, members=list(cand.members)))
-            n_new += 1
-        elif slot[i] >= 0:
-            solutions[slot[i]].weight += cand.weight
-            solutions[slot[i]].members.extend(cand.members)
+    vec = profiling.pull(vec)
+    with profiling.span("post.solutions"):
+        s_a, hits, counts, accepted, slot, top = split_post(
+            vec.numpy(), len(candidates), a_hi, n_top)
+        n_new = 0
+        for i, cand in enumerate(candidates):
+            if accepted[i]:
+                solutions.append(Solution(
+                    structure=sub_struct.with_coords(res.coords[i]),
+                    corresp_anchors=s_a[i][hits[i]],
+                    repeat=100.0 * counts[i] / a_hi, weight=cand.weight,
+                    ccc=0.0, members=list(cand.members)))
+                n_new += 1
+            elif slot[i] >= 0:
+                solutions[slot[i]].weight += cand.weight
+                solutions[slot[i]].members.extend(cand.members)
+    profiling.tag(accepted=n_new)
     return n_new, top
 
 
@@ -209,6 +218,7 @@ def _finalize_solutions(solutions: List[Solution], sub_struct: Structure,
     return solutions
 
 
+@profiling.spanned("dock_structure")
 def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
                    sub_struct: Structure, dmap: DensityGrid,
                    resolution: float, cfg: MadConfig, n_copies: int = 1,
@@ -245,8 +255,10 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
                                       dmap.origin, dmap.voxsp, cfg.match,
                                       min_exact=n_samples, device=device,
                                       mesh=mesh)
+            profiling.tag(pairs=table.n)
         if match_cache:
             cache.save_matching(table, match_cache)
+    profiling.tag(pairs=table.n, rescue_rounds=0)
     if verbose:
         print(f"MaD> {table.n} descriptor pairs above "
               f"cc={cfg.match.cc_threshold:.2f}")
@@ -257,6 +269,9 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
         candidates = cluster_candidates(
             table, sub_set.main_bin[table.hi_idx],
             map_set.main_bin[table.lo_idx], cfg.filter, n_samples, device)
+        profiling.tag(candidates=len(candidates))
+    n_candidates = len(candidates)
+    profiling.tag(candidates=n_candidates)
     if verbose:
         print(f"MaD> {len(candidates)} filtered pose candidates")
     if not candidates:
@@ -278,19 +293,25 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
     for r in range(rounds):
         if not solutions or not len(top):
             break
+        profiling.tag(rescue_rounds=r + 1)
         # Below the first-round prefix repeatabilities are approximate;
         # re-score exactly what this round consumes, then re-rank.
         with stage(timings, "match", device):
             erep = exact_rescore(table, top, cfg.match.anchor_dist, device,
                                  mesh)
             sanitize.check_host("match.repeat", erep)
-        order = np.argsort(-erep, kind="stable")
-        sub_table = table.take(top[order], repeat=erep[order])
+            profiling.tag(pairs=len(top), exact_rows=len(top))
+        with profiling.span("match.order"):
+            order = np.argsort(-erep, kind="stable")
+            sub_table = table.take(top[order], repeat=erep[order])
         with stage(timings, "cluster", device):
             cands = cluster_candidates(
                 sub_table, sub_set.main_bin[sub_table.hi_idx],
                 map_set.main_bin[sub_table.lo_idx], cfg.filter, n_samples,
                 device, best_repeat=best_repeat)
+            profiling.tag(candidates=len(cands))
+        n_candidates += len(cands)
+        profiling.tag(candidates=n_candidates)
         if not cands:
             break
         n_new, top = _refine_and_merge(
@@ -302,5 +323,7 @@ def dock_structure(map_set: DescriptorSet, sub_set: DescriptorSet,
         if n_new == 0:
             break
 
-    return _finalize_solutions(solutions, sub_struct, dmap, resolution, cfg,
-                               device, timings)
+    solutions = _finalize_solutions(solutions, sub_struct, dmap, resolution,
+                                    cfg, device, timings)
+    profiling.tag(solutions=len(solutions))
+    return solutions

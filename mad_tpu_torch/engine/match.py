@@ -49,7 +49,7 @@ from ..kernels.repeat import exact_repeat
 from ..kernels.select_exact import select_exact
 from ..parallel.mesh import (Mesh, map_rows, replicate, run_device,
                              shard_bounds)
-from ..utils import sanitize
+from ..utils import profiling, sanitize
 from .pipeline import DescriptorSet
 
 
@@ -116,24 +116,29 @@ def match_pairs(map_set: DescriptorSet, sub_set: DescriptorSet,
     """Similarity stage + host pose data (mad/MaD.py:414-438): the cosine
     product (torch.matmul), the pair head (K10's head; with a mesh per
     shard of subunit rows, then merged) and its one pull; None when no
-    pair clears the threshold."""
-    if mesh is None:
-        sim = sub_set.desc_norm @ map_set.desc_norm.T
-        keys = pair_head(sim, cfg.row_cap, cfg.max_pairs,
-                         float(cfg.cc_threshold))
-    else:
-        keys = _sharded_head(sub_set.desc_norm, map_set.desc_norm, cfg,
-                             mesh)
-    ccs, rows, cols = split_pair_keys(keys.cpu().numpy(),
-                                      map_set.desc_norm.shape[0])
-    sanitize.check_host("match.similarity", ccs)
-    if len(rows) == 0:
-        return None
-    hi_cloud = np.unique(sub_set.subv_coords[rows], axis=0)
-    lo_cloud = np.unique(map_set.subv_coords[cols], axis=0)
-    r_hi = sub_set.rfinal[rows]
-    r_lo = map_set.rfinal[cols]
-    rot = np.einsum("pji,pjk->pik", r_lo, r_hi)  # R_lo^T @ R_hi
+    pair clears the threshold. Spans: ``match.similarity`` (the product,
+    the head, the pull), ``match.pose_data`` (the host pose data)."""
+    with profiling.span("match.similarity"):
+        if mesh is None:
+            sim = sub_set.desc_norm @ map_set.desc_norm.T
+            keys = pair_head(sim, cfg.row_cap, cfg.max_pairs,
+                             float(cfg.cc_threshold))
+        else:
+            keys = _sharded_head(sub_set.desc_norm, map_set.desc_norm, cfg,
+                                 mesh)
+        keys = profiling.pull(keys).numpy()
+    with profiling.span("match.pose_data"):
+        ccs, rows, cols = split_pair_keys(keys, map_set.desc_norm.shape[0])
+        sanitize.check_host("match.similarity", ccs)
+        if len(rows) == 0:
+            return None
+        hi_cloud = np.unique(sub_set.subv_coords[rows], axis=0)
+        lo_cloud = np.unique(map_set.subv_coords[cols], axis=0)
+        r_hi = sub_set.rfinal[rows]
+        r_lo = map_set.rfinal[cols]
+        rot = np.einsum("pji,pjk->pik", r_lo, r_hi)  # R_lo^T @ R_hi
+        profiling.tag(pairs=len(rows), hi_anchors=len(hi_cloud),
+                      lo_anchors=len(lo_cloud))
     return dict(ccs=ccs, rows=rows, cols=cols, rot=rot,
                 hi_coord=sub_set.subv_coords[rows],
                 lo_coord=map_set.subv_coords[cols],
@@ -172,7 +177,9 @@ def match_descriptors(map_set: DescriptorSet, sub_set: DescriptorSet,
 
     min_exact: the clustering consumes the top pairs by repeatability, so
     at least that many leading pairs get exact scores. With a mesh the
-    work is sharded (module docstring) and ``device`` is its home."""
+    work is sharded (module docstring) and ``device`` is its home. Spans:
+    ``match_pairs``' two, ``match.approx`` (K11, K12), ``match.exact``
+    (K21, K13, the pull), ``match.order`` (the order and the table)."""
     device = run_device(mesh, device, map_set.desc_norm.device)
     pairs = match_pairs(map_set, sub_set, cfg, mesh)
     if pairs is None:
@@ -186,45 +193,52 @@ def match_descriptors(map_set: DescriptorSet, sub_set: DescriptorSet,
     # Stage A: approximate repeatability of every pair (K11 once per
     # device, replicated with the anchor voxels that K12's coarse map
     # takes; K12 over each shard's pairs), gathered on the home device.
-    r_vox = max(1, int(round(cfg.anchor_dist / voxsp)))
-    vox = anchor_voxels(lo_cloud, grid_origin, voxsp, grid_shape)
-    inv = float(np.float32(1.0 / voxsp))
+    with profiling.span("match.approx"):
+        r_vox = max(1, int(round(cfg.anchor_dist / voxsp)))
+        vox = anchor_voxels(lo_cloud, grid_origin, voxsp, grid_shape)
+        inv = float(np.float32(1.0 / voxsp))
 
-    def rep_in_on(d):
-        v = torch.as_tensor(vox, device=d)
-        return (anchor_field(tuple(grid_shape), v, r_vox), v, r_vox,
-                _f32(hi_cloud, d), _f32(grid_origin, d))
+        def rep_in_on(d):
+            v = torch.as_tensor(vox, device=d)
+            return (anchor_field(tuple(grid_shape), v, r_vox), v, r_vox,
+                    _f32(hi_cloud, d), _f32(grid_origin, d))
 
-    rep_in = replicate(shards, rep_in_on)
-    poses = [_f32(a, shards.home) for a in (rot, hi_coord, lo_coord)]
-    rep_d = map_rows(shards, len(rows), lambda d, a, e: approx_repeat(
-        *rep_in[d], inv, *[t[a:e].to(d) for t in poses]))
+        rep_in = replicate(shards, rep_in_on)
+        poses = [_f32(a, shards.home) for a in (rot, hi_coord, lo_coord)]
+        rep_d = map_rows(shards, len(rows), lambda d, a, e: approx_repeat(
+            *rep_in[d], inv, *[t[a:e].to(d) for t in poses]))
 
     # Stage B: exact scores for the ordering-critical top pairs, selected
     # and gathered by K21 on the home device. Selection count is
     # mesh-independent, so a mesh run re-scores the same rows.
     want = max(cfg.exact_top, min_exact)
-    if want > 0:
-        n_use = min(bucket(want, 64), len(rows))
-        top_d, *picked = select_exact(rep_d, *poses, n_use)
-        erep_d = _exact(shards, hi_cloud, lo_cloud, *picked,
-                        cfg.anchor_dist)
-        top, rep, erep = _pull(top_d, rep_d, erep_d)
-        rep[top] = erep
-    else:
-        rep = rep_d.cpu().numpy()
-    sanitize.check_host("match.repeat", rep)
-    order = np.argsort(-rep, kind="stable")
-    return MatchTable(
-        cc=ccs[order], repeat=rep[order], hi_idx=rows[order],
-        lo_idx=cols[order], rot=rot[order], hi_coord=hi_coord[order],
-        lo_coord=lo_coord[order], hi_cloud=hi_cloud, lo_cloud=lo_cloud)
+    with profiling.span("match.exact"):
+        if want > 0:
+            n_use = min(bucket(want, 64), len(rows))
+            top_d, *picked = select_exact(rep_d, *poses, n_use)
+            erep_d = _exact(shards, hi_cloud, lo_cloud, *picked,
+                            cfg.anchor_dist)
+            top, rep, erep = _pull(top_d, rep_d, erep_d)
+            rep[top] = erep
+        else:
+            n_use = 0
+            rep = profiling.pull(rep_d).numpy()
+        profiling.tag(rows=n_use)
+    profiling.tag(exact_rows=n_use)
+    with profiling.span("match.order"):
+        sanitize.check_host("match.repeat", rep)
+        order = np.argsort(-rep, kind="stable")
+        return MatchTable(
+            cc=ccs[order], repeat=rep[order], hi_idx=rows[order],
+            lo_idx=cols[order], rot=rot[order], hi_coord=hi_coord[order],
+            lo_coord=lo_coord[order], hi_cloud=hi_cloud, lo_cloud=lo_cloud)
 
 
 def _pull(*parts: torch.Tensor):
     """Tensors of one device as numpy arrays, in one device-to-host copy
     (the 8-byte ones first, so each lands aligned for its type)."""
-    host = torch.cat([p.reshape(-1).view(torch.int32) for p in parts]).cpu()
+    host = profiling.pull(
+        torch.cat([p.reshape(-1).view(torch.int32) for p in parts]))
     out, at = [], 0
     for p in parts:
         n = p.numel() * p.element_size() // 4
@@ -254,6 +268,9 @@ def exact_rescore(table: MatchTable, rows: np.ndarray, anchor_dist: float,
     its shards' blocks of the rows."""
     if len(rows) == 0:
         return np.zeros(0, np.float32)
-    return _exact(mesh or Mesh((torch.device(device),)), table.hi_cloud,
-                  table.lo_cloud, table.rot[rows], table.hi_coord[rows],
-                  table.lo_coord[rows], anchor_dist).cpu().numpy()
+    with profiling.span("match.exact"):
+        profiling.tag(rows=len(rows))
+        return profiling.pull(_exact(
+            mesh or Mesh((torch.device(device),)), table.hi_cloud,
+            table.lo_cloud, table.rot[rows], table.hi_coord[rows],
+            table.lo_coord[rows], anchor_dist)).numpy()

@@ -39,7 +39,7 @@ from ..ops.scalespace import gradient, iter_octaves
 from ..ops.simulate import simulate_density
 from ..parallel.mesh import run_device
 from ..parallel.volume import sharded_gradient
-from ..utils import sanitize
+from ..utils import profiling, sanitize
 
 
 @dataclass
@@ -128,6 +128,7 @@ def octave_lanes(octv, cfg: MadConfig, mesh=None) -> OctaveLanes:
         sanitize.watch("scalespace.grad[mesh]", grad)
     del gauss
     vidx = torch.nonzero(anch.valid).reshape(-1)     # slots of valid anchors
+    profiling.tag(anchors=vidx.shape[0])
     coords_v = anch.coords[vidx]
     mains, secs, rfin, ok = orient_anchors(
         grad, coords_v, torch.ones_like(vidx, dtype=torch.bool), real,
@@ -144,8 +145,8 @@ def octave_lanes(octv, cfg: MadConfig, mesh=None) -> OctaveLanes:
 
 def _describe_octave(octv, cfg: MadConfig, mesh=None):
     """One octave: returns its lanes' device descriptor table, the indices
-    of the kept lanes and their host metadata, with anchor ids local to the
-    octave's detection order."""
+    of the kept lanes and their metadata on the device, with anchor ids
+    local to the octave's detection order."""
     lanes = octave_lanes(octv, cfg, mesh)
     descs, dok = describe_anchors(
         lanes.grad, lanes.coords, lanes.rfinal,
@@ -154,42 +155,55 @@ def _describe_octave(octv, cfg: MadConfig, mesh=None):
         octv.real_shape, octv.upsampled, cfg.describe, mesh)
     sanitize.watch(f"describe[o{octave_index(octv)}]", descs)
     keep = torch.nonzero(dok).reshape(-1)[: cfg.describe.max_descriptors]
-    host = {k: getattr(lanes, k)[keep].cpu().numpy()
+    kept = {k: getattr(lanes, k)[keep]
             for k in ("coords", "rfinal", "slot", "subvox", "main", "sec")}
-    return descs, keep, host
+    return descs, keep, kept
 
 
+@profiling.spanned("describe_grid")
 def describe_grid(grid: DensityGrid, cfg: MadConfig, name: str = "",
                   mesh=None, *, device=None) -> DescriptorSet:
     """Anchor / orientation / descriptor chain of a density grid, run on
     ``device`` (default: the grid's own device); with a mesh
     (``parallel.mesh.make_mesh``), in capacity mode over its shards, the
-    result on the mesh's first device."""
+    result on the mesh's first device. Spans: ``describe_grid`` (anchors,
+    rows), and in it ``describe.octave`` for each octave (its scale space,
+    lanes and descriptors), ``describe.rows`` (the kept lanes' pull and
+    their host arrays) and ``describe.gather_norm``."""
     device = run_device(mesh, device, grid.device)
     if grid.device != device:
         grid = grid.to(device)
     rows, tables, keeps = [], [], []
     for oi, (origin, octv) in enumerate(iter_octaves(grid, cfg.scalespace,
                                                      mesh)):
-        table, keep, h = _describe_octave(octv, cfg, mesh)
-        n = h["coords"].shape[0]
-        tables.append(table)
-        keeps.append(keep)
-        rows.append(dict(
-            coords=h["coords"].astype(np.float32),
-            map_coords=h["coords"] * octv.voxsp + origin,
-            subv_coords=(h["subvox"].astype(np.float64) * octv.voxsp
-                         + origin),
-            rfinal=h["rfinal"],
-            octave=np.full(n, oi, dtype=np.int32),
-            anchor_id=(oi * cfg.detect.max_anchors + h["slot"]).astype(
-                np.int32),
-            main_bin=h["main"].astype(np.int32),
-            sec_bin=h["sec"].astype(np.int32),
-        ))
-    sanitize.flush()        # stage-mode NaN checks drain in one pull
-    cat = {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
-    desc, desc_norm = gather_norm(tables, keeps)
+        with profiling.span("describe.octave"):
+            profiling.tag(octave=oi)
+            table, keep, kept = _describe_octave(octv, cfg, mesh)
+        with profiling.span("describe.rows"):
+            h = {k: profiling.pull(v).numpy() for k, v in kept.items()}
+            del kept
+            n = h["coords"].shape[0]
+            tables.append(table)
+            keeps.append(keep)
+            rows.append(dict(
+                coords=h["coords"].astype(np.float32),
+                map_coords=h["coords"] * octv.voxsp + origin,
+                subv_coords=(h["subvox"].astype(np.float64) * octv.voxsp
+                             + origin),
+                rfinal=h["rfinal"],
+                octave=np.full(n, oi, dtype=np.int32),
+                anchor_id=(oi * cfg.detect.max_anchors + h["slot"]).astype(
+                    np.int32),
+                main_bin=h["main"].astype(np.int32),
+                sec_bin=h["sec"].astype(np.int32),
+            ))
+    with profiling.span("describe.gather_norm"):
+        sanitize.flush()        # stage-mode NaN checks drain in one pull
+        cat = {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
+        desc, desc_norm = gather_norm(tables, keeps)
+    if profiling.tracing():
+        profiling.tag(anchors=len(np.unique(cat["anchor_id"])),
+                      rows=desc.shape[0])
     return DescriptorSet(
         desc=desc, desc_norm=desc_norm, n_rows=desc.shape[0],
         eqsp_size=cfg.orient.eqsp_size,
@@ -197,15 +211,19 @@ def describe_grid(grid: DensityGrid, cfg: MadConfig, name: str = "",
         **cat)
 
 
+@profiling.spanned("describe_structure")
 def describe_structure(struct: Structure, resolution: float, voxsp: float,
                        cfg: MadConfig, isovalue: float = 0.0, name: str = "",
                        mesh=None, *, device=None) -> DescriptorSet:
     """PDB path of the describe pipeline: simulate the density on
     ``device`` first (parity: MapSpace PDB_mode, mad/MapSpace.py:73-75),
     the card unless named; with a mesh, described in capacity mode
-    (``device`` its first device)."""
+    (``device`` its first device). Spans: ``describe_structure``, and in
+    it ``describe.simulate`` and ``describe_grid``."""
     device = run_device(mesh, device) if mesh is not None else resolve(device)
-    grid = simulate_density(struct, resolution, voxsp, device=device,
-                            isovalue=isovalue, shape_bucket=cfg.shape_bucket)
+    with profiling.span("describe.simulate"):
+        grid = simulate_density(struct, resolution, voxsp, device=device,
+                                isovalue=isovalue,
+                                shape_bucket=cfg.shape_bucket)
     return describe_grid(grid, cfg, name=name or struct.source, device=device,
                          mesh=mesh)

@@ -46,6 +46,7 @@ from ..core.grid import DensityGrid
 from ..kernels import refine as k15
 from ..ops.scalespace import gradient
 from ..parallel.mesh import Mesh, map_rows, replicate, run_device
+from ..utils import profiling
 
 
 @dataclass
@@ -110,8 +111,9 @@ def refine_candidates(dmap: DensityGrid, start_coords: np.ndarray,
         mesh, y0.shape[0], lambda d, a, e: k15.refine_loop(
             maps[d][0], y0[a:e].to(d), center[a:e].to(d),
             angle_den[a:e].to(d), maps[d][1], cfg))
+    pull = profiling.pull
     return RefineResult(
-        rot=rot.cpu().numpy(), trans=trans.cpu().numpy(),
-        coords=coords.cpu().numpy().astype(np.float64),
-        converged=frozen.cpu().numpy(), steps=counts.cpu().numpy(),
-        failed=failed.cpu().numpy(), device_out=(rot, trans, coords, failed))
+        rot=pull(rot).numpy(), trans=pull(trans).numpy(),
+        coords=pull(coords).numpy().astype(np.float64),
+        converged=pull(frozen).numpy(), steps=pull(counts).numpy(),
+        failed=pull(failed).numpy(), device_out=(rot, trans, coords, failed))

@@ -15,7 +15,7 @@ import torch
 from ..core.grid import DensityGrid
 from ..kernels import ccc as k17
 from ..ops.simulate import batched_simulate
-from ..utils import sanitize
+from ..utils import profiling, sanitize
 
 
 def batched_ccc(dmap: DensityGrid, model_grids: torch.Tensor,
@@ -25,8 +25,9 @@ def batched_ccc(dmap: DensityGrid, model_grids: torch.Tensor,
     starts = np.rint(
         (model_origins - np.asarray(dmap.origin)) / dmap.voxsp).astype(int)
     dev = model_grids.device
-    out = k17.batched_ccc(dmap.data.to(dev), model_grids, torch.as_tensor(
-        starts, dtype=torch.int32, device=dev)).cpu().numpy()
+    out = profiling.pull(k17.batched_ccc(
+        dmap.data.to(dev), model_grids,
+        torch.as_tensor(starts, dtype=torch.int32, device=dev))).numpy()
     sanitize.check_host("score.ccc", out)
     return out
 

@@ -30,7 +30,7 @@ import threading
 import time
 from pathlib import Path
 
-from ..utils import sanitize
+from ..utils import profiling, sanitize
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 SMEM_LIMIT = 232448     # bytes of shared memory a block may use (sm_90)
@@ -206,13 +206,15 @@ def launch(fn, device, *args) -> None:
     inputs': a mesh's shards, a session on cuda:1); raise on its error
     code. ``args`` must fill every parameter but the stream: ctypes would
     pass an argument beyond ``fn.argtypes`` as a C int, cutting the stream
-    handle to 32 bits."""
+    handle to 32 bits. While the tracer is on the call counts one
+    ``launches``."""
     import torch
     if len(fn.argtypes) != len(args) + 1:
         raise TypeError(f"{fn.__name__}: {len(args)} arguments and the "
                         f"stream for {len(fn.argtypes)} parameters")
     with torch.cuda.device(device):
         code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    profiling.count("launches")
     if code != 0:
         msg = _lib.mad_error_string(code).decode()
         raise RuntimeError(f"{fn.__name__}: CUDA launch failed: {msg} "

@@ -39,6 +39,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import build
 
 launches = 0            # kernel launches since the last reset
@@ -88,7 +89,7 @@ def merge_head(best: torch.Tensor, keys: torch.Tensor,
 
 def split_keys(keys: torch.Tensor):
     """Sorted keys -> (ranks int64, scores float32) numpy arrays."""
-    k = keys.cpu().numpy().astype(np.int64)
+    k = profiling.pull(keys).numpy().astype(np.int64)
     scores = (k >> 32).astype(np.uint32).view(np.float32)
     return k & 0xFFFFFFFF, scores
 

@@ -6,7 +6,9 @@ want a breakdown.
 :mod:`.utils.profiling` (``profiling.stage(name, sync=True)``), so the
 dict and ``profiling.show_timing`` read the same clock: on a CUDA device
 it synchronizes before and after, so the time is the device work of the
-block, not its enqueue. With ``timings=None`` it does nothing.
+block, not its enqueue. With ``timings=None`` it neither times nor
+synchronizes. Either way the block is the tracer's span ``name``
+(``profiling.span``), which records only while a ``torch.profiler`` does.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from .utils import profiling
 @contextlib.contextmanager
 def stage(timings, name: str, device):
     if timings is None:
-        yield
+        with profiling.span(name):
+            yield
         return
     span = {"seconds": 0.0}
     try:

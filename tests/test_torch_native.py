@@ -21,6 +21,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from mad_tpu.core import structure as jstructure
+from mad_tpu import native as jnative
 from mad_tpu.core.grid import read_map as jread_map
 from mad_tpu.native import get_fastio as jget_fastio
 from mad_tpu.testing import make_protein
@@ -39,14 +40,22 @@ HET = ("HETATM    2  O   HOH B   2      21.000  22.000  23.000  1.00  0.00"
 
 
 @pytest.fixture(scope="module")
-def both():
+def both(tmp_path_factory):
     """(the port's parsers, mad_tpu's extension); skipped where no C
-    compiler runs, as tests/test_native.py is."""
-    port, ref = native.get_fastio(), jget_fastio()
-    assert (port is None) == (ref is None)
-    if port is None:
-        pytest.skip("no C toolchain")
-    return port, ref
+    compiler runs, as tests/test_native.py is. For this module mad_tpu's
+    extension builds into a directory of its own: mad_tpu builds through
+    one temporary file of a fixed name in a shared cache, so processes
+    that build it at once (test workers under a fresh HOME) race on that
+    file, and the loser's ``get_fastio()`` stays None in its process."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_CACHE",
+                   str(tmp_path_factory.mktemp("mad_tpu_native")))
+        mp.setattr(jnative, "fastio", None)
+        port, ref = native.get_fastio(), jget_fastio()
+        assert (port is None) == (ref is None)
+        if port is None:
+            pytest.skip("no C toolchain")
+        yield port, ref
 
 
 def _ref_pdb(ref, data: bytes):
