@@ -238,7 +238,7 @@ Phases, each of which raises (non-zero exit) when it fails:
      each K3 field (the one K6 and K7 read) bit for bit with the plain
      version, K6 agreeing on every anchor (frames within K6_RFINAL_TOL),
      K7 as in phase 4 (k7_checks, with times) and each K19 head equal to
-     the plain version's; match_pairs and its two host np.unique calls
+     the plain version's; match_pairs and its two host anchor clouds
      timed on the stress's pairs; then, after a second warm pass, a
      timed pass with the launch counters reset first, which must give
      the first warm pass's solutions bit for bit, launch every kernel of
@@ -4062,20 +4062,22 @@ def stress_kernel_checks(rec):
 
 def unique_times(label, args):
     """match_pairs at ``args`` (its arguments) and, on its pairs, its two
-    host np.unique(..., axis=0) calls alone: the median seconds of
-    HOST_IO_REPS calls of each, printed."""
+    host anchor clouds (``match._cloud``: np.unique over the distinct rows
+    the pairs take) alone: the median seconds of HOST_IO_REPS calls of
+    each, printed."""
     from mad_tpu_torch.engine import match
     map_set, sub_set = args[0], args[1]
     t_all, pairs = median_run(lambda: match.match_pairs(*args))
     check(pairs is not None, f"match_pairs {label}: no pair")
-    hi = sub_set.subv_coords[pairs["rows"]]
-    lo = map_set.subv_coords[pairs["cols"]]
-    t_hi, hi_cloud = median_run(lambda: np.unique(hi, axis=0))
-    t_lo, lo_cloud = median_run(lambda: np.unique(lo, axis=0))
-    say(f"  match_pairs {label}: {len(hi)} pairs, {t_all * 1e3:.1f} ms; "
-        f"np.unique of the subunit anchors ({len(hi)} rows -> "
-        f"{len(hi_cloud)}) {t_hi * 1e3:.1f} ms, of the map anchors "
-        f"({len(lo)} rows -> {len(lo_cloud)}) {t_lo * 1e3:.1f} ms")
+    rows, cols = pairs["rows"], pairs["cols"]
+    t_hi, (hi_cloud, hi_rows) = median_run(
+        lambda: match._cloud(sub_set.subv_coords, rows))
+    t_lo, (lo_cloud, lo_rows) = median_run(
+        lambda: match._cloud(map_set.subv_coords, cols))
+    say(f"  match_pairs {label}: {len(rows)} pairs, {t_all * 1e3:.1f} ms; "
+        f"the subunit's anchor cloud ({hi_rows} rows -> {len(hi_cloud)}) "
+        f"{t_hi * 1e3:.1f} ms, the map's ({lo_rows} rows -> "
+        f"{len(lo_cloud)}) {t_lo * 1e3:.1f} ms")
 
 
 def stress_line(what, r):

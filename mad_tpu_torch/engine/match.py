@@ -132,17 +132,42 @@ def match_pairs(map_set: DescriptorSet, sub_set: DescriptorSet,
         sanitize.check_host("match.similarity", ccs)
         if len(rows) == 0:
             return None
-        hi_cloud = np.unique(sub_set.subv_coords[rows], axis=0)
-        lo_cloud = np.unique(map_set.subv_coords[cols], axis=0)
-        r_hi = sub_set.rfinal[rows]
-        r_lo = map_set.rfinal[cols]
-        rot = np.einsum("pji,pjk->pik", r_lo, r_hi)  # R_lo^T @ R_hi
-        profiling.tag(pairs=len(rows), hi_anchors=len(hi_cloud),
-                      lo_anchors=len(lo_cloud))
+        hi_cloud, hi_rows = _cloud(sub_set.subv_coords, rows)
+        lo_cloud, lo_rows = _cloud(map_set.subv_coords, cols)
+        rot = _relative_rotations(map_set.rfinal[cols], sub_set.rfinal[rows])
+        profiling.tag(pairs=len(rows), hi_rows=hi_rows, lo_rows=lo_rows,
+                      hi_anchors=len(hi_cloud), lo_anchors=len(lo_cloud))
     return dict(ccs=ccs, rows=rows, cols=cols, rot=rot,
                 hi_coord=sub_set.subv_coords[rows],
                 lo_coord=map_set.subv_coords[cols],
                 hi_cloud=hi_cloud, lo_cloud=lo_cloud)
+
+
+def _cloud(coords: np.ndarray, idx: np.ndarray):
+    """``np.unique(coords[idx], axis=0)`` (mad/MaD.py:427-428) sorted over
+    the distinct rows that ``idx`` takes, not one row an index, and their
+    count. A row with a NaN is unequal to itself, so the per-index form
+    keeps a copy of it an index; and of rows equal but for a zero's sign it
+    keeps the one its sort puts first: such rows take that form."""
+    used = np.zeros(len(coords), dtype=bool)
+    used[idx] = True
+    rows = coords[used]
+    if np.isnan(rows).any() or np.signbit(rows[rows == 0]).any():
+        return np.unique(coords[idx], axis=0), len(rows)
+    return np.unique(rows, axis=0), len(rows)
+
+
+def _relative_rotations(r_lo: np.ndarray, r_hi: np.ndarray) -> np.ndarray:
+    """R_lo^T @ R_hi of each pair, bit for bit ``np.einsum("pji,pjk->pik",
+    r_lo, r_hi)`` (mad/MaD.py:438) at half its time: the products summed
+    in j's order onto a zero, as the einsum's loop adds them (so a sum of
+    zeros is +0)."""
+    a, b = r_lo[:, :, :, None], r_hi[:, :, None, :]
+    rot = a[:, 0] * b[:, 0]
+    rot += 0
+    np.add(a[:, 1] * b[:, 1], rot, out=rot)
+    np.add(a[:, 2] * b[:, 2], rot, out=rot)
+    return rot
 
 
 def anchor_voxels(lo_cloud: np.ndarray, grid_origin, voxsp: float,

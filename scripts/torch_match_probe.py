@@ -27,9 +27,11 @@ the host argsort and the pushes of the gathered rows before K21, K21
 since; the two checkouts' tables are held equal bit for bit.
 Prints each input's shape, and the host pose data of match_pairs
 (engine/match.py) on the bench's pairs in parts: the keys' pull, their
-decode (split_pair_keys), the two np.unique(..., axis=0) calls, the
-rfinal gathers, the R_lo^T R_hi einsum and the coordinate copies (median
-of 7, host clock), beside np.unique of the distinct rows' coordinates.
+decode (split_pair_keys), the two per-pair np.unique(..., axis=0) calls,
+the rfinal gathers, the R_lo^T R_hi einsum and the coordinate copies
+(median of 7, host clock), beside what match_pairs runs in their place:
+np.unique of the distinct rows' coordinates (engine/match._cloud) and the
+rotations summed in j's order (_relative_rotations).
 
 Then, for every letter of ``--order`` (A the checkout ``--parent``, B this
 one; this one alone, once, without ``--parent``), one process in that
@@ -386,8 +388,9 @@ def host_split(m, s, cfg, reps=7):
         "coordinate copies": ms(lambda: (s.subv_coords[rows],
                                          m.subv_coords[cols])),
         "np.unique of the distinct rows (both)": ms(lambda: (
-            np.unique(s.subv_coords[np.unique(rows)], axis=0),
-            np.unique(m.subv_coords[np.unique(cols)], axis=0))),
+            em._cloud(s.subv_coords, rows), em._cloud(m.subv_coords, cols))),
+        "R_lo^T R_hi in j's order": ms(lambda: em._relative_rotations(
+            r_lo, r_hi)),
         "match_pairs whole": ms(lambda: em.match_pairs(m, s, cfg)),
     }
     print(f"host pose data, {len(rows)} pairs ({len(np.unique(rows))} "

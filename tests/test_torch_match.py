@@ -8,7 +8,10 @@ Required:
     1e-6 of each other (float32 dot products summed in another order);
   * approximate and exact repeatabilities equal, except pairs with a moved
     anchor within 1e-4 of a decision boundary (4 A for the exact score, a
-    .5 voxel rounding edge for the approximate one).
+    .5 voxel rounding edge for the approximate one);
+  * the host pose data of ``match_pairs`` (anchor clouds and relative
+    rotations, worked out once a distinct row) bit for bit the per-pair
+    formula it replaces and mad_tpu's, on one device and on CPU shards.
 """
 
 import numpy as np
@@ -24,6 +27,7 @@ from mad_tpu_torch.convert import (descriptor_set_from_numpy,
 from mad_tpu_torch.core.config import MatchConfig as TMatch
 from mad_tpu_torch.engine import match as tm
 from mad_tpu_torch.kernels import repeat as k13
+from mad_tpu_torch.parallel.mesh import make_mesh
 
 torch.set_num_threads(1)
 
@@ -188,3 +192,111 @@ def test_cpu_tensor_takes_the_plain_version(sets):
     assert out.shape == (4,) and k13.launches == 0
     # pair k moves hi_k onto lo_k: that anchor is always a hit
     assert (out >= 100.0 / 20).all()
+
+
+GROUP_DIMS = 28        # a group's block of descriptor columns (36 in 1,024)
+
+
+def _group_sets(rng, sub_groups, map_groups, sub_coords, map_coords):
+    """A mad_tpu and a port DescriptorSet each (map, subunit) whose
+    descriptors live on their group's block of columns: a pair's cosine is
+    above 0.95 within a group and 0 across groups, so the pairs are the
+    same-group pairs (at most 128 map rows a group), far from any edge.
+    The first rows' frames are signed permutations, whose products give
+    exact zeros of both signs."""
+
+    def mkset(groups, coords, name):
+        n = len(groups)
+        desc = np.zeros((n, 1024), np.int16)
+        for i, g in enumerate(groups):
+            block = slice(g * GROUP_DIMS, (g + 1) * GROUP_DIMS)
+            desc[i, block] = (rng.integers(20, 40, GROUP_DIMS)
+                              + rng.integers(0, 3, GROUP_DIMS))
+        rfinal = _rotations(rng, n)
+        k = min(n, 8)
+        rfinal[:k] = np.eye(3, dtype=np.float32)[rng.permutation(3)] * \
+            rng.choice([-1.0, 1.0], size=(k, 3, 1)).astype(np.float32)
+        fields = dict(desc=desc, coords=coords.astype(np.float32),
+                      map_coords=coords, subv_coords=coords, rfinal=rfinal,
+                      octave=np.zeros(n, np.int32),
+                      anchor_id=np.arange(n, dtype=np.int32),
+                      main_bin=np.arange(n, dtype=np.int32) % 112,
+                      sec_bin=np.zeros(n, np.int32))
+        norm = desc.astype(np.float32)
+        norm /= np.linalg.norm(norm, axis=1, keepdims=True)
+        return (JSet(desc_norm=norm, name=name, **fields),
+                descriptor_set_from_numpy(name=name, device="cpu", **fields))
+
+    jmap, tmap = mkset(map_groups, map_coords, "map")
+    jsub, tsub = mkset(sub_groups, sub_coords, "sub")
+    return jmap, tmap, jsub, tsub
+
+
+def _lattice(rng, n, step=1.0):
+    return np.round((rng.normal(size=(n, 3)) * 12 + 60) / step) * step
+
+
+def _pose_case(case):
+    """The sets of one case of test_pose_data_per_distinct_row."""
+    rng = np.random.default_rng(11)
+    if case in ("bench", "mesh"):
+        # the bench fit's table: 366 x 4,588 rows, every subunit row with
+        # 127-128 pairs; anchors on a 1 A lattice, and rows 0-5 on one
+        sub, mp = _lattice(rng, 366), _lattice(rng, 4588)
+        sub[1:6], mp[1:6] = sub[0], mp[0]
+        return _group_sets(rng, np.arange(366) % 36, np.arange(4588) % 36,
+                           sub, mp)
+    if case == "single_pair":
+        return _group_sets(rng, [0, 1, 2, 3], [3, 4, 5, 6, 7, 8],
+                           _lattice(rng, 4), _lattice(rng, 6))
+    if case == "one_subunit_row":
+        return _group_sets(rng, np.arange(30), [0] * 100 + [30] * 100,
+                           _lattice(rng, 30), _lattice(rng, 200))
+    if case == "equal_coords":
+        # 60 and 400 rows on 5 and 7 distinct anchors
+        return _group_sets(rng, np.arange(60) % 12, np.arange(400) % 12,
+                           _lattice(rng, 5)[np.arange(60) % 5],
+                           _lattice(rng, 7)[np.arange(400) % 7])
+    # case "nan_signed_zero": rows whose anchor has a NaN, and rows equal
+    # but for the sign of a zero, each taken by several pairs
+    sub, mp = _lattice(rng, 60), _lattice(rng, 400)
+    for c in (sub, mp):
+        c[0:3] = (np.nan, 5.0, 5.0)
+        c[3], c[4] = (0.0, 5.0, 5.0), (-0.0, 5.0, 5.0)
+        c[5:7] = (7.0, -0.0, 1.0)
+    return _group_sets(rng, np.arange(60) % 12, np.arange(400) % 12, sub, mp)
+
+
+POSE_CASES = ["bench", "single_pair", "one_subunit_row", "equal_coords",
+              "nan_signed_zero", "mesh"]
+
+
+@pytest.mark.parametrize("case", POSE_CASES)
+def test_pose_data_per_distinct_row(case):
+    """``match_pairs``' hi_cloud, lo_cloud and rot, worked out once a
+    distinct row, are bit for bit the per-pair formula (np.unique over the
+    pairs' anchors, np.einsum of the pairs' frames) and mad_tpu's."""
+    jmap, tmap, jsub, tsub = _pose_case(case)
+    mesh = make_mesh(3, devices=["cpu"] * 3) if case == "mesh" else None
+    got = tm.match_pairs(tmap, tsub, TMatch(), mesh)
+    rows, cols = got["rows"], got["cols"]
+    want = dict(
+        hi_cloud=np.unique(tsub.subv_coords[rows], axis=0),
+        lo_cloud=np.unique(tmap.subv_coords[cols], axis=0),
+        rot=np.einsum("pji,pjk->pik", tmap.rfinal[cols], tsub.rfinal[rows]))
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and got[k].shape == w.shape, k
+        assert got[k].tobytes() == w.tobytes(), k
+    sizes = {"bench": 46648, "mesh": 46648, "single_pair": 1,
+             "one_subunit_row": 100}
+    assert len(rows) == sizes.get(case, len(rows)) > 0
+    if case in ("one_subunit_row", "single_pair"):
+        assert len(np.unique(rows)) == 1
+
+    ref = jm.match_pairs(jmap, jsub, JMatch())
+    key = lambda d: d["rows"].astype(np.int64) * 1_000_000 + d["cols"]
+    og, orf = np.argsort(key(got)), np.argsort(key(ref))
+    np.testing.assert_array_equal(key(got)[og], key(ref)[orf])
+    for k in ("hi_cloud", "lo_cloud"):
+        assert got[k].tobytes() == ref[k].tobytes(), k
+    assert got["rot"][og].tobytes() == ref["rot"][orf].tobytes()

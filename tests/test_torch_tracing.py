@@ -10,6 +10,8 @@ profiler's clock, and cost one flag read otherwise.
 - counters move only while the profiler records;
 - the dock stages are spans under their own names, their seconds those of
   the stage registry;
+- ``match.pose_data`` counts the pairs, the distinct rows they take and
+  the distinct anchors of those rows;
 - a small dock gives the same solutions bit for bit with the profiler on
   and off, and with tracing off synchronizes nothing.
 """
@@ -22,8 +24,10 @@ import numpy as np
 import pytest
 import torch
 
-from mad_tpu_torch.core.config import MadConfig
+from mad_tpu_torch.convert import descriptor_set_from_numpy
+from mad_tpu_torch.core.config import MadConfig, MatchConfig
 from mad_tpu_torch.engine import docking
+from mad_tpu_torch.engine.match import match_pairs
 from mad_tpu_torch.engine.pipeline import describe_grid, describe_structure
 from mad_tpu_torch.ops.simulate import simulate_density
 from mad_tpu_torch.testing import decoy_transform, make_assembly
@@ -187,6 +191,37 @@ def test_stages_are_spans_and_keep_their_seconds():
     assert timings["match"] == profiling.get_timings()["match"]
     assert "cluster" not in profiling.get_timings()
     profiling.show_timing(reset=True)
+
+
+def test_pose_data_counts_the_distinct_rows():
+    """Rows of 6 groups of descriptor columns: every same-group pair
+    clears the threshold; the anchors sit on 5 and 9 points."""
+    rng = np.random.default_rng(4)
+
+    def rows(n, points, name):
+        desc = np.zeros((n, 1024), np.int16)
+        for i in range(n):
+            desc[i, (i % 6) * 32:(i % 6 + 1) * 32] = rng.integers(20, 40, 32)
+        coords = rng.normal(size=(points, 3))[np.arange(n) % points]
+        return descriptor_set_from_numpy(
+            desc=desc, coords=coords, map_coords=coords, subv_coords=coords,
+            rfinal=np.tile(np.eye(3, dtype=np.float32), (n, 1, 1)),
+            octave=np.zeros(n, np.int32), anchor_id=np.arange(n),
+            main_bin=np.zeros(n, np.int32), sec_bin=np.zeros(n, np.int32),
+            name=name, device="cpu")
+
+    with profiler():
+        pairs = match_pairs(rows(90, 9, "map"), rows(20, 5, "sub"),
+                            MatchConfig())
+    span = next(r for r in profiling.spans() if r.name == "match.pose_data")
+    c = span.counts
+    assert c == dict(pairs=len(pairs["rows"]),
+                     hi_rows=len(np.unique(pairs["rows"])),
+                     lo_rows=len(np.unique(pairs["cols"])),
+                     hi_anchors=len(pairs["hi_cloud"]),
+                     lo_anchors=len(pairs["lo_cloud"]))
+    assert c["hi_anchors"] == 5 < c["hi_rows"] == 20 < c["pairs"] == 300
+    assert c["lo_anchors"] == 9 < c["lo_rows"] == 90 <= c["pairs"]
 
 
 @pytest.fixture(scope="module")
