@@ -1,26 +1,34 @@
 """The one generator: a cell's inputs from its configuration, its traffic
 and the seed, and the jobs it sends to the program.
 
-Inputs. The configuration's ``system`` gives the assembly
-(``make_assembly`` of :mod:`plainref.inputs`), its resolution and grid;
-the traffic's ``maps`` the size of the pool of maps, each an assembly of
-one of the configuration's ``assembly_seeds``, simulated by the plain
-simulation (:mod:`plainref.sim`) and ``reduce_void``-ed in set-up.
+Inputs. The configuration's ``system`` gives the assembly, its resolution
+and grid, and names the builder of its maps under ``builder``, a module
+``benchmark/systems/<builder>.py`` (:func:`registry.system`; ``homomer``
+where it names none) with ``make_map(system, assembly_seed, device)``,
+which gives a :class:`MapInput`: the map, and each kind of subunit in it
+with its copies (``components``). The traffic's ``maps`` gives the size
+of the pool of maps, one of each of the configuration's
+``assembly_seeds``.
 
 Jobs, one caller, each waiting for the last. The traffic's ``job`` names
 the chain of the program's calls that a job makes, a module
 ``benchmark/jobs/<job>.py`` (:func:`registry.job`) with
 
-- ``LAYERS``: the layers its outputs hold for the judge (``rows``,
-  ``dock``, ``assembly``);
+- ``LAYERS``: the judge's layers that its outputs are held to, each a
+  module ``benchmark/layers/<name>.py`` (:mod:`harness.check`);
 - ``groups(cell)``: how many groups the jobs take in turn (maps,
   conformers), job j taking group j mod groups;
 - ``setup(cell)``: what the job holds across jobs (a described map);
 - ``subunit(cell, group, rng)``: (map index, conformer kind, the
-  subunit before its decoy pose);
-- ``run(cell, map_index, struct, span, timings)``: the calls, returning
-  a dict of ``map_set``, ``sub_set``, ``candidates`` (the dock's first
-  round, through its ``on_filtered`` hook), ``sols`` and ``models``.
+  subunit before its decoy pose), or a list of subunits, one a
+  component, each given a decoy pose in turn;
+- ``run(cell, map_index, struct, span, timings)``: the calls (``struct``
+  a list where ``subunit`` gave one), returning a dict of ``map_set``,
+  ``models`` and either ``components``, a list of one dict a kind
+  (``kind``, ``n_copies``, ``sub_set``, ``candidates``, ``sols``), or
+  those three of one component with the system's ``n_copies``:
+  ``sub_set``, ``candidates`` (the dock's first round, through its
+  ``on_filtered`` hook) and ``sols``.
 
 Every job's subunit, decoy pose (turns about x, y and z uniform in
 [0, 2 pi), the centre ``decoy_shift`` A out in a uniform direction) and
@@ -40,12 +48,14 @@ import contextlib
 import dataclasses
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from plainref import inputs, sim
+from plainref import inputs
+
+from . import registry
 
 
 def seq(seed: int, *keys) -> np.random.Generator:
@@ -53,26 +63,21 @@ def seq(seed: int, *keys) -> np.random.Generator:
     return np.random.default_rng([int(seed) % (1 << 63), *keys])
 
 
+class Component(NamedTuple):
+    """One kind of subunit in a map."""
+
+    kind: int
+    mol: inputs.Mol            # the subunit at the origin
+    n_copies: int
+
+
 @dataclass
 class MapInput:
     vol: torch.Tensor          # (X, Y, Z) float32 on the card
     origin: np.ndarray         # (3,) A
     voxsp: float
-    sub: inputs.Mol            # the subunit at the origin
-
-
-def make_map(system: dict, assembly_seed: int, device) -> MapInput:
-    sub, copies, _poses = inputs.make_assembly(
-        n_copies=system["n_copies"], n_res=system["n_res"],
-        seed=assembly_seed, spread=system["spread"], shell=system["shell"])
-    coords = np.concatenate([c.coords for c in copies])
-    masses = np.concatenate([c.masses for c in copies])
-    vol, origins = sim.simulate(coords[None], masses[None],
-                                system["resolution"], system["voxsp"],
-                                device, shape_bucket=system["map_bucket"])
-    vol, origin = sim.reduce_void(vol[0], origins[0], system["voxsp"],
-                                  system["void_padding"])
-    return MapInput(vol=vol, origin=origin, voxsp=system["voxsp"], sub=sub)
+    sub: inputs.Mol            # the first component's subunit at the origin
+    components: List[Component] = field(default_factory=list)
 
 
 def program_config(overrides: dict):
@@ -125,6 +130,26 @@ def adapt_set(ds) -> dict:
                 desc=ds.desc)
 
 
+def checked_component(comp: dict, decoy: inputs.Mol) -> dict:
+    """One component's outputs of a checked job as the judge reads them:
+    its decoy, rows, first-round candidates and solutions stacked."""
+    out = dict(kind=comp["kind"], n_copies=comp["n_copies"], decoy=decoy)
+    if "sub_set" in comp:
+        out["sub_set"] = adapt_set(comp["sub_set"])
+    if "candidates" in comp:
+        out["candidates"] = [dict(hi=c.hi_coord, lo=c.lo_coord,
+                                  weight=c.weight)
+                             for c in comp["candidates"]]
+    if "sols" in comp:
+        sols = comp["sols"]
+        out.update(
+            sol_coords=(np.stack([s.structure.coords for s in sols])
+                        if sols else np.zeros((0,) + decoy.coords.shape)),
+            sol_weight=np.asarray([s.weight for s in sols]),
+            sol_ccc=np.asarray([s.ccc for s in sols]))
+    return out
+
+
 @dataclass
 class JobOut:
     """What one job leaves for the judge and the readers."""
@@ -156,7 +181,6 @@ class Cell:
 
     def __init__(self, config: dict, traffic: dict, seed: int, device,
                  traced: bool = False):
-        from . import registry
         self.config, self.traffic = config, traffic
         self.device = torch.device(device)
         self.traced = traced
@@ -190,22 +214,31 @@ class Cell:
             raise RuntimeError("the program's configuration is not the "
                                "method the reference runs: " + "; ".join(bad))
         seeds = self.config["assumed"]["assembly_seeds"][: self.n_maps]
-        self.maps = [make_map(self.system, s, self.device) for s in seeds]
+        builder = registry.system(self.system.get("builder", "homomer"))
+        self.maps = [builder.make_map(self.system, s, self.device)
+                     for s in seeds]
         self.grids = [to_grid(m, f"map{i}") for i, m in enumerate(self.maps)]
         self.job.setup(self)
 
     # -- one job ----------------------------------------------------------
 
     def job_inputs(self, j: int):
-        """(map index, conformer kind, the decoy as a Mol) of job j (of
-        warm-up job -1 - j where j < 0)."""
+        """(map index, conformer kind, the decoy as a Mol, or a list of
+        them where the job's ``subunit`` gives one) of job j (of warm-up
+        job -1 - j where j < 0)."""
         rng = seq(self.seed, 1, j) if j >= 0 else seq(self.seed, 2, -1 - j)
         group = (j if j >= 0 else -1 - j) % self.groups
         mi, kind, mol = self.job.subunit(self, group, rng)
+        if isinstance(mol, list):
+            return mi, kind, [self.decoy(m, rng) for m in mol]
+        return mi, kind, self.decoy(mol, rng)
+
+    def decoy(self, mol: inputs.Mol, rng) -> inputs.Mol:
+        """The subunit at a pose drawn from ``rng``."""
         a, b, c = rng.uniform(0.0, 2.0 * np.pi, 3)
         d = rng.normal(size=3)
         t = float(self.traffic["decoy_shift"]) * d / np.linalg.norm(d)
-        return mi, kind, inputs.decoy_transform(mol, t, a, b, c)
+        return inputs.decoy_transform(mol, t, a, b, c)
 
     @contextlib.contextmanager
     def span(self, name: str, stages: dict):
@@ -223,29 +256,29 @@ class Cell:
 
     def run_job(self, j: int, keep: bool = True) -> JobOut:
         mi, kind, mol = self.job_inputs(j)
+        many = isinstance(mol, list)
+        decoys = mol if many else [mol]
+        structs = [to_structure(m) for m in decoys]
         stages: Dict[str, float] = {}
         timings = {} if self.traced else None
         span = lambda name: self.span(name, stages)
         with span("job"):
-            got = self.job.run(self, mi, to_structure(mol), span, timings)
+            got = self.job.run(self, mi, structs if many else structs[0],
+                               span, timings)
         stages.update(timings or {})
-        sols = got.get("sols", [])
-        out = JobOut(map_index=mi, kind=kind, n_solutions=len(sols),
+        comps = got.get("components") or [dict(
+            kind=0, n_copies=self.system["n_copies"],
+            **{k: got[k] for k in ("sub_set", "candidates", "sols")
+               if k in got})]
+        out = JobOut(map_index=mi, kind=kind,
+                     n_solutions=min(len(c.get("sols", [])) for c in comps),
                      stages=stages, map_shape=tuple(self.grids[mi].shape))
         if keep and j in self.checked:
-            out.checked = dict(decoy=mol, **{
-                k: adapt_set(got[k]) for k in ("map_set", "sub_set")
-                if k in got})
-            if "candidates" in got:
-                out.checked["candidates"] = [
-                    dict(hi=c.hi_coord, lo=c.lo_coord, weight=c.weight)
-                    for c in got["candidates"]]
-            if "sols" in got:
-                out.checked.update(
-                    sol_coords=(np.stack([s.structure.coords for s in sols])
-                                if sols else np.zeros((0,) + mol.coords.shape)),
-                    sol_weight=np.asarray([s.weight for s in sols]),
-                    sol_ccc=np.asarray([s.ccc for s in sols]))
+            out.checked = dict(components=[
+                checked_component(c, d)
+                for c, d in zip(comps, decoys, strict=True)])
+            if "map_set" in got:
+                out.checked["map_set"] = adapt_set(got["map_set"])
             if "models" in got:
                 out.checked["models"] = [
                     dict(components=list(m.components), ccc=float(m.ccc))

@@ -1,35 +1,44 @@
 """Runs the judge (:mod:`plainref.judge`) over a cell's checked jobs once
 the window has closed, and holds each number to its limit.
 
-For each checked job the reference describes the map and the decoy from
-the benchmark's own inputs and docks the decoy (:mod:`plainref.dock`);
-the job's outputs are held to it layer by layer, the layers that the
-job's module names (``LAYERS``): the rows of each described grid, the
-dock's solutions, and the assembly, which the reference ranks again from
-the overlap of the job's own solutions.
+A checked job's outputs are held to the plain reference layer by layer,
+the layers that the job's module names (``LAYERS``), each a module
+``benchmark/layers/<name>.py`` (:func:`registry.layer`) with
+
+- ``NUMBERS``: the numbers it gives, each held to the configuration's
+  limit of that name;
+- ``PARTS``: the names of its parts that the run logs (``_parts``);
+- ``control(ref, out)``: its outputs of the control, put into ``out`` as
+  the program's are in a checked job (after those of the layers before
+  it);
+- ``compare(ref, c)``: one checked job's outputs ``c`` (the program's, or
+  the control's) against the reference: {part name: [entries]};
+- ``fold(parts)``: its numbers, from the entries of every checked job
+  under each part name (an empty list for a name none gave).
+
+``ref`` is the job's :class:`JobRef`: the map and each component's decoy
+as the benchmark made them, and the reference's description of each,
+worked out once and shared by the layers (the map's once across jobs).
 
 ``control=True`` puts the reference, computed in bfloat16, in the
-program's place: the map and the decoy described, the dock refined on
-the map's gradient field and scored, and the assembly's overlap and CC
-worked out, all in bfloat16, then judged as the program is against the
-float32 reference. It has to come out as not correct.
+program's place: each layer's ``control`` gives the outputs it judges
+(the map and the decoys described, the dock refined on the map's
+gradient field and scored, the assembly's overlap and CC worked out),
+then they are judged as the program's are, against the float32
+reference. It has to come out as not correct.
 """
 
 from __future__ import annotations
 
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
 
 from plainref import describe as ref_describe
-from plainref import dock as ref_dock
-from plainref import judge
 
-# the numbers each layer of a job's outputs gives
-NUMBERS = {"rows": ("rows_differ",),
-           "dock": ("candidates_differ", "solutions_differ", "ccc_gap"),
-           "assembly": ("models_differ", "model_ccc_gap")}
+from . import registry
 
 
 def _no_tf32():
@@ -38,128 +47,75 @@ def _no_tf32():
 
 
 def required(cell) -> list:
-    return [n for layer in cell.job.LAYERS for n in NUMBERS[layer]]
+    return [n for name in cell.job.LAYERS
+            for n in registry.layer(name).NUMBERS]
 
 
-def _rows(d) -> dict:
-    return dict(octave=d.octave, subv=d.subv, main=d.main, sec=d.sec,
-                desc=d.desc)
+class JobRef:
+    """One checked job as the layers see the reference: the cell, its map
+    (:class:`harness.cell.MapInput`), the method, and the reference's
+    described map and decoys, each worked out once at a dtype (``F32``;
+    the control's ``LOW``)."""
 
+    F32, LOW = torch.float32, torch.bfloat16
 
-def _control(cell, o, m, low_map, method, low):
-    """The control's outputs of one checked job: the reference in
-    bfloat16."""
-    decoy, res = o.checked["decoy"], cell.system["resolution"]
-    sub = ref_describe.describe_mol(decoy.coords, decoy.masses, res,
-                                    m.voxsp, method, m.vol.device, low)
-    first, sols = ref_dock.dock(low_map, sub, decoy.coords, decoy.masses,
-                                decoy.ca_idx, m.vol, m.origin, m.voxsp, res,
-                                method, cell.system["n_copies"], dtype=low)
-    coords = (np.stack([s.coords for s in sols]) if sols
-              else np.zeros((0,) + decoy.coords.shape))
-    out = dict(decoy=decoy, map_set=_rows(low_map), sub_set=_rows(sub),
-               candidates=first, sol_coords=coords,
-               sol_weight=[s.weight for s in sols],
-               sol_ccc=[s.ccc for s in sols])
-    if "assembly" in cell.job.LAYERS:
-        tuples = _ranked(cell, coords, decoy.masses, method, low)
-        cccs = judge.model_cccs(m.vol, m.origin, m.voxsp, coords,
-                                decoy.masses, tuples,
-                                method["assembly"]["cc_resolution"], low)
-        out["models"] = [dict(components=list(t), ccc=float(c))
-                         for t, c in zip(tuples, cccs)]
-    return out
+    def __init__(self, cell, o, maps: dict):
+        self.cell = cell
+        self.map_index = o.map_index
+        self.m = cell.maps[o.map_index]
+        self.method = cell.config["method"]
+        self.res = cell.system["resolution"]
+        self.pose_tol = cell.config["compare"]["pose_tol"]
+        self.decoys = [c["decoy"] for c in o.checked["components"]]
+        self._maps = maps
+        self._subs = {}
 
+    def described_map(self, dtype=F32):
+        key = (self.map_index, dtype)
+        if key not in self._maps:
+            self._maps[key] = ref_describe.describe(
+                self.m.vol, self.m.origin, self.m.voxsp, self.method, dtype)
+        return self._maps[key]
 
-def _ranked(cell, coords, masses, method, dtype):
-    """The reference's model tuples of a dock's solutions (none below
-    two solutions, as the fit builds none)."""
-    if len(coords) < 2:
-        return []
-    ov = ref_dock.overlap32(coords, masses, method["assembly"],
-                            cell.maps[0].vol.device, dtype)
-    return ref_dock.rank_tuples(ov, cell.system["n_copies"],
-                                cell.traffic["max_models"],
-                                cell.traffic["max_overlap"],
-                                cell.maps[0].vol.device)
+    def described_decoy(self, i: int, dtype=F32):
+        """The decoy of component ``i`` described."""
+        if (i, dtype) not in self._subs:
+            d = self.decoys[i]
+            self._subs[i, dtype] = ref_describe.describe_mol(
+                d.coords, d.masses, self.res, self.m.voxsp, self.method,
+                self.m.vol.device, dtype)
+        return self._subs[i, dtype]
 
 
 def numbers(cell, control: bool = False, log=lambda s: None) -> dict:
     """The numbers compared, over the cell's checked jobs; ``_checked``
     their count and ``_parts`` the counts of each comparison."""
     _no_tf32()
-    method = cell.config["method"]
-    res = cell.system["resolution"]
-    layers = cell.job.LAYERS
-    f32, low = torch.float32, torch.bfloat16
-    ref_maps, low_maps = {}, {}
-    rows, cands, sols = [], [], []
-    ccc_gap, models_d, mccc_gap = 0.0, [], 0.0
-    pose_tol = cell.config["compare"]["pose_tol"]
+    layers = [registry.layer(name) for name in cell.job.LAYERS]
+    parts = [defaultdict(list) for _ in layers]
+    maps = {}
     checked = [o for o in cell.outs if o.checked is not None]
     t0 = time.perf_counter()
     for o in checked:
-        m = cell.maps[o.map_index]
-        decoy = o.checked["decoy"]
-        if o.map_index not in ref_maps:
-            ref_maps[o.map_index] = ref_describe.describe(
-                m.vol, m.origin, m.voxsp, method, f32)
-        ref_map = ref_maps[o.map_index]
-        ref_sub = ref_describe.describe_mol(decoy.coords, decoy.masses, res,
-                                            m.voxsp, method, m.vol.device,
-                                            f32)
+        ref = JobRef(cell, o, maps)
+        c = o.checked
         if control:
-            if o.map_index not in low_maps:
-                low_maps[o.map_index] = ref_describe.describe(
-                    m.vol, m.origin, m.voxsp, method, low)
-            c = _control(cell, o, m, low_maps[o.map_index], method, low)
-        else:
-            c = o.checked
-        if "rows" in layers:
-            for part, ref in (("map_set", ref_map), ("sub_set", ref_sub)):
-                rows.append(dict(judge.compare_rows(c[part], ref),
-                                 part=part))
-        if "dock" in layers:
-            first, ref = ref_dock.dock(
-                ref_map, ref_sub, decoy.coords, decoy.masses, decoy.ca_idx,
-                m.vol, m.origin, m.voxsp, res, method,
-                cell.system["n_copies"])
-            cands.append(judge.compare_candidates(c["candidates"], first))
-            ref_coords = (np.stack([s.coords for s in ref]) if ref
-                          else np.zeros((0,) + decoy.coords.shape))
-            cmp = judge.compare_solutions(
-                c["sol_coords"], c["sol_weight"], ref_coords,
-                [s.weight for s in ref], decoy.ca_idx, pose_tol)
-            sols.append(dict(cmp, candidate=len(c["sol_coords"]),
-                             reference=len(ref)))
-            ccc = ref_dock.solution_cccs(m.vol, m.origin, m.voxsp,
-                                         c["sol_coords"], decoy.masses, res,
-                                         method["shape_bucket"], f32)
-            ccc_gap = max(ccc_gap, judge.gap(c["sol_ccc"], ccc))
-        if "assembly" in layers:
-            tuples = [tuple(x["components"]) for x in c["models"]]
-            ref_t = _ranked(cell, c["sol_coords"], decoy.masses, method, f32)
-            models_d.append(judge.ranks_differ(tuples, ref_t))
-            ref_ccc = judge.model_cccs(m.vol, m.origin, m.voxsp,
-                                       c["sol_coords"], decoy.masses, tuples,
-                                       method["assembly"]["cc_resolution"],
-                                       f32)
-            mccc_gap = max(mccc_gap, judge.gap(
-                [x["ccc"] for x in c["models"]], ref_ccc))
+            c = dict(components=[
+                {k: comp[k] for k in ("kind", "n_copies", "decoy")}
+                for comp in o.checked["components"]])
+            for layer in layers:
+                layer.control(ref, c)
+        for layer, got in zip(layers, parts):
+            for name, entries in layer.compare(ref, c).items():
+                got[name].extend(entries)
     out = {}
-    if "rows" in layers:
-        out["rows_differ"] = judge.share_differ(rows)
-    if "dock" in layers:
-        out.update(candidates_differ=judge.share_differ(cands),
-                   solutions_differ=judge.share_differ(sols),
-                   ccc_gap=ccc_gap)
-    if "assembly" in layers:
-        out.update(models_differ=max(models_d, default=0.0),
-                   model_ccc_gap=mccc_gap)
+    for layer, got in zip(layers, parts):
+        out.update(layer.fold(got))
     log(f"reference: {len(checked)} checked jobs in "
         f"{time.perf_counter() - t0:.2f} s")
     out["_checked"] = len(checked)
-    out["_parts"] = dict(rows=rows, candidates=cands, solutions=sols)
+    out["_parts"] = {name: got[name] for layer, got in zip(layers, parts)
+                     for name in layer.PARTS}
     return out
 
 

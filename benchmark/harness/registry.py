@@ -7,10 +7,17 @@
   one generator (:mod:`harness.cell`) reads; its ``job`` names the chain
   of program calls a job makes, ``benchmark/jobs/<job>.py``;
 - a per-layer metric: ``benchmark/metrics/<name>.py``, a reader with
-  ``read(run)`` that returns a number, or None where it finds nothing.
+  ``read(run)`` that returns a number, or None where it finds nothing;
+- a system: ``benchmark/systems/<name>.py``, the builder of a
+  configuration's maps (``make_map``), named by its ``system``'s
+  ``builder`` (``homomer`` where it names none);
+- a judge layer: ``benchmark/layers/<name>.py``, one of a job's ``LAYERS``:
+  the numbers it gives and its comparison of a checked job's outputs with
+  the reference (:mod:`harness.check` says what it holds).
 
-A later cell, mix, configuration or metric is a new file and a new entry;
-nothing here names one.
+A later cell, mix, configuration, system, job, layer or metric is a new
+file and a new entry; nothing here names one. Each piece is looked for
+under ``BENCH_DIR`` when it is asked for.
 """
 
 from __future__ import annotations
@@ -42,12 +49,12 @@ def workload(spec: dict, name: str) -> dict:
     raise KeyError(f"no workload {name!r} in BENCHMARK.json")
 
 
-def config(name: str, bench_dir: Path = BENCH_DIR) -> dict:
-    return load_json(bench_dir / "configs" / f"{name}.json")
+def config(name: str) -> dict:
+    return load_json(BENCH_DIR / "configs" / f"{name}.json")
 
 
-def traffic(name: str, bench_dir: Path = BENCH_DIR) -> dict:
-    return load_json(bench_dir / "traffic" / f"{name}.json")
+def traffic(name: str) -> dict:
+    return load_json(BENCH_DIR / "traffic" / f"{name}.json")
 
 
 def metrics_of(spec: dict, cell: str, kind: str) -> list:
@@ -57,8 +64,8 @@ def metrics_of(spec: dict, cell: str, kind: str) -> list:
             if "workloads" not in m or cell in m["workloads"]]
 
 
-def _module(kind: str, name: str, bench_dir: Path):
-    path = bench_dir / kind / f"{name}.py"
+def _module(kind: str, name: str):
+    path = BENCH_DIR / kind / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
         f"bench_{kind}_" + name.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
@@ -66,12 +73,25 @@ def _module(kind: str, name: str, bench_dir: Path):
     return mod
 
 
-def reader(name: str, bench_dir: Path = BENCH_DIR):
+def reader(name: str):
     """The ``read`` function of ``metrics/<name>.py``."""
-    return _module("metrics", name, bench_dir).read
+    return _module("metrics", name).read
 
 
-def job(name: str, bench_dir: Path = BENCH_DIR):
+def job(name: str):
     """The module ``jobs/<name>.py`` (:mod:`harness.cell` says what it
     holds)."""
-    return _module("jobs", name, bench_dir)
+    return _module("jobs", name)
+
+
+def system(name: str):
+    """The module ``systems/<name>.py``: ``make_map(system, assembly_seed,
+    device)`` gives one map of the configuration as a
+    :class:`harness.cell.MapInput`."""
+    return _module("systems", name)
+
+
+def layer(name: str):
+    """The module ``layers/<name>.py`` (:mod:`harness.check` says what it
+    holds)."""
+    return _module("layers", name)

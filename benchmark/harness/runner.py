@@ -148,12 +148,8 @@ def run_cell(spec: dict, cell_name: str, seed: int, seconds: float,
     nums = check.numbers(cell, log=log)
     checked = nums.pop("_checked")
     parts = nums.pop("_parts")
-    log("first-round candidates (union, same): " + ", ".join(
-        f"{p['union']}/{p['matched']}" for p in parts["candidates"]))
-    log("solutions (program, reference, paired, paired but farther or "
-        "weighed otherwise): " + ", ".join(
-            f"{p['candidate']}/{p['reference']}/{p['matched']}/{p['unequal']}"
-            for p in parts["solutions"]))
+    for name, entries in parts.items():
+        log_parts(name, entries, log)
     correct, rows = check.verdict(nums, config["limits"],
                                   check.required(cell))
     if checked != len(cell.checked):
@@ -180,6 +176,15 @@ def run_cell(spec: dict, cell_name: str, seed: int, seconds: float,
     out["check"] = {name: {"value": v, "limit": lim}
                     for name, v, lim in rows}
     return out
+
+
+def log_parts(name: str, entries: list, log):
+    """One line of a layer's part: the keys of its entries, then each
+    entry's values of those keys (lists left out)."""
+    keys = [k for k, v in entries[0].items()
+            if not isinstance(v, list)] if entries else []
+    log(f"{name} ({', '.join(keys)}): " + ", ".join(
+        "/".join(str(e[k]) for k in keys) for e in entries))
 
 
 class ForbiddenImport(RuntimeError):

@@ -6,10 +6,11 @@
 builds the cell once (its pool of maps is the same for every seed), then
 for each seed of ``--seeds`` runs the cell's jobs up to its last checked
 job (a short window at the cell's own load) and prints the numbers the
-judge compares, one JSON line a seed; for each seed of
-``--control-seeds`` the same numbers of the control (the reference in
-bfloat16 in the program's place), which has to fail a limit. Needs the
-card, as ``run.py`` does; it is not one of the benchmark's runs.
+judge compares and the parts of each of the job's layers, one JSON line
+a seed; for each seed of ``--control-seeds`` the same numbers of the
+control (the reference in bfloat16 in the program's place), which has to
+fail a limit. Needs the card, as ``run.py`` does; it is not one of the
+benchmark's runs.
 """
 
 import argparse
@@ -44,14 +45,7 @@ def readings(cell, seeds, control: bool, sink):
                                   check.required(cell))
         line = dict(seed=seed, control=control, jobs=len(cell.outs),
                     checked=checked, seconds=time.perf_counter() - t,
-                    passes=ok, **nums)
-        line["rows"] = [[r["part"], r["union"], r["matched"], r["unequal"]]
-                        for r in parts["rows"]]
-        line["candidates"] = [[p["union"], p["matched"]]
-                              for p in parts["candidates"]]
-        line["solutions"] = [[p["candidate"], p["reference"], p["matched"],
-                              p["unequal"], p["weights_unequal"], p["rmsd"]]
-                             for p in parts["solutions"]]
+                    passes=ok, **nums, parts=parts)
         sink(json.dumps(line))
 
 

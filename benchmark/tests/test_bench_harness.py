@@ -10,7 +10,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from harness import registry
+from harness import check, registry
 from harness.cell import Cell, MapInput
 from harness.stats import closed_loop, percentile
 from harness.trace import Trace, gaps, innermost, intersect, total, union
@@ -25,11 +25,19 @@ def test_every_piece_found_by_name():
     for c in spec["configs"]:
         assert Path(BENCH.parent / c["file"]).exists()
         assert registry.config(c["name"])["name"] == c["name"]
+        system = registry.config(c["name"])["system"]
+        assert callable(registry.system(
+            system.get("builder", "homomer")).make_map)
     for w in spec["workloads"]:
         assert registry.workload(spec, w["name"]) is w
         assert w["config"] in names
         job = registry.job(registry.traffic(w["traffic"])["job"])
-        assert set(job.LAYERS) <= {"rows", "dock", "assembly"}
+        limits = registry.config(w["config"])["limits"]
+        for name in job.LAYERS:
+            layer = registry.layer(name)
+            assert set(layer.NUMBERS) <= set(limits)
+            assert all(callable(getattr(layer, f))
+                       for f in ("control", "compare", "fold"))
         assert all(callable(getattr(job, f))
                    for f in ("groups", "setup", "subunit", "run"))
         e2e = registry.metrics_of(spec, w["name"], "end_to_end")
@@ -129,6 +137,17 @@ def test_generator_follows_the_seed(tiny, mix):
     assert max(a.checked) < g * rounds
     assert any(_light_cell(t, tiny, big + s).checked != a.checked
                for s in range(1, 9))
+
+
+@pytest.mark.parametrize("name,gap", [("dock", "ccc_gap"),
+                                      ("assembly", "model_ccc_gap")])
+def test_a_nan_gap_fails_its_limit(tiny, name, gap):
+    layer = registry.layer(name)
+    nums = layer.fold({gap: [float("nan"), 1e-9],
+                       "candidates": [], "solutions": [],
+                       "models_differ": [0.0]})
+    ok, rows = check.verdict(nums, tiny["limits"], layer.NUMBERS)
+    assert not ok and np.isnan(nums[gap])
 
 
 def test_command_refuses_without_a_card():

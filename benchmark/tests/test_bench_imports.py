@@ -31,7 +31,9 @@ def test_command_loads_no_jax_nor_mad_tpu():
         "c = cell.Cell.__init__\n"
         "import mad_tpu_torch.engine.docking, mad_tpu_torch.engine.pipeline\n"
         "for j in ('fit', 'screen'):\n"
-        "    registry.job(j)\n"
+        "    for name in registry.job(j).LAYERS:\n"
+        "        registry.layer(name)\n"
+        "registry.system('homomer')\n"
         "import mad_tpu_torch.engine.assemble, mad_tpu_torch.core.config\n"
         "spec = registry.benchmark()\n"
         "for kind in ('end_to_end', 'per_layer'):\n"
