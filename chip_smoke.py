@@ -1830,8 +1830,8 @@ def match_kernel_checks(fit, cfg, device):
     # in-grid anchors in a set cell of its coarse map).
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     args = (f1, lo_vox, r_vox, f32(p["hi_cloud"]), f32(dmap.origin),
-            float(np.float32(1.0 / dmap.voxsp)), f32(p["rot"]),
-            f32(p["hi_coord"]), f32(p["lo_coord"]))
+            float(np.float32(1.0 / dmap.voxsp)), p["rot"].float(),
+            p["hi_xyz"], p["lo_xyz"])
     r1, r2 = approx.approx_repeat(*args), approx.approx_repeat_plain(*args)
     e = approx_edges(*args)
     check(torch.equal(r1, r2),

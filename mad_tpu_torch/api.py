@@ -273,59 +273,49 @@ class MaD:
                   "min_cc/wthresh ?")
             n_copies = len(sol_files)
         structures = [parse_pdb(f) for f in sol_files]
-        if n_copies == 1:
-            tuples = np.arange(len(sol_files))[:, None]
-            sums = stds = maxs = np.zeros(len(sol_files))
-        else:
-            ov_dev = asm.device_overlap(structures, acfg, self.device)
-            overlap = asm.host_overlap(ov_dev)
+
+        def report(overlap):
             self._print_overlap_table(overlap, sub_key)
             print(f"MaD> Assembling {n_copies} copies of chain {sub_key} "
                   f"from {len(sol_files)} solutions...")
-            tuples, sums, stds, maxs = asm.enumerate_homomultimer(
-                len(sol_files), n_copies, overlap, device=self.device,
-                overlap_dev=ov_dev)
-        enum_notes = asm.pop_enum_notes()
 
         if not homomultimer:
+            sub = asm.subcomplexes(structures, n_copies, acfg, max_overlap,
+                                   self.device, on_overlap=report)
+            asm.pop_enum_notes()
             valid = []
-            for s_idx, tup in enumerate(tuples):
-                if maxs[s_idx] > max_overlap:
-                    continue
+            for s_idx, tup, merged in zip(sub.ranks, sub.tuples,
+                                          sub.structures):
                 code = "_".join(f"{sub_key}{i}" for i in tup)
                 out = os.path.join(
                     out_dir, f"SubComplex{sub_key}_{s_idx}_{code}.pdb")
-                write_complex([structures[i] for i in tup], out)
+                write_complex([merged], out)
                 valid.append(out)
             if n_copies > 1:
                 print(f"MaD> Generated {len(valid)} subcomplexes from "
                       f"component {sub_key}")
             return valid
 
+        tuples, sums, stds, maxs = asm.rank_copies(
+            structures, n_copies, acfg, self.device, on_overlap=report)
+        enum_notes = asm.pop_enum_notes()
         models = asm.score_models(tuples, sums, stds, maxs, structures,
                                   self.dmap, acfg, max_models, max_overlap)
         self._report_models(models, out_dir, structures, enum_notes)
 
     def _build_models(self, sub_sol: Dict[str, List[str]], max_models: int,
                       max_overlap: float) -> None:
-        acfg = self.config.assembly
         print(f"MaD> Building assembly models from {len(sub_sol)} "
               "components...")
-        files, groups = [], {}
-        for key, sols in sub_sol.items():
-            groups[key] = list(range(len(files), len(files) + len(sols)))
-            files.extend(sols)
-        structures = [parse_pdb(f) for f in files]
-        ov_dev = asm.device_overlap(structures, acfg, self.device)
-        overlap = asm.host_overlap(ov_dev)
-        self._print_overlap_table(overlap, "+".join(sub_sol))
-        tuples, sums, stds, maxs = asm.enumerate_heteromer(
-            groups, overlap, device=self.device, overlap_dev=ov_dev)
+        models, structures = asm.build_heteromer(
+            {key: [parse_pdb(f) for f in files]
+             for key, files in sub_sol.items()},
+            self.dmap, self.config.assembly, max_models, max_overlap,
+            self.device, on_overlap=lambda overlap: self._print_overlap_table(
+                overlap, "+".join(sub_sol)))
         enum_notes = asm.pop_enum_notes()
         out_dir = os.path.join(self.out_folder, "assembly_models")
         os.makedirs(out_dir, exist_ok=True)
-        models = asm.score_models(tuples, sums, stds, maxs, structures,
-                                  self.dmap, acfg, max_models, max_overlap)
         self._report_models(models, out_dir, structures, enum_notes)
 
     def _report_models(self, models, out_dir, structures,

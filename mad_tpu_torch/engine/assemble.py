@@ -9,8 +9,10 @@ Replaces MaD.build_assembly / _build_from_single / _build_models
     the device and symmetrized by the heads as they stage it;
   * homomultimers: the C(n_solutions, n_copies) tuples ranked by max pair
     overlap, the head on the device (K19) when the count is large;
-  * heteromers: the cartesian product of per-subunit lists ranked by summed
-    overlap, the head on the device (K20) when the product is large;
+  * heteromers: each kind's subcomplexes (its copies' tuples under the
+    overlap threshold, ``subcomplexes``), then the cartesian product of the
+    kinds' lists ranked by summed overlap, the head on the device (K20)
+    when the product is large (``build_heteromer``);
   * models kept while max overlap <= threshold, CC-scored against the map at
     4 A in one batched simulation.
 
@@ -27,7 +29,7 @@ import functools
 import math
 from dataclasses import dataclass
 from itertools import combinations, product
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -295,6 +297,7 @@ def _hetero_scores(gather: np.ndarray, overlap: np.ndarray):
     return vals.sum(axis=1), vals.std(axis=1), vals.max(axis=1)
 
 
+@profiling.spanned("assembly.enumerate_hetero")
 def enumerate_heteromer(groups: Dict[str, List[int]], overlap: np.ndarray,
                         max_combinations: int = 50_000_000, head: int = 256,
                         device="cuda",
@@ -311,7 +314,9 @@ def enumerate_heteromer(groups: Dict[str, List[int]], overlap: np.ndarray,
     ``max_combinations`` the largest groups trim to their best-ranked
     entries (lists arrive ranking-sorted) and the trim is announced
     (printed + recorded, pop_enum_notes). ``overlap_dev`` as for
-    ``enumerate_homomultimer``."""
+    ``enumerate_homomultimer``. Traced, the span tags the tuples ranked
+    and whether K20 ranked them; the counters ``hetero_tuples`` and
+    ``hetero_device_ranks`` add them up."""
     device = resolve(device)
     lists = [np.asarray(v) for v in groups.values()]
     sizes = [len(v) for v in lists]
@@ -328,8 +333,12 @@ def enumerate_heteromer(groups: Dict[str, List[int]], overlap: np.ndarray,
               f"{max_combinations:,} combinations)")
     lists = [lv[:s] for lv, s in zip(lists, sizes)]
     m = int(np.prod(sizes))
+    on_device = m > 4 * head
+    profiling.tag(tuples=m, on_device=int(on_device))
+    profiling.count("hetero_tuples", m)
+    profiling.count("hetero_device_ranks", int(on_device))
 
-    if m <= 4 * head:
+    if not on_device:
         tuples = np.array(list(product(*[range(s) for s in sizes])),
                           dtype=np.int64).reshape(m, len(sizes))
         gather = np.stack([lists[k][tuples[:, k]]
@@ -360,6 +369,91 @@ def enumerate_heteromer(groups: Dict[str, List[int]], overlap: np.ndarray,
     # stable (sum, cartesian-rank) order matches the reference's stable sort
     order = np.lexsort((ridx, s))
     return gather[order], s[order], sd[order], mx[order]
+
+
+def rank_copies(structures: Sequence[Structure], n_copies: int,
+                cfg: AssemblyConfig, device="cuda",
+                on_overlap: Optional[Callable[[np.ndarray], None]] = None):
+    """The ranked tuples of ``n_copies`` of one kind's solutions and their
+    [sum, std, max] overlap (mad/MaD.py:686-694): each solution alone for
+    one copy; otherwise K18's overlap of the solutions, handed to
+    ``on_overlap`` on the host, then ``enumerate_homomultimer``."""
+    n = len(structures)
+    if min(n_copies, n) <= 1:
+        z = np.zeros(n)
+        return np.arange(n)[:, None], z, z, z
+    ov_dev = device_overlap(structures, cfg, device)
+    overlap = host_overlap(ov_dev)
+    if on_overlap is not None:
+        on_overlap(overlap)
+    return enumerate_homomultimer(n, n_copies, overlap, device=device,
+                                  overlap_dev=ov_dev)
+
+
+def merge_structures(parts: Sequence[Structure]) -> Structure:
+    """One structure of ``parts``' atoms in order: the atoms that
+    ``write_complex`` writes of them."""
+    starts = np.cumsum([0] + [p.n_atoms for p in parts[:-1]])
+    return Structure(
+        coords=np.concatenate([p.coords for p in parts]),
+        masses=np.concatenate([p.masses for p in parts]),
+        ca_idx=np.concatenate([p.ca_idx + s for p, s in zip(parts, starts)]),
+        bb_idx=np.concatenate([p.bb_idx + s for p, s in zip(parts, starts)]),
+        info=[row for p in parts for row in p.info],
+        source="+".join(p.source for p in parts))
+
+
+class Subcomplexes(NamedTuple):
+    """One kind's subcomplexes: each kept tuple's place in the kind's
+    ranking, the tuples (indices of the kind's solutions) and each
+    subcomplex as one structure."""
+
+    ranks: np.ndarray
+    tuples: np.ndarray
+    structures: List[Structure]
+
+
+@profiling.spanned("assembly.subcomplexes")
+def subcomplexes(structures: Sequence[Structure], n_copies: int,
+                 cfg: AssemblyConfig, max_overlap: float, device="cuda",
+                 on_overlap: Optional[Callable[[np.ndarray], None]] = None
+                 ) -> Subcomplexes:
+    """One kind's subcomplexes (mad/MaD.py:697-711): its solutions'
+    ``n_copies``-tuples in rank order (``rank_copies``), those whose max
+    overlap is above ``max_overlap`` left out; with one copy each solution
+    is its own subcomplex."""
+    tuples, _s, _sd, maxs = rank_copies(structures, n_copies, cfg, device,
+                                        on_overlap)
+    ranks = np.flatnonzero(~(maxs > max_overlap))
+    tuples = tuples[ranks]
+    profiling.tag(solutions=len(structures), copies=tuples.shape[1],
+                  subcomplexes=len(tuples))
+    return Subcomplexes(ranks, tuples, [
+        merge_structures([structures[i] for i in t]) for t in tuples])
+
+
+def build_heteromer(groups: Dict[str, Sequence[Structure]],
+                    dmap: DensityGrid, cfg: AssemblyConfig, max_models: int,
+                    max_overlap: float, device="cuda",
+                    on_overlap: Optional[Callable[[np.ndarray], None]] = None):
+    """A heteromer's models from each kind's subcomplexes
+    (mad/MaD.py:748-843): K18's overlap of all of them (handed to
+    ``on_overlap`` on the host), ``enumerate_heteromer`` over their global
+    indices (the kinds in order), then ``score_models``. Returns the
+    models and the flat list of structures their ``components`` index."""
+    structures: List[Structure] = []
+    index: Dict[str, List[int]] = {}
+    for key, subs in groups.items():
+        index[key] = list(range(len(structures), len(structures) + len(subs)))
+        structures.extend(subs)
+    ov_dev = device_overlap(structures, cfg, device)
+    overlap = host_overlap(ov_dev)
+    if on_overlap is not None:
+        on_overlap(overlap)
+    tuples, sums, stds, maxs = enumerate_heteromer(
+        index, overlap, device=device, overlap_dev=ov_dev)
+    return score_models(tuples, sums, stds, maxs, structures, dmap, cfg,
+                        max_models, max_overlap), structures
 
 
 @profiling.spanned("assembly.score_models")

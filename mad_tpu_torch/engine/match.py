@@ -113,11 +113,15 @@ def _sharded_head(hi: torch.Tensor, lo: torch.Tensor, cfg: MatchConfig,
 def match_pairs(map_set: DescriptorSet, sub_set: DescriptorSet,
                 cfg: MatchConfig, mesh: Optional[Mesh] = None
                 ) -> Optional[dict]:
-    """Similarity stage + host pose data (mad/MaD.py:414-438): the cosine
+    """Similarity stage + pose data (mad/MaD.py:414-438): the cosine
     product (torch.matmul), the pair head (K10's head; with a mesh per
     shard of subunit rows, then merged) and its one pull; None when no
-    pair clears the threshold. Spans: ``match.similarity`` (the product,
-    the head, the pull), ``match.pose_data`` (the host pose data)."""
+    pair clears the threshold. The pairs' relative rotations ``rot`` and
+    their float32 anchors ``hi_xyz`` / ``lo_xyz`` are gathered and worked
+    out on the device of the head (the mesh's home) and stay there; the
+    keys and the anchor clouds are host arrays. Spans:
+    ``match.similarity`` (the product, the head, the pull),
+    ``match.pose_data`` (the pose data)."""
     with profiling.span("match.similarity"):
         if mesh is None:
             sim = sub_set.desc_norm @ map_set.desc_norm.T
@@ -126,6 +130,7 @@ def match_pairs(map_set: DescriptorSet, sub_set: DescriptorSet,
         else:
             keys = _sharded_head(sub_set.desc_norm, map_set.desc_norm, cfg,
                                  mesh)
+        dev = keys.device
         keys = profiling.pull(keys).numpy()
     with profiling.span("match.pose_data"):
         ccs, rows, cols = split_pair_keys(keys, map_set.desc_norm.shape[0])
@@ -134,13 +139,18 @@ def match_pairs(map_set: DescriptorSet, sub_set: DescriptorSet,
             return None
         hi_cloud, hi_rows = _cloud(sub_set.subv_coords, rows)
         lo_cloud, lo_rows = _cloud(map_set.subv_coords, cols)
-        rot = _relative_rotations(map_set.rfinal[cols], sub_set.rfinal[rows])
+        # each table goes up whole and its rows are gathered there
+        rows_d, cols_d = (torch.as_tensor(i, device=dev) for i in (rows, cols))
+        hi = lambda a: torch.as_tensor(a, device=dev)[rows_d]
+        lo = lambda a: torch.as_tensor(a, device=dev)[cols_d]
+        pose = dict(
+            rot=_relative_rotations(lo(map_set.rfinal), hi(sub_set.rfinal)),
+            hi_xyz=hi(sub_set.subv_coords).float(),
+            lo_xyz=lo(map_set.subv_coords).float())
         profiling.tag(pairs=len(rows), hi_rows=hi_rows, lo_rows=lo_rows,
                       hi_anchors=len(hi_cloud), lo_anchors=len(lo_cloud))
-    return dict(ccs=ccs, rows=rows, cols=cols, rot=rot,
-                hi_coord=sub_set.subv_coords[rows],
-                lo_coord=map_set.subv_coords[cols],
-                hi_cloud=hi_cloud, lo_cloud=lo_cloud)
+    return dict(ccs=ccs, rows=rows, cols=cols, hi_cloud=hi_cloud,
+                lo_cloud=lo_cloud, **pose)
 
 
 def _cloud(coords: np.ndarray, idx: np.ndarray):
@@ -154,20 +164,45 @@ def _cloud(coords: np.ndarray, idx: np.ndarray):
     rows = coords[used]
     if np.isnan(rows).any() or np.signbit(rows[rows == 0]).any():
         return np.unique(coords[idx], axis=0), len(rows)
-    return np.unique(rows, axis=0), len(rows)
+    return _unique_rows(rows), len(rows)
 
 
-def _relative_rotations(r_lo: np.ndarray, r_hi: np.ndarray) -> np.ndarray:
-    """R_lo^T @ R_hi of each pair, bit for bit ``np.einsum("pji,pjk->pik",
-    r_lo, r_hi)`` (mad/MaD.py:438) at half its time: the products summed
-    in j's order onto a zero, as the einsum's loop adds them (so a sum of
-    zeros is +0)."""
+def _unique_rows(rows: np.ndarray) -> np.ndarray:
+    """``np.unique(rows, axis=0)`` of (N, 3) rows with no NaN and no -0.0,
+    at half its time: a lexicographic sort by value (``np.unique`` sorts
+    the rows as records of three floats, compared field by field), then
+    the first of each run of equal rows."""
+    s = rows[np.lexsort(rows.T[::-1])]
+    keep = np.empty(len(s), dtype=bool)
+    keep[:1] = True
+    np.any(s[1:] != s[:-1], axis=1, out=keep[1:])
+    return s[keep]
+
+
+def _relative_rotations(r_lo, r_hi):
+    """R_lo^T @ R_hi of each pair (numpy arrays or tensors of one device),
+    bit for bit ``np.einsum("pji,pjk->pik", r_lo, r_hi)`` (mad/MaD.py:438):
+    each product rounded on its own and summed in j's order onto a zero,
+    as the einsum's loop adds them (so a sum of zeros is +0)."""
     a, b = r_lo[:, :, :, None], r_hi[:, :, None, :]
     rot = a[:, 0] * b[:, 0]
     rot += 0
-    np.add(a[:, 1] * b[:, 1], rot, out=rot)
-    np.add(a[:, 2] * b[:, 2], rot, out=rot)
+    rot += a[:, 1] * b[:, 1]
+    rot += a[:, 2] * b[:, 2]
     return rot
+
+
+def _descending(rep: np.ndarray) -> np.ndarray:
+    """``np.argsort(-rep, kind="stable")`` of float32 scores, as one sort
+    of distinct int64 keys: -rep's order bits (-0.0 made +0.0, as the
+    float compare has them equal) above the row index. With a NaN, the
+    stable argsort itself."""
+    if rep.dtype != np.float32 or np.isnan(rep).any():
+        return np.argsort(-rep, kind="stable")
+    x = (-rep + np.float32(0)).view(np.int32)
+    key = np.where(x < 0, x ^ np.int32(0x7FFFFFFF), x).astype(np.int64)
+    return np.sort((key << 32) | np.arange(len(rep), dtype=np.int64)
+                   ) & 0xFFFFFFFF
 
 
 def anchor_voxels(lo_cloud: np.ndarray, grid_origin, voxsp: float,
@@ -209,9 +244,7 @@ def match_descriptors(map_set: DescriptorSet, sub_set: DescriptorSet,
     pairs = match_pairs(map_set, sub_set, cfg, mesh)
     if pairs is None:
         return _empty_table()
-    ccs, rows, cols = pairs["ccs"], pairs["rows"], pairs["cols"]
-    rot, hi_coord, lo_coord = (pairs["rot"], pairs["hi_coord"],
-                               pairs["lo_coord"])
+    ccs, rows, cols, rot = (pairs[k] for k in ("ccs", "rows", "cols", "rot"))
     hi_cloud, lo_cloud = pairs["hi_cloud"], pairs["lo_cloud"]
     shards = mesh or Mesh((device,))
 
@@ -229,7 +262,8 @@ def match_descriptors(map_set: DescriptorSet, sub_set: DescriptorSet,
                     _f32(hi_cloud, d), _f32(grid_origin, d))
 
         rep_in = replicate(shards, rep_in_on)
-        poses = [_f32(a, shards.home) for a in (rot, hi_coord, lo_coord)]
+        poses = [pairs[k].to(shards.home, torch.float32).contiguous()
+                 for k in ("rot", "hi_xyz", "lo_xyz")]
         rep_d = map_rows(shards, len(rows), lambda d, a, e: approx_repeat(
             *rep_in[d], inv, *[t[a:e].to(d) for t in poses]))
 
@@ -252,11 +286,15 @@ def match_descriptors(map_set: DescriptorSet, sub_set: DescriptorSet,
     profiling.tag(exact_rows=n_use)
     with profiling.span("match.order"):
         sanitize.check_host("match.repeat", rep)
-        order = np.argsort(-rep, kind="stable")
+        order = _descending(rep)
+        hi_idx, lo_idx = rows[order], cols[order]
         return MatchTable(
-            cc=ccs[order], repeat=rep[order], hi_idx=rows[order],
-            lo_idx=cols[order], rot=rot[order], hi_coord=hi_coord[order],
-            lo_coord=lo_coord[order], hi_cloud=hi_cloud, lo_cloud=lo_cloud)
+            cc=ccs[order], repeat=rep[order], hi_idx=hi_idx, lo_idx=lo_idx,
+            rot=profiling.pull(rot[torch.as_tensor(order, device=rot.device)]
+                               ).numpy(),
+            hi_coord=sub_set.subv_coords[hi_idx],
+            lo_coord=map_set.subv_coords[lo_idx],
+            hi_cloud=hi_cloud, lo_cloud=lo_cloud)
 
 
 def _pull(*parts: torch.Tensor):

@@ -26,6 +26,8 @@ slots on the mesh's first device.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -113,6 +115,16 @@ class _OrientTables:
             device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def orient_tables(cfg: OrientConfig, radius: int, stride: int, device
+                  ) -> _OrientTables:
+    """The tables of one setting on one device, built once (a build runs
+    112 float64 rotations through a Python loop and makes eight uploads;
+    a fit orients two octaves of each map and subunit). Never written: K6
+    and its plain version only read them."""
+    return _OrientTables(cfg, radius, stride, device)
+
+
 def orient_anchors(grad, coords: torch.Tensor, valid: torch.Tensor,
                    real_shape, upsampled: bool, cfg: OrientConfig,
                    chunk: int = 32, mesh=None):
@@ -128,14 +140,12 @@ def orient_anchors(grad, coords: torch.Tensor, valid: torch.Tensor,
     params = (radius, stride, cfg.max_main, cfg.max_sec, cfg.cutoff_magn,
               chunk)
     if mesh is None:
-        tab = _OrientTables(cfg, radius, stride, grad.device)
+        tab = orient_tables(cfg, radius, stride, grad.device)
         return k6.orient(grad, coords, valid, real_shape, tab, *params)
     check_halo(grad, radius * stride * 2, "orient_anchors")
-    tabs = {}
 
     def shard(blk, lo, c, v):
-        if blk.device not in tabs:
-            tabs[blk.device] = _OrientTables(cfg, radius, stride, blk.device)
-        return k6.orient(blk, c, v, real_shape, tabs[blk.device], *params,
-                         lo)
+        return k6.orient(blk, c, v, real_shape,
+                         orient_tables(cfg, radius, stride, blk.device),
+                         *params, lo)
     return map_owned(grad, shard, coords, valid)

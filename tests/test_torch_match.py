@@ -9,9 +9,10 @@ Required:
   * approximate and exact repeatabilities equal, except pairs with a moved
     anchor within 1e-4 of a decision boundary (4 A for the exact score, a
     .5 voxel rounding edge for the approximate one);
-  * the host pose data of ``match_pairs`` (anchor clouds and relative
-    rotations, worked out once a distinct row) bit for bit the per-pair
-    formula it replaces and mad_tpu's, on one device and on CPU shards.
+  * the pose data of ``match_pairs`` (anchor clouds worked out once a
+    distinct row, relative rotations on the device) bit for bit the
+    per-pair formula it replaces and mad_tpu's, on one device and on CPU
+    shards; the host sort and unique helpers bit for bit numpy's.
 """
 
 import numpy as np
@@ -273,12 +274,14 @@ POSE_CASES = ["bench", "single_pair", "one_subunit_row", "equal_coords",
 
 @pytest.mark.parametrize("case", POSE_CASES)
 def test_pose_data_per_distinct_row(case):
-    """``match_pairs``' hi_cloud, lo_cloud and rot, worked out once a
-    distinct row, are bit for bit the per-pair formula (np.unique over the
-    pairs' anchors, np.einsum of the pairs' frames) and mad_tpu's."""
+    """``match_pairs``' hi_cloud and lo_cloud, worked out once a distinct
+    row, and rot, worked out on the device, are bit for bit the per-pair
+    formula (np.unique over the pairs' anchors, np.einsum of the pairs'
+    frames) and mad_tpu's."""
     jmap, tmap, jsub, tsub = _pose_case(case)
     mesh = make_mesh(3, devices=["cpu"] * 3) if case == "mesh" else None
     got = tm.match_pairs(tmap, tsub, TMatch(), mesh)
+    got["rot"] = got["rot"].cpu().numpy()     # worked out on the device
     rows, cols = got["rows"], got["cols"]
     want = dict(
         hi_cloud=np.unique(tsub.subv_coords[rows], axis=0),
@@ -287,6 +290,9 @@ def test_pose_data_per_distinct_row(case):
     for k, w in want.items():
         assert got[k].dtype == w.dtype and got[k].shape == w.shape, k
         assert got[k].tobytes() == w.tobytes(), k
+    for k, s, i in (("hi_xyz", tsub, rows), ("lo_xyz", tmap, cols)):
+        assert got[k].cpu().numpy().tobytes() == np.ascontiguousarray(
+            s.subv_coords[i], np.float32).tobytes(), k
     sizes = {"bench": 46648, "mesh": 46648, "single_pair": 1,
              "one_subunit_row": 100}
     assert len(rows) == sizes.get(case, len(rows)) > 0
@@ -300,3 +306,31 @@ def test_pose_data_per_distinct_row(case):
     for k in ("hi_cloud", "lo_cloud"):
         assert got[k].tobytes() == ref[k].tobytes(), k
     assert got["rot"][og].tobytes() == ref["rot"][orf].tobytes()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_unique_rows_and_descending_order_are_numpys(seed):
+    """``_unique_rows`` is ``np.unique(axis=0)`` and ``_descending`` is
+    ``np.argsort(-rep, kind="stable")``, byte for byte, on rows with
+    repeats and near repeats, and on scores with ties, both zeros and
+    both signs; a NaN score takes the stable argsort itself."""
+    rng = np.random.default_rng(seed)
+    for n in (0, 1, 2, 7, 3000):
+        rows = rng.integers(-20, 20, (n, 3)) * 0.6
+        rows[rng.random((n, 3)) < 0.05] += 1e-9
+        rows[rows == 0] = 0.0
+        want = np.unique(rows, axis=0)
+        got = tm._unique_rows(rows)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.tobytes() == want.tobytes()
+
+        rep = (rng.integers(0, 40, n) * rng.choice([-1, 1], n)).astype(
+            np.float32) * np.float32(0.37)
+        rep[rng.random(n) < 0.1] = -0.0
+        rep[rng.random(n) < 0.1] = rng.normal()
+        np.testing.assert_array_equal(tm._descending(rep),
+                                      np.argsort(-rep, kind="stable"))
+        if n > 1:
+            rep[n // 2] = np.nan
+            np.testing.assert_array_equal(tm._descending(rep),
+                                          np.argsort(-rep, kind="stable"))

@@ -1,6 +1,7 @@
 """The matching front's CUDA kernels (K10's pair head, K11 field, K12
 approximate repeatability, K14 cluster selection) against their plain
-PyTorch versions, on the card. Every test here needs a CUDA card and skips
+PyTorch versions, and the pairs' relative rotations worked out on the
+card against numpy's einsum, on the card. Every test here needs a CUDA card and skips
 without one; the file imports neither JAX nor mad_tpu:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -12,7 +13,9 @@ Tolerances:
     version's order, without FMA);
   * K12: equal, except pairs with a moved anchor within 1e-4 voxel of a
     .5 rounding edge (none is expected: the kernel rounds as the plain
-    version does).
+    version does);
+  * the relative rotations: bytes (each product and sum its own rounded
+    operation, as the einsum's loop does them).
 The parity of the plain versions with mad_tpu is held on the CPU by
 tests/test_torch_match_heads.py and tests/test_torch_cluster_select.py.
 """
@@ -22,6 +25,7 @@ import pytest
 import torch
 
 from mad_tpu_torch.core.config import FilterConfig
+from mad_tpu_torch.engine import match as em
 from mad_tpu_torch.kernels import approx as k12
 from mad_tpu_torch.kernels import cluster as k14
 from mad_tpu_torch.kernels import field as k11
@@ -165,3 +169,17 @@ def test_wrappers_raise_on_mixed_devices(cuda):
     args[4] = args[4].cpu()
     with pytest.raises(ValueError):
         k14.cluster_select(*args)
+
+
+def test_relative_rotations_on_the_card(cuda):
+    rng = np.random.default_rng(5)
+    P = 65536
+    r_lo = rng.normal(size=(P, 3, 3)).astype(np.float32)
+    r_hi = rng.normal(size=(P, 3, 3)).astype(np.float32)
+    r_lo[rng.random(r_lo.shape) < 0.1] = 0.0
+    r_hi[rng.random(r_hi.shape) < 0.1] = -0.0
+    r_lo[rng.random(r_lo.shape) < 0.01] *= np.float32(1e-20)  # subnormals
+    got = em._relative_rotations(torch.as_tensor(r_lo, device=cuda),
+                                 torch.as_tensor(r_hi, device=cuda))
+    want = np.einsum("pji,pjk->pik", r_lo, r_hi)
+    assert got.cpu().numpy().tobytes() == want.tobytes()

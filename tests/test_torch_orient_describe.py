@@ -193,3 +193,17 @@ def test_cpu_tensor_takes_the_plain_version(octaves):
                           torch.tensor(rfin[:4]), torch.tensor(valid[:4]),
                           o["real"], o["up"], TConfig().describe)
     assert k7.launches == 0
+
+
+def test_orient_tables_built_once_a_setting():
+    """``orient_tables`` hands out one table set a (setting, radius,
+    stride, device), equal to a fresh build, and another for another
+    stride."""
+    cfg = TConfig().orient
+    cpu = torch.device("cpu")
+    tab = tori.orient_tables(cfg, 8, 2, cpu)
+    assert tori.orient_tables(cfg, 8, 2, cpu) is tab
+    assert tori.orient_tables(cfg, 8, 1, cpu) is not tab
+    fresh = tori._OrientTables(cfg, 8, 2, cpu)
+    for k, v in vars(fresh).items():
+        assert torch.equal(getattr(tab, k), v), k
